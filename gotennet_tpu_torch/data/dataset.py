@@ -1,0 +1,137 @@
+"""In-memory molecular datasets and the dense-batch loader.
+
+Counterpart of ``gotennet_tpu/data/dataset.py`` for the dense layout:
+the same seed gives the same molecules (numpy ``default_rng``) and the
+same batch composition as the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from gotennet_tpu_torch.graph.dense_batch import DenseBatch, collate_dense
+
+__all__ = ["MoleculeDataset", "DenseLoader", "synthetic_molecules"]
+
+
+@dataclasses.dataclass
+class MoleculeDataset:
+    """Ragged molecule storage: lists of per-molecule arrays."""
+
+    z: List[np.ndarray]                     # [M_i] int
+    pos: List[np.ndarray]                   # [M_i, 3] float
+    y: Optional[np.ndarray] = None          # [n, T] graph targets
+
+    def __len__(self) -> int:
+        return len(self.z)
+
+    def graph_dicts(self, idx: Sequence[int]) -> List[dict]:
+        out = []
+        for i in idx:
+            g = {"z": self.z[i], "pos": self.pos[i]}
+            if self.y is not None:
+                g["y"] = self.y[i]
+            out.append(g)
+        return out
+
+
+def synthetic_molecules(n: int, seed: int = 0, min_atoms: int = 6,
+                        max_atoms: int = 24, box: float = 4.0
+                        ) -> MoleculeDataset:
+    """Random QM9-like molecules: organic atom types, positions spread so
+    typical neighbour counts match a 5 A cutoff, and a smooth synthetic
+    target (a sum of Gaussian pair terms).  Forces are not ported yet
+    (ROADMAP.md Queue 1, item 9)."""
+    rng = np.random.default_rng(seed)
+    zs, poss, ys = [], [], []
+    types = np.asarray([1, 6, 7, 8, 9])
+    probs = np.asarray([0.5, 0.3, 0.1, 0.08, 0.02])
+    for _ in range(n):
+        m = int(rng.integers(min_atoms, max_atoms + 1))
+        z = rng.choice(types, size=m, p=probs).astype(np.int32)
+        pos = (rng.random((m, 3)) - 0.5) * box * (m / 12.0) ** (1 / 3)
+        diff = pos[:, None] - pos[None, :]
+        d2 = (diff ** 2).sum(-1)
+        w = z[:, None] * z[None, :]
+        np.fill_diagonal(d2, np.inf)
+        e = float((w * np.exp(-d2)).sum()) * 0.01
+        zs.append(z)
+        poss.append(pos.astype(np.float32))
+        ys.append([e])
+    return MoleculeDataset(z=zs, pos=poss, y=np.asarray(ys, np.float32))
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class DenseLoader:
+    """Iterates fixed-capacity DenseBatches over a dataset.
+
+    ``max_atoms`` defaults to the largest molecule rounded up to a
+    multiple of 8.  With ``bucket=True`` molecules are sorted by size
+    inside windows of ``bucket_window`` batches and each batch is padded
+    only to its own largest molecule (rounded up to a multiple of 8): at
+    QM9's 12-29-atom spread that gives M in {16, 24, 32}."""
+
+    def __init__(self, ds: MoleculeDataset, batch_size: int,
+                 shuffle: bool = False, seed: int = 0,
+                 max_atoms: Optional[int] = None,
+                 drop_last: bool = False,
+                 bucket: bool = False,
+                 bucket_window: int = 16,
+                 pack: bool = False):
+        if pack:
+            from gotennet_tpu_torch.models.gotennet import not_ported
+            raise not_ported("DenseLoader(pack=True)", 4)
+        self.ds = ds
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = drop_last
+        if max_atoms is None:
+            max_atoms = max((len(z) for z in ds.z), default=1)
+        self.max_atoms = _round_up(max_atoms, 8)
+        self.bucket = bucket
+        self.bucket_window = bucket_window
+
+    def __len__(self) -> int:
+        n = len(self.ds)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batch_index_arrays(self, order) -> List[np.ndarray]:
+        bs = self.batch_size
+        stop = len(order) - (len(order) % bs if self.drop_last else 0)
+        order = order[:stop]
+        if not self.bucket:
+            return [order[off:off + bs] for off in range(0, stop, bs)]
+        window = bs * max(1, self.bucket_window)
+        sizes = np.asarray([len(z) for z in self.ds.z])
+        out = []
+        for wstart in range(0, stop, window):
+            w = order[wstart:wstart + window]
+            w = w[np.argsort(sizes[w], kind="stable")]
+            out.extend(w[o:o + bs] for o in range(0, len(w), bs))
+        return out
+
+    def batches(self) -> Iterator[Tuple[np.ndarray, DenseBatch]]:
+        """Yield ``(dataset indices, batch)``; row g of the batch holds
+        molecule ``indices[g]``."""
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        y_dim = self.ds.y.shape[1] if self.ds.y is not None else 1
+        sizes = np.asarray([len(z) for z in self.ds.z])
+        for idx in self._batch_index_arrays(order):
+            m = self.max_atoms if not self.bucket else min(
+                self.max_atoms, _round_up(max(8, int(sizes[idx].max())), 8))
+            yield idx, collate_dense(self.ds.graph_dicts(idx),
+                                     self.batch_size, m, y_dim=y_dim)
+
+    def __iter__(self) -> Iterator[DenseBatch]:
+        return (b for _, b in self.batches())

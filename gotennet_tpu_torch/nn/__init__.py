@@ -1,0 +1,1 @@
+"""See the package docstring of gotennet_tpu_torch."""

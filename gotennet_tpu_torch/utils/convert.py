@@ -1,0 +1,116 @@
+"""Weights from the JAX package into this package.
+
+``state_dict_from_jax_params`` maps a flax parameter tree (nested dicts
+of arrays, as ``GotenModel.init`` returns it) onto this package's state
+dict, whose keys are the reference checkpoint's
+(``representation.gata_list.0.W_q.weight``, ...).  Kernels are
+transposed from JAX's ``[in, out]`` to torch's ``[out, in]``.  The
+mapping is a local copy of ``_mapping`` / ``head_mapping`` in
+``gotennet_tpu/utils/torch_convert.py``, restricted to the options this
+package ports; the head's mean, stddev and atomref come from the
+``HeadConfig``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+from gotennet_tpu_torch.models.model import HeadConfig
+
+__all__ = ["state_dict_from_jax_params"]
+
+Entry = Tuple[str, tuple, bool]   # (torch key, flax path, transpose)
+
+
+def _dense(torch_name: str, jax_path: tuple, bias: bool = True,
+           norm: bool = False) -> List[Entry]:
+    out = [(f"{torch_name}.weight", jax_path + ("linear", "kernel"), True)]
+    if bias:
+        out.append((f"{torch_name}.bias", jax_path + ("linear", "bias"), False))
+    if norm:
+        out.append((f"{torch_name}.norm.weight", jax_path + ("norm", "scale"),
+                    False))
+        out.append((f"{torch_name}.norm.bias", jax_path + ("norm", "bias"),
+                    False))
+    return out
+
+
+def _mlp(torch_name: str, jax_path: tuple, n_layers: int,
+         norm_hidden: bool = False) -> List[Entry]:
+    out = []
+    for i in range(n_layers):
+        out += _dense(f"{torch_name}.dense_layers.{i}",
+                      jax_path + (f"layers_{i}",),
+                      norm=norm_hidden and i < n_layers - 1)
+    return out
+
+
+def _mapping(cfg: GotenNetConfig) -> List[Entry]:
+    """Representation entries (keys without the 'representation.'
+    prefix, paths from the representation subtree)."""
+    m: List[Entry] = [("A_na.weight", ("A_na",), False),
+                      ("node_init.A_nbr.weight", ("node_init", "A_nbr"), False)]
+    m += _dense("node_init.W_ndp.dense_layers.0", ("node_init", "W_ndp"))
+    m += _mlp("node_init.W_nrd_nru", ("node_init", "W_nrd_nru"), 2,
+              norm_hidden=True)
+    m += _dense("edge_init.W_erp", ("edge_init", "W_erp"))
+    for i in range(cfg.n_interactions):
+        g, j = f"gata_list.{i}", (f"gata_{i}",)
+        for t_name, j_name in (("gamma_s.0", "gamma_s_0"),
+                               ("gamma_s.1", "gamma_s_1"), ("W_q", "W_q"),
+                               ("W_k", "W_k"), ("gamma_v.0", "gamma_v_0"),
+                               ("gamma_v.1", "gamma_v_1"), ("W_re", "W_re"),
+                               ("W_rs", "W_rs")):
+            m += _dense(f"{g}.{t_name}", j + (j_name,))
+        if i < cfg.n_interactions - 1:
+            m += _mlp(f"{g}.gamma_t", j + ("gamma_t",), 1)
+            m += _dense(f"{g}.W_vq", j + ("W_vq",), bias=False)
+            if cfg.sep_htr:
+                for l in range(cfg.lmax):
+                    m += _dense(f"{g}.W_vk.{l}", j + (f"W_vk_{l}",),
+                                bias=False)
+            else:
+                m += _dense(f"{g}.W_vk", j + ("W_vk",), bias=False)
+        e, je = f"eqff_list.{i}", (f"eqff_{i}",)
+        m += _dense(f"{e}.gamma_m.0", je + ("gamma_m_0",))
+        m += _dense(f"{e}.gamma_m.1", je + ("gamma_m_1",))
+        m += _dense(f"{e}.W_vu", je + ("W_vu",), bias=False)
+    return m
+
+
+def _get(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
+                               head: HeadConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``GotenModel`` params (with or without the outer 'params'
+    key) -> this package's ``GotenModel`` state dict."""
+    tree = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr, transpose):
+        arr = np.array(arr, np.float32)
+        out[key] = torch.from_numpy(np.ascontiguousarray(
+            arr.T if transpose else arr))
+
+    for key, path, tr in _mapping(cfg):
+        put("representation." + key, _get(tree["representation"], path), tr)
+    pre = "output_modules.0."
+    for i in range(len(tree["head"]["out_net"])):
+        for key, path, tr in _dense(f"{pre}out_net.1.out_net.{i}",
+                                    ("head", "out_net", f"dense_{i}")):
+            put(key, _get(tree, path), tr)
+    put(f"{pre}standardize.mean", [head.mean], False)
+    put(f"{pre}standardize.stddev", [head.stddev], False)
+    if head.atomref is not None:
+        table = np.asarray(head.atomref, np.float32)
+        put(f"{pre}atomref.weight", table[:, None] if table.ndim == 1
+            else table, False)
+    return out

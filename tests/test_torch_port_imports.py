@@ -1,0 +1,50 @@
+"""The port stands alone: no module of ``gotennet_tpu_torch``, and not
+``chip_smoke.py``, imports JAX, flax, optax or the JAX package, and all of
+them import in a fresh interpreter where those names are blocked."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "gotennet_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+BLOCKED = ("jax", "flax", "optax", "gotennet_tpu")
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+for name in %r:
+    sys.modules[name] = None
+import gotennet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gotennet_tpu_torch.__path__,
+                                               "gotennet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+""" % (BLOCKED,)
+
+
+def test_every_module_imports_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    # ops, nn, graph, data, models, tasks, utils and their modules
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_statement_names_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(BLOCKED), (path.name, node.lineno)
