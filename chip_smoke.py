@@ -21,7 +21,19 @@ Phases, in order; any failure exits non-zero before the result line:
      edges per second, the device's busy share of that request (one more
      request under ``torch.profiler``), and the kernel's time per launch on
      the inputs the request gave it, held against the plain version and
-     timed beside it and beside its bound.
+     timed beside it and beside its bound;
+  5. backward kernel vs plain: the fused-GATA backward kernel against its
+     plain PyTorch version at the training shapes (G=16, D=256, H=8, lmax
+     2, mult 5), M in {16, 24, 32}, float32 and bf16 pair types, scalar and
+     per-head scale, padded atoms (whose cotangents must be exact zeros);
+  6. training: ``train_steps`` takes one step of the flagship model on 256
+     synthetic QM9-sized molecules in 16-graph accumulation chunks; both
+     kernels' launch counters must equal chunks x 4 layers.  The first
+     step's gradients are held against the same step with the backward's
+     plain version; three steps are timed after two warm-up steps (CUDA
+     events), with real edges per second, the device's busy share of a step
+     (``torch.profiler``) and the backward kernel's time per launch on the
+     inputs a step gave it, beside its plain version and its bound.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -39,6 +51,7 @@ import torch
 
 G, D, H, LMAX, N_LAYERS, CHUNK = 8, 256, 8, 2, 4, 8
 REQUESTS = (1, 37, 256)
+TRAIN_MOLS, TRAIN_CHUNK, LR = 256, 16, 1e-4
 # float32: the same arithmetic, sums in another order (and the card's
 # expf) -> 1e-4 of each output's scale.  bf16 pair type: both versions
 # round at the same points, but the kernel's tensor-core sums are taken in
@@ -47,6 +60,11 @@ REQUESTS = (1, 37, 256)
 # scale.  The served answers carry such flips through four layers -> 2e-2
 # of the scale.
 TOL_F32, TOL_BF16, TOL_SERVE = 1e-4, 1e-2, 2e-2
+# A training step's gradients, backward kernel against its plain version:
+# the same rounding points, float32 sums in another order; a bf16 value that
+# lands on its neighbour in one layer's cotangents is carried back through
+# the layers below it -> 2e-2 of each parameter's gradient scale.
+TOL_TRAIN = 2e-2
 
 
 def log(msg: str) -> None:
@@ -66,7 +84,7 @@ def rel_err(got, want) -> tuple:
     return err, err / max(want.float().abs().max().item(), 1e-30)
 
 
-def kernel_inputs(M, pair_dtype, head_scale, seed):
+def kernel_inputs(M, pair_dtype, head_scale, seed, G=G):
     """Flagship-shape inputs on the card; graph 0 has 3 padded atoms."""
     gen = torch.Generator().manual_seed(seed)
     L = (LMAX + 1) ** 2 - 1
@@ -90,22 +108,42 @@ def kernel_inputs(M, pair_dtype, head_scale, seed):
     return [a.cuda() for a in args]
 
 
-def bound_ms(args, pair_dtype) -> tuple:
+def bound_ms(args, pair_dtype, n_out, flop_per_pair) -> tuple:
     """Least time an H100 SXM could take for one launch: the larger of
-    bytes / 3.35 TB/s (each input read once, each output written once)
-    and the projections' FLOP / the pair type's peak (989 TFLOP/s bf16,
-    67 TFLOP/s float32), counting the valid pairs only, since invalid
-    pairs add exact zeros."""
-    t, env, W_re, W_rs = args[0], args[7], args[9], args[11]
-    Dd, C = W_re.shape[0], W_rs.shape[1]
-    Gg, M = t.shape[:2]
-    L = args[5].shape[-1]
+    bytes / 3.35 TB/s (each input read once, each of the ``n_out`` output
+    bytes written once) and the projections' FLOP / the pair type's peak
+    (989 TFLOP/s bf16, 67 TFLOP/s float32), counting the valid pairs only,
+    since invalid pairs add exact zeros."""
     n_in = sum(a.numel() * a.element_size() for a in args)
-    n_out = (Gg * M * Dd + Gg * M * L * Dd) * 4
-    flops = 2.0 * int((env >= 0).sum()) * Dd * (Dd + C)
+    flops = flop_per_pair * int((args[7] >= 0).sum())
     peak = 989e12 if pair_dtype == torch.bfloat16 else 67e12
     t_bytes, t_ops = (n_in + n_out) / 3.35e12 * 1e3, flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fwd_bound_ms(args, kwargs) -> tuple:
+    """The forward: d_h and dX out; the two projections t W_re and t W_rs,
+    2 D (D + mult D) FLOP per pair."""
+    t, W_re, W_rs = args[0], args[9], args[11]
+    Dd, C = W_re.shape[0], W_rs.shape[1]
+    Gg, M = t.shape[:2]
+    L = args[5].shape[-1]
+    n_out = (Gg * M * Dd + Gg * M * L * Dd) * 4
+    return bound_ms(args, kwargs["pair_dtype"], n_out, 2.0 * Dd * (Dd + C))
+
+
+def bwd_bound_ms(args, kwargs) -> tuple:
+    """The backward: the 11 cotangents it computes out (float32); six
+    projections (t W_rs and t W_re recomputed, g_tf W_rs^T, g_zre W_re^T,
+    t^T g_tf, t^T g_zre), 6 D (mult D + D) FLOP per pair."""
+    t, scale, W_re, W_rs = args[0], args[8], args[9], args[11]
+    Dd, C = W_re.shape[0], W_rs.shape[1]
+    Gg, M = t.shape[:2]
+    L = args[5].shape[-1]
+    n_out = 4 * (Gg * M * M * Dd + 2 * Gg * M * Dd + 2 * Gg * M * C
+                 + Gg * M * L * Dd + scale.numel() + Dd * Dd + Dd + Dd * C
+                 + C)
+    return bound_ms(args, kwargs["pair_dtype"], n_out, 6.0 * Dd * (C + Dd))
 
 
 def time_calls(fn, calls, reps) -> float:
@@ -124,16 +162,17 @@ def time_calls(fn, calls, reps) -> float:
     return start.elapsed_time(end) / (reps * len(calls))
 
 
-def profile_request(pred, request, req_ms, card) -> None:
-    """One request under ``torch.profiler``: the device time of its kernels
-    and copies, as a share of the request's time without the profiler, and
-    the device ops that took the most of it."""
+def profile(run, wall_ms, what, card) -> None:
+    """``run()`` once under ``torch.profiler``: the device time of its
+    kernels and copies, as a share of ``wall_ms`` (its time without the
+    profiler), and the device ops that took the most of it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pred.predict(request)
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
     # device-side events only: an aten op's row repeats its kernels' time
     ops = sorted((e for e in prof.key_averages()
@@ -144,42 +183,50 @@ def profile_request(pred, request, req_ms, card) -> None:
         log("[profile] device time not measured: the profiler saw no device "
             "events")
         return
-    log(f"[profile] {len(request)}-molecule request: device busy "
-        f"{busy_ms:.3f} ms in {sum(e.count for e in ops)} device ops, "
-        f"{100 * busy_ms / req_ms:.1f} % of the {req_ms:.3f} ms request "
-        f"(idle {100 * (1 - busy_ms / req_ms):.1f} %) | {card}")
+    log(f"[profile] {what}: device busy {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in ops)} device ops, "
+        f"{100 * busy_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms "
+        f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %) | {card}")
     for e in ops[:6]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d} x  {e.key[:80]}")
 
 
-@torch.inference_mode()
-def kernel_record(pred, request, kernel, plain, card) -> dict:
-    """Capture the kernel's inputs while ``pred`` answers ``request``,
-    hold the kernel against the plain version on each of them, and time
-    both per launch, grouped by M, beside the bound.  (The captured
-    weights are inference tensors, so the replay runs in inference mode
-    too.)"""
+def capture(name, run) -> list:
+    """The arguments of every call of ``fused_gata.<name>`` while ``run()``
+    runs (the calls still go to the kernel)."""
     from gotennet_tpu_torch.ops import fused_gata
+    kernel = getattr(fused_gata, name)
     captured = []
 
     def record(*args, **kwargs):
         captured.append((args, kwargs))
         return kernel(*args, **kwargs)
 
-    with mock.patch.object(fused_gata, "fused_gata_forward", record):
-        pred.predict(request)
+    with mock.patch.object(fused_gata, name, record):
+        run()
     torch.cuda.synchronize()
+    return captured
+
+
+@torch.inference_mode()
+def kernel_record(meta, captured, kernel, plain, bound, card) -> dict:
+    """Hold the kernel against the plain version on each captured call, and
+    time both per launch, grouped by M, beside ``bound(args, kwargs)``.
+    (Weights captured while serving are inference tensors, so the replay
+    runs in inference mode.)"""
     max_abs = 0.0
     for args, kwargs in captured:
         got = kernel(*args, **kwargs)
         want = plain(*args, **kwargs)
-        for g_, w_ in zip(got[:2], want[:2]):
+        for g_, w_ in zip(got, want):
+            if g_ is None:
+                continue
             err, rel = rel_err(g_, w_)
             max_abs = max(max_abs, err)
             if rel > TOL_BF16:
-                raise AssertionError("kernel disagrees on the request's "
-                                     f"inputs (rel err {rel:.3e})")
+                raise AssertionError(f"{meta['name']} disagrees on the main "
+                                     f"path's inputs (rel err {rel:.3e})")
     by_m = {}
     for c in captured:
         by_m.setdefault(c[0][0].shape[1], []).append(c)
@@ -189,23 +236,159 @@ def kernel_record(pred, request, kernel, plain, card) -> dict:
         calls = by_m[M]
         k_ms = time_calls(lambda c: kernel(*c[0], **c[1]), calls, 3)
         p_ms = time_calls(lambda c: plain(*c[0], **c[1]), calls, 1)
-        bounds = [bound_ms(c[0], c[1]["pair_dtype"]) for c in calls]
+        bounds = [bound(*c) for c in calls]
         b_ms = sum(b for b, _ in bounds) / len(bounds)
         bound_kind = bounds[0][1]
         total_k += k_ms * len(calls)
         total_p += p_ms * len(calls)
         total_b += b_ms * len(calls)
-        log(f"[time] fused_gata_fwd M={M}: {len(calls)} launches, kernel "
+        log(f"[time] {meta['name']} M={M}: {len(calls)} launches, kernel "
             f"{k_ms:.4f} ms/launch, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({bound_kind}) | {card}")
     n = len(captured)
-    return {"name": "fused_gata_fwd", "route": "cuda",
-            "source": "gotennet_tpu_torch/csrc/fused_gata_fwd.cu",
-            "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:108",
-            "launches": None, "max_abs_err": max_abs,
+    return {**meta, "launches": None, "max_abs_err": max_abs,
             "ms": total_k / n, "plain_ms": total_p / n,
             "bound_ms": total_b / n, "bound_by": bound_kind,
             "library_ms": None}
+
+
+def check_backward() -> None:
+    """Phase 5: the backward kernel against its plain version at the
+    training shapes."""
+    from gotennet_tpu_torch.ops import fused_gata
+    bf16, f32 = torch.bfloat16, torch.float32
+    kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True)
+    names = ("g_t", "g_q", "g_k", "g_xg", "g_v", "g_rl", "g_X", "g_env",
+             "g_scale", "g_Wre", "g_bre", "g_Wrs", "g_brs")
+    L = (LMAX + 1) ** 2 - 1
+    for M in (16, 24, 32):
+        for pd in (f32, bf16):
+            for head_scale in (False, True):
+                args = kernel_inputs(M, pd, head_scale, seed=100 + M,
+                                     G=TRAIN_CHUNK)
+                _, _, sm = fused_gata.fused_gata_forward(
+                    *args, **kw, pair_dtype=pd, with_attn=True)
+                gen = torch.Generator().manual_seed(M)
+                g_dh = torch.randn(TRAIN_CHUNK, M, D, generator=gen).cuda()
+                g_dX = torch.randn(TRAIN_CHUNK, M, L, D, generator=gen).cuda()
+                got = fused_gata.fused_gata_backward(
+                    *args, sm, g_dh, g_dX, **kw, pair_dtype=pd)
+                torch.cuda.synchronize()
+                want = fused_gata.fused_gata_backward_reference(
+                    *args, sm, g_dh, g_dX, **kw, pair_dtype=pd)
+                tol = TOL_BF16 if pd == bf16 else TOL_F32
+                errs = [rel_err(g, w) for g, w in zip(got, want)]
+                worst = max(range(len(errs)), key=lambda i: errs[i][1])
+                log(f"[bwd-vs-plain] M={M} pair={str(pd)[6:]} "
+                    f"head_scale={head_scale}: max rel err "
+                    + ", ".join(f"{n} {r:.1e}" for n, (_, r)
+                                in zip(names, errs) if n not in
+                                ("g_rl", "g_env"))
+                    + f" (worst {names[worst]}, abs {errs[worst][0]:.3e}; "
+                    f"tol {tol:g} rel)")
+                if errs[worst][1] > tol:
+                    raise AssertionError(f"backward kernel disagrees at M={M}"
+                                         f" {pd} on {names[worst]}")
+                # padded atoms (graph 0's last 3): exact zeros
+                g_t, g_q, g_k, g_xg, g_v, _, g_X, _, g_scale = got[:9]
+                pad = [a[0, M - 3:] for a in (g_t, g_q, g_k, g_xg, g_v, g_X,
+                                              g_scale)]
+                pad += [a[0, :, M - 3:] for a in (g_t, g_scale)]
+                if not all(bool(torch.all(a == 0)) for a in pad):
+                    raise AssertionError("padded atoms got a cotangent")
+
+
+def train_phase(cfg, head, card) -> dict:
+    """Phase 6: the training step at full width; returns the backward
+    kernel's record."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.models.gotennet_dense import pair_geometry
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.ops import fused_gata
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (accum_grads, make_chunks,
+                                                  make_loss_fn, train_step,
+                                                  train_steps)
+
+    fwd, bwd = fused_gata.fused_gata_forward, fused_gata.fused_gata_backward
+    ds = synthetic_molecules(TRAIN_MOLS, seed=1, min_atoms=12, max_atoms=29)
+    mols = ds.graph_dicts(range(TRAIN_MOLS))
+    expected = math.ceil(TRAIN_MOLS / TRAIN_CHUNK) * N_LAYERS
+
+    # the main path: one step through the entry point
+    fwd.launches = bwd.launches = 0
+    losses = train_steps(cfg, head, mols, 1, chunk=TRAIN_CHUNK, lr=LR,
+                         seed=0)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = fwd.launches, bwd.launches
+    log(f"[train] one step on {TRAIN_MOLS} molecules in {TRAIN_CHUNK}-graph "
+        f"chunks: loss {losses[0]:.6f}; launches forward {n_fwd}, backward "
+        f"{n_bwd} (chunks x layers = {expected})")
+    if n_fwd != expected or n_bwd != expected:
+        raise AssertionError(f"launches {n_fwd}/{n_bwd}, expected {expected}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("training loss is not finite")
+
+    # the first step's gradients against the backward's plain version
+    model = GotenModel(cfg, head, seed=0)
+    chunks = make_chunks(mols, TRAIN_CHUNK, "cuda")
+    loss_fn = make_loss_fn(model, Task(None))
+    model.train()
+    accum_grads(model, loss_fn, chunks)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    with mock.patch.object(fused_gata, "fused_gata_backward",
+                           fused_gata.fused_gata_backward_reference):
+        accum_grads(model, loss_fn, chunks)
+    errs = {n: rel_err(grads[n], p.grad) for n, p in model.named_parameters()}
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[train] first-step gradients, kernel vs plain backward: "
+        f"{len(errs)} tensors, worst {worst} abs {errs[worst][0]:.3e} rel "
+        f"{errs[worst][1]:.3e} (tol {TOL_TRAIN:g} rel)")
+    if errs[worst][1] > TOL_TRAIN or not all(
+            torch.isfinite(g).all() for g in grads.values()):
+        raise AssertionError("training gradients disagree with the plain "
+                             "backward")
+
+    # timing: three steps after two warm-up steps
+    opt = make_optimizer(model.parameters(), LR)
+
+    def step():
+        return train_step(model, opt, chunks, opt.grad_clip, loss_fn=loss_fn)
+
+    step_losses = [step() for _ in range(2)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 3
+    t0 = time.perf_counter()
+    start.record()
+    step_losses += [step() for _ in range(reps)]
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / reps
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError("training loss is not finite")
+    real_edges = sum(int(pair_geometry(b.pos, b.mask, cfg.cutoff,
+                                       cfg.max_num_neighbors).pair_mask.sum())
+                     for b in chunks)
+    padded = sum(b.num_graphs * b.max_atoms ** 2 for b in chunks)
+    log(f"[train] step: {step_ms:.3f} ms (CUDA events), {host_ms:.3f} ms "
+        f"(host clock); real edges {real_edges} (self-loops included), "
+        f"padded pairs {padded}; {real_edges / (step_ms / 1e3):.1f} real "
+        f"edges/s; losses {[round(x, 6) for x in step_losses]} | {card}")
+    profile(step, step_ms, "training step", card)
+
+    captured = capture("fused_gata_backward",
+                       lambda: accum_grads(model, loss_fn, chunks))
+    record = kernel_record(
+        {"name": "fused_gata_bwd", "route": "cuda",
+         "source": "gotennet_tpu_torch/csrc/fused_gata_bwd.cu",
+         "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:350"},
+        captured, bwd, fused_gata.fused_gata_backward_reference,
+        bwd_bound_ms, card)
+    record["launches"] = n_bwd
+    return record
 
 
 def main() -> int:
@@ -239,7 +422,6 @@ def main() -> int:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[ptxas] {src}: {line.strip()}")
-
     # ---- 2. kernel vs plain at flagship shapes ---------------------------
     kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True)
     for M in (16, 24, 32):
@@ -327,11 +509,23 @@ def main() -> int:
         f"(self-loops included), padded pairs {padded_pairs}; "
         f"{real_edges / (req_ms / 1e3):.1f} real edges/s | {card}")
 
-    profile_request(pred, big, req_ms, card)
+    profile(lambda: pred.predict(big), req_ms, f"{len(big)}-molecule request",
+            card)
     # the kernel on the inputs the 256-molecule request gave it
-    record = kernel_record(pred, big, kernel, plain, card)
+    record = kernel_record(
+        {"name": "fused_gata_fwd", "route": "cuda",
+         "source": "gotennet_tpu_torch/csrc/fused_gata_fwd.cu",
+         "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:108"},
+        capture("fused_gata_forward", lambda: pred.predict(big)), kernel,
+        plain, fwd_bound_ms, card)
     record["launches"] = launches
-    log(json.dumps({"kernels": [record]}))
+
+    # ---- 5. backward kernel vs plain at the training shapes --------------
+    check_backward()
+
+    # ---- 6. training at full width ----------------------------------------
+    bwd_record = train_phase(cfg, head, card)
+    log(json.dumps({"kernels": [record, bwd_record]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

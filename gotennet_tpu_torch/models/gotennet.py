@@ -109,6 +109,9 @@ class GotenNetConfig:
     fused_htr: bool = False
     merge_proj: bool = True
     scan_layers: bool = False
+    # position gradients through the fused message; None follows the
+    # head (GotenModel resolves it from ``derivative``)
+    pos_grads: Optional[bool] = None
 
     def __post_init__(self):
         if self.n_atom_basis % self.num_heads:
@@ -145,6 +148,9 @@ class GotenNetConfig:
             raise not_ported(f"edge_updates={self.edge_updates!r}", 5)
         if self.fused_htr:
             raise not_ported("fused_htr=True (the dense HTR kernel)", 8)
+        if self.pos_grads:
+            raise not_ported("pos_grads=True (position gradients through "
+                             "the fused message)", 9)
         if self.scan_layers:
             raise not_ported("scan_layers (layer-stacked parameter trees)",
                              13)

@@ -2,7 +2,8 @@
 
 Counterpart of ``gotennet_tpu/models/gotennet_dense.py`` with the fused
 message path: every GATA layer runs its message + aggregation through
-``ops.fused_gata.fused_gata_forward`` (the CUDA kernel on the card), and
+``ops.fused_gata.fused_gata`` (the CUDA kernels on the card, forward and,
+in training, backward through ``FusedGATA``), and
 the HTR edge update in its expanded-rejection form as plain tensor ops:
 
     sum_m EQr.EKr = S - pq * pk * (2 - |r_l|^2)
@@ -216,7 +217,8 @@ class GATADense(nn.Module):
             scale = torch.sqrt(n_edges) / math.sqrt(D)
         else:
             scale = torch.full_like(dist, 1.0 / math.sqrt(D))
-        d_h, dX, _ = fused_gata.fused_gata_forward(
+        # through FusedGATA (kernel backward) when a gradient is wanted
+        d_h, dX = fused_gata.fused_gata(
             t_ij.contiguous(), q.contiguous(), k.contiguous(),
             x_g.contiguous(), v.contiguous(), rl_ij, X, env_signed, scale,
             self.W_re.weight.t().contiguous(), self.W_re.bias,

@@ -85,6 +85,10 @@ class GotenModel(nn.Module):
             raise ValueError(f"aggregation {head.aggregation!r}: the port's "
                              "Atomwise head sums per graph")
         device = resolve_device(device)
+        # pos_grads=None follows the head: only force heads differentiate
+        # positions (the JAX package resolves it the same way)
+        if cfg.pos_grads is None:
+            cfg = dataclasses.replace(cfg, pos_grads=head.derivative)
         self.cfg = cfg
         self.head = head
         self.representation = GotenNetDense(cfg)
@@ -94,6 +98,7 @@ class GotenModel(nn.Module):
             mean=head.mean, stddev=head.stddev, atomref=head.atomref)])
         init_parameters_(self, torch.Generator().manual_seed(seed))
         self.to(device)
+        # serving mode after construction; training code calls .train()
         self.eval()
 
     def forward(self, batch: DenseBatch) -> Dict[str, torch.Tensor]:

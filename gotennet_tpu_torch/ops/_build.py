@@ -22,7 +22,7 @@ __all__ = ["build_all", "load_library", "build_log", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("fused_gata_fwd.cu",)
+SOURCES = ("fused_gata_fwd.cu", "fused_gata_bwd.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -78,11 +78,22 @@ def build_log(source: str = SOURCES[0]) -> str:
     return _target(source).with_suffix(".log").read_text()
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = lib.gotennet_fused_gata_fwd
-    fn.argtypes = [ptr] * 16 + [i32] * 11 + [ptr]
-    fn.restype = i32
+def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
+    """Argument and result types of the C functions of ``source``."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if source == "fused_gata_fwd.cu":
+        fn = lib.gotennet_fused_gata_fwd
+        fn.argtypes = [ptr] * 16 + [i32] * 11 + [ptr]
+        fn.restype = i32
+    elif source == "fused_gata_bwd.cu":
+        fn = lib.gotennet_fused_gata_bwd
+        fn.argtypes = [ptr] * 28 + [i32] * 11 + [ptr]
+        fn.restype = i32
+        fn = lib.gotennet_fused_gata_bwd_workspace
+        fn.argtypes = [i32] * 7
+        fn.restype = i64
+    else:
+        raise ValueError(f"no C interface declared for {source}")
     lib.gotennet_cuda_error_string.argtypes = [i32]
     lib.gotennet_cuda_error_string.restype = ctypes.c_char_p
 
@@ -93,6 +104,6 @@ def load_library(source: str = SOURCES[0]) -> ctypes.CDLL:
         if source not in _libs:
             path, = build_all((source,))
             lib = ctypes.CDLL(str(path))
-            _declare(lib)
+            _declare(lib, source)
             _libs[source] = lib
         return _libs[source]

@@ -1,9 +1,10 @@
-"""Fused dense-GATA message + aggregation, forward.
+"""Fused dense-GATA message + aggregation, forward and backward.
 
-Replaces the TPU kernel ``_kernel`` in
+Replaces the TPU kernels ``_kernel`` and ``_bwd_kernel`` in
 ``gotennet_tpu/ops/pallas/fused_gata.py`` (launched by
-``_pallas_forward``, public ``fused_gata_message``).  For each graph g,
-destination i and neighbour j < M:
+``_pallas_forward`` and ``_pallas_backward``, wired by
+``make_fused_gata``).  For each graph g, destination i and neighbour
+j < M:
 
     ta     = silu(t @ W_re + b_re)
     logits = sum_{d in head h} q_i * k_j * ta          (per head)
@@ -24,7 +25,11 @@ every j-sum accumulates in float32.
 
 ``fused_gata_forward`` runs the hand-written CUDA kernel
 (``csrc/fused_gata_fwd.cu``) on CUDA tensors and the plain version
-``fused_gata_forward_reference`` on CPU tensors; nothing falls back.
+``fused_gata_forward_reference`` on CPU tensors; ``fused_gata_backward``
+likewise runs ``csrc/fused_gata_bwd.cu`` or
+``fused_gata_backward_reference``.  Nothing falls back.  ``FusedGATA``
+wires the two through autograd, and ``fused_gata`` picks it only when a
+gradient is wanted.
 """
 
 from __future__ import annotations
@@ -32,11 +37,16 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-__all__ = ["fused_gata_forward", "fused_gata_forward_reference",
-           "MAX_PAIRS_PER_BLOCK"]
+__all__ = ["fused_gata", "FusedGATA", "fused_gata_forward",
+           "fused_gata_forward_reference", "fused_gata_backward",
+           "fused_gata_backward_reference", "MAX_PAIRS_PER_BLOCK"]
 
 Out = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+# names of the 13 inputs, in argument order
+ARG_NAMES = ("t", "q", "k", "x_g", "v", "rl", "X", "env_signed", "scale",
+             "W_re", "b_re", "W_rs", "b_rs")
 
 # pair rows one thread block holds (TI destination rows x all M neighbours)
 MAX_PAIRS_PER_BLOCK = 128
@@ -104,9 +114,145 @@ def fused_gata_forward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
     return d_h, dX, (sm if with_attn else None)
 
 
-def _check(cond: bool, msg: str) -> None:
+def fused_gata_backward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
+                                  W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, *,
+                                  lmax: int, num_heads: int, sep_dir: bool,
+                                  sep_tensor: bool,
+                                  pair_dtype: torch.dtype = torch.float32
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward kernel: the analytic VJP of
+    the forward, from its pre-scale softmax ``sm`` ``[G,M,M,H]`` and the
+    float32 cotangents ``g_dh`` ``[G,M,D]`` and ``g_dX`` ``[G,M,L,D]``.
+
+    Cast points follow the TPU kernel ``_bwd_kernel``: every pair-sized
+    product is formed from factors rounded to ``pair_dtype`` and is
+    rounded itself (``r`` below), every sum accumulates in float32, and
+    the softmax backward and the silu chain stay in float32.  Returns the
+    13 cotangents in input order, all float32.  Those of ``rl`` and
+    ``env_signed`` are zeros: position gradients are not ported
+    (ROADMAP.md Queue 1, item 9).
+    """
+    f32 = torch.float32
+
+    def r(a):
+        return a.to(pair_dtype).to(f32)
+
+    G, M, _, D = t.shape
+    H = num_heads
+    C = W_rs.shape[1]
+    e_per = C // H
+    scale_h = scale if scale.dim() == 4 else scale[..., None]
+    tp = r(t.to(f32))                                        # [G,i,j,D]
+    envp = r(env_signed.clamp(min=0.0))[..., None]           # [G,i,j,1]
+    attn_c = r(sm * scale_h).repeat_interleave(e_per, dim=-1)  # [G,i,j,C]
+    xg = r(x_g.to(f32))[:, None]                             # [G,1,j,C]
+    vj = r(v.to(f32))[:, None]
+    gdx = r(g_dX)
+    tf = r(tp @ r(W_rs) + b_rs)                              # [G,i,j,C]
+
+    # the cotangent of o, block by block; g_X from the tensor blocks
+    g_o = torch.empty_like(tf)
+    g_X = torch.zeros(X.shape, dtype=f32, device=X.device)
+    for b, (kind, lo, hi) in enumerate(_block_layout(sep_dir, sep_tensor,
+                                                     lmax)):
+        cols = slice(b * D, (b + 1) * D)
+        if kind == "scalar":
+            g_o[..., cols] = r(g_dh)[:, :, None, :]
+        elif kind == "dir":
+            g_o[..., cols] = r(torch.einsum("gijm,gimd->gijd",
+                                            r(rl[..., lo:hi]),
+                                            gdx[:, :, lo:hi]))
+        else:
+            acc = torch.zeros_like(tp)
+            for m in range(lo, hi):
+                acc = r(acc + r(r(X[:, None, :, m, :])
+                                * gdx[:, :, None, m, :]))
+            g_o[..., cols] = acc
+            o_c = r(r(r(tf[..., cols] * xg[..., cols]) * envp)
+                    + r(attn_c[..., cols] * vj[..., cols]))
+            for m in range(lo, hi):
+                g_X[:, :, m] = r(o_c * gdx[:, :, None, m, :]).sum(dim=1)
+
+    g_tf = r(r(g_o * xg) * envp)
+    g_xg = r(r(g_o * tf) * envp).sum(dim=1)
+    g_v = r(attn_c * g_o).sum(dim=1)
+    g_attn = r(g_o * vj).reshape(G, M, M, H, e_per).sum(dim=-1)
+    g_t = g_tf @ r(W_rs).t()
+    g_Wrs = torch.einsum("gijd,gijc->dc", tp, g_tf)
+    g_brs = g_tf.sum(dim=(0, 1, 2))
+
+    # softmax backward and the attention filter, float32
+    g_scale = sm * g_attn
+    if scale.dim() == 3:
+        g_scale = g_scale.sum(dim=-1)
+    g_sm = g_attn * scale_h
+    g_logits = sm * (g_sm - (sm * g_sm).sum(dim=2, keepdim=True))
+    g_p = r(g_logits).repeat_interleave(D // H, dim=-1)      # [G,i,j,D]
+    zre = tp @ r(W_re) + b_re
+    sig = torch.sigmoid(zre)
+    ta = r(zre * sig)
+    qi = r(q.to(f32))[:, :, None]
+    kj = r(k.to(f32))[:, None]
+    g_q = r(r(g_p * ta) * kj).sum(dim=2)
+    g_k = r(r(g_p * ta) * qi).sum(dim=1)
+    g_zre = r(r(g_p * qi) * kj) * (sig + zre * sig * (1.0 - sig))
+    g_t = g_t + r(g_zre) @ r(W_re).t()
+    g_Wre = torch.einsum("gijd,gije->de", tp, r(g_zre))
+    g_bre = g_zre.sum(dim=(0, 1, 2))
+    return (g_t, g_q, g_k, g_xg, g_v, torch.zeros_like(rl), g_X,
+            torch.zeros_like(env_signed), g_scale, g_Wre, g_bre, g_Wrs,
+            g_brs)
+
+
+def _check(cond: bool, msg: str, who: str = "fused_gata_forward") -> None:
     if not cond:
-        raise ValueError(f"fused_gata_forward: {msg}")
+        raise ValueError(f"{who}: {msg}")
+
+
+def _check_inputs(who, args, *, lmax, num_heads, sep_dir, sep_tensor,
+                  pair_dtype) -> Tuple[int, ...]:
+    """Device, type, shape and contiguity of the 13 inputs (a dict by
+    name), as both kernels take them; returns (G, M, D, H, L, C)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    t, q = args["t"], args["q"]
+    G, M, M2, D = t.shape
+    H = num_heads
+    L = (lmax + 1) ** 2 - 1
+    C = args["W_rs"].shape[-1]
+    mult = C // D
+    blocks = _block_layout(sep_dir, sep_tensor, lmax)
+    for name, a in args.items():
+        _check(a.device == t.device, f"{name} is on {a.device}, t on "
+               f"{t.device}", who)
+        _check(a.is_contiguous(), f"{name} is not contiguous", who)
+    _check(t.dtype in (f32, bf16), f"t has dtype {t.dtype}", who)
+    _check(q.dtype in (f32, bf16), f"q has dtype {q.dtype}", who)
+    for name in ("k", "x_g", "v"):
+        _check(args[name].dtype == q.dtype, f"{name} is {args[name].dtype}, "
+               f"q is {q.dtype}", who)
+    for name in ("rl", "X", "env_signed", "scale", "W_re", "b_re", "W_rs",
+                 "b_rs"):
+        _check(args[name].dtype == f32, f"{name} must be float32", who)
+    _check(pair_dtype in (f32, bf16), f"pair_dtype {pair_dtype}", who)
+    _check(M2 == M, "t must be [G, M, M, D]", who)
+    _check(D % 32 == 0 and D % H == 0, f"D={D} must be a multiple of 32 "
+           f"and of num_heads={H}", who)
+    _check(C == mult * D and mult == len(blocks),
+           f"W_rs width {C} does not match the channel blocks "
+           f"(expected {len(blocks)} x D)", who)
+    _check(C % H == 0, f"mult*D={C} must be divisible by num_heads={H}", who)
+    _check(M <= MAX_PAIRS_PER_BLOCK, f"M={M} > {MAX_PAIRS_PER_BLOCK}", who)
+    shapes = dict(q=(G, M, D), k=(G, M, D), x_g=(G, M, C), v=(G, M, C),
+                  rl=(G, M, M, L), X=(G, M, L, D), env_signed=(G, M, M),
+                  W_re=(D, D), b_re=(D,), W_rs=(D, C), b_rs=(C,))
+    for name, shp in shapes.items():
+        _check(tuple(args[name].shape) == shp,
+               f"{name} has shape {tuple(args[name].shape)}, expected {shp}",
+               who)
+    scale = args["scale"]
+    _check(tuple(scale.shape) in ((G, M, M, H), (G, M, M)),
+           f"scale has shape {tuple(scale.shape)}", who)
+    return G, M, D, H, L, C
 
 
 def fused_gata_forward(t, q, k, x_g, v, rl, X, env_signed, scale,
@@ -142,10 +288,89 @@ def fused_gata_forward(t, q, k, x_g, v, rl, X, env_signed, scale,
     return _launch(*args, **kw)
 
 
+def fused_gata_backward(t, q, k, x_g, v, rl, X, env_signed, scale,
+                        W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, *,
+                        lmax: int, num_heads: int, sep_dir: bool,
+                        sep_tensor: bool,
+                        pair_dtype: torch.dtype = torch.float32
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Fused GATA backward; the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors.  Inputs as ``fused_gata_forward``'s, plus the
+    forward's pre-scale softmax ``sm`` and the float32 cotangents
+    ``g_dh``, ``g_dX``.  Returns the 13 cotangents as
+    ``fused_gata_backward_reference``.  ``fused_gata_backward.launches``
+    counts kernel launches."""
+    kw = dict(lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
+              sep_tensor=sep_tensor, pair_dtype=pair_dtype)
+    args = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
+            b_rs, sm, g_dh, g_dX)
+    if t.device.type == "cpu":
+        return fused_gata_backward_reference(*args, **kw)
+    if t.device.type != "cuda":
+        raise ValueError(f"fused_gata_backward: no kernel for {t.device}")
+    return _launch_backward(*args, **kw)
+
+
 fused_gata_forward.launches = 0
-# the counter stays on the public wrapper even while a caller patches the
-# module's name (as chip_smoke.py does to capture the kernel's inputs)
+fused_gata_backward.launches = 0
+# the counters stay on the public wrappers even while a caller patches the
+# module's names (as chip_smoke.py does to capture the kernels' inputs)
 _counted = fused_gata_forward
+_counted_bwd = fused_gata_backward
+
+
+class FusedGATA(torch.autograd.Function):
+    """The fused step through autograd, as ``make_fused_gata(...,
+    pos_grads=False)`` wires it in the JAX package: the forward saves the
+    inputs and the pre-scale softmax, the backward hands them to
+    ``fused_gata_backward``.  Cotangents come back in their inputs' types.
+    A gradient with respect to ``rl`` or ``env_signed`` (forces) raises
+    ``NotImplementedError`` instead of coming back as zeros."""
+
+    @staticmethod
+    def forward(ctx, t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
+                W_rs, b_rs, lmax, num_heads, sep_dir, sep_tensor,
+                pair_dtype):
+        ctx.kw = dict(lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
+                      sep_tensor=sep_tensor, pair_dtype=pair_dtype)
+        inputs = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
+                  W_rs, b_rs)
+        d_h, dX, sm = fused_gata_forward(*inputs, **ctx.kw, with_attn=True)
+        ctx.save_for_backward(*inputs, sm)
+        return d_h, dX
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_dh, g_dX):
+        need = ctx.needs_input_grad[:len(ARG_NAMES)]
+        if need[5] or need[7]:
+            from gotennet_tpu_torch.models.gotennet import not_ported
+            raise not_ported("position gradients through the fused message "
+                             "(pos_grads)", 9)
+        *inputs, sm = ctx.saved_tensors
+        grads = fused_gata_backward(*inputs, sm, g_dh.float().contiguous(),
+                                    g_dX.float().contiguous(), **ctx.kw)
+        out = tuple(g.to(a.dtype) if n else None
+                    for g, a, n in zip(grads, inputs, need))
+        return out + (None,) * 5
+
+
+def fused_gata(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
+               b_rs, *, lmax: int, num_heads: int, sep_dir: bool,
+               sep_tensor: bool, pair_dtype: torch.dtype = torch.float32
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(d_h, dX)`` of the fused step.  Through ``FusedGATA`` when
+    autograd records and an input needs a gradient; otherwise the forward
+    alone, which keeps no softmax."""
+    args = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
+            b_rs)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return FusedGATA.apply(*args, lmax, num_heads, sep_dir, sep_tensor,
+                               pair_dtype)
+    d_h, dX, _ = fused_gata_forward(
+        *args, lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
+        sep_tensor=sep_tensor, pair_dtype=pair_dtype)
+    return d_h, dX
 
 
 def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
@@ -153,53 +378,18 @@ def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
             with_attn) -> Out:
     from gotennet_tpu_torch.ops._build import load_library
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    G, M, M2, D = t.shape
-    H = num_heads
-    L = (lmax + 1) ** 2 - 1
-    C = W_rs.shape[-1]
-    mult = C // D
-    blocks = _block_layout(sep_dir, sep_tensor, lmax)
-    args = dict(t=t, q=q, k=k, x_g=x_g, v=v, rl=rl, X=X,
-                env_signed=env_signed, scale=scale, W_re=W_re, b_re=b_re,
-                W_rs=W_rs, b_rs=b_rs)
-    for name, a in args.items():
-        _check(a.device == t.device, f"{name} is on {a.device}, t on "
-               f"{t.device}")
-        _check(a.is_contiguous(), f"{name} is not contiguous")
-    _check(t.dtype in (f32, bf16), f"t has dtype {t.dtype}")
-    _check(q.dtype in (f32, bf16), f"q has dtype {q.dtype}")
-    for name in ("k", "x_g", "v"):
-        _check(args[name].dtype == q.dtype, f"{name} is {args[name].dtype}, "
-               f"q is {q.dtype}")
-    for name in ("rl", "X", "env_signed", "scale", "W_re", "b_re", "W_rs",
-                 "b_rs"):
-        _check(args[name].dtype == f32, f"{name} must be float32")
-    _check(pair_dtype in (f32, bf16), f"pair_dtype {pair_dtype}")
-    _check(M2 == M, "t must be [G, M, M, D]")
-    _check(D % 32 == 0 and D % H == 0, f"D={D} must be a multiple of 32 "
-           f"and of num_heads={H}")
-    _check(C == mult * D and mult == len(blocks),
-           f"W_rs width {C} does not match the channel blocks "
-           f"(expected {len(blocks)} x D)")
-    _check(C % H == 0, f"mult*D={C} must be divisible by num_heads={H}")
-    _check(M <= MAX_PAIRS_PER_BLOCK, f"M={M} > {MAX_PAIRS_PER_BLOCK}")
-    shapes = dict(q=(G, M, D), k=(G, M, D), x_g=(G, M, C), v=(G, M, C),
-                  rl=(G, M, M, L), X=(G, M, L, D), env_signed=(G, M, M),
-                  W_re=(D, D), b_re=(D,), W_rs=(D, C), b_rs=(C,))
-    for name, shp in shapes.items():
-        _check(tuple(args[name].shape) == shp,
-               f"{name} has shape {tuple(args[name].shape)}, expected {shp}")
-    scale_heads = scale.dim() == 4
-    _check(tuple(scale.shape) == ((G, M, M, H) if scale_heads else (G, M, M)),
-           f"scale has shape {tuple(scale.shape)}")
-
+    f32 = torch.float32
+    args = dict(zip(ARG_NAMES, (t, q, k, x_g, v, rl, X, env_signed, scale,
+                                W_re, b_re, W_rs, b_rs)))
+    G, M, D, H, L, C = _check_inputs(
+        "fused_gata_forward", args, lmax=lmax, num_heads=num_heads,
+        sep_dir=sep_dir, sep_tensor=sep_tensor, pair_dtype=pair_dtype)
     d_h = torch.empty(G, M, D, dtype=f32, device=t.device)
     dX = torch.empty(G, M, L, D, dtype=f32, device=t.device)
     sm = (torch.empty(G, M, M, H, dtype=f32, device=t.device) if with_attn
           else None)
     with torch.cuda.device(t.device):
-        _call_kernel(load_library(),
+        _call_kernel(load_library("fused_gata_fwd.cu"),
                      torch.cuda.current_stream(t.device).cuda_stream,
                      t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
                      W_rs, b_rs, d_h, dX, sm, lmax=lmax, num_heads=H,
@@ -225,7 +415,78 @@ def _call_kernel(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
         G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
         int(scale.dim() == 4), int(pair_dtype == bf16), int(t.dtype == bf16),
         int(q.dtype == bf16), stream)
+    _raise_on(lib, err, "fused_gata_fwd")
+
+
+def _raise_on(lib, err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(
-            f"fused_gata_fwd kernel launch failed: CUDA error {err} "
+            f"{name} kernel launch failed: CUDA error {err} "
             f"({lib.gotennet_cuda_error_string(err).decode()})")
+
+
+def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
+                     W_rs, b_rs, sm, g_dh, g_dX, *, lmax, num_heads, sep_dir,
+                     sep_tensor, pair_dtype) -> Tuple[torch.Tensor, ...]:
+    from gotennet_tpu_torch.ops._build import load_library
+
+    who = "fused_gata_backward"
+    inputs = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
+              b_rs)
+    G, M, D, H, L, C = _check_inputs(
+        who, dict(zip(ARG_NAMES, inputs)), lmax=lmax, num_heads=num_heads,
+        sep_dir=sep_dir, sep_tensor=sep_tensor, pair_dtype=pair_dtype)
+    for name, a, shp in (("sm", sm, (G, M, M, H)), ("g_dh", g_dh, (G, M, D)),
+                         ("g_dX", g_dX, (G, M, L, D))):
+        _check(a.device == t.device and a.dtype == torch.float32
+               and a.is_contiguous() and tuple(a.shape) == shp,
+               f"{name} must be a contiguous float32 tensor of shape {shp} "
+               f"on {t.device}", who)
+    outs = backward_outputs(t, scale, C, L)
+    with torch.cuda.device(t.device):
+        _call_backward(load_library("fused_gata_bwd.cu"),
+                       torch.cuda.current_stream(t.device).cuda_stream,
+                       *inputs, sm, g_dh, g_dX, outs, lmax=lmax,
+                       num_heads=H, sep_dir=sep_dir, sep_tensor=sep_tensor,
+                       pair_dtype=pair_dtype)
+    _counted_bwd.launches += 1
+    g_t, g_q, g_k, g_xg, g_v, g_X, g_scale, g_Wre, g_bre, g_Wrs, g_brs = outs
+    return (g_t, g_q, g_k, g_xg, g_v, torch.zeros_like(rl), g_X,
+            torch.zeros_like(env_signed), g_scale, g_Wre, g_bre, g_Wrs,
+            g_brs)
+
+
+def backward_outputs(t, scale, C: int, L: int):
+    """Empty float32 outputs of the backward kernel, on ``t``'s device:
+    g_t, g_q, g_k, g_xg, g_v, g_X, g_scale, g_Wre, g_bre, g_Wrs, g_brs."""
+    G, M, _, D = t.shape
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=t.device)
+
+    return [new(G, M, M, D), new(G, M, D), new(G, M, D), new(G, M, C),
+            new(G, M, C), new(G, M, L, D), new(*scale.shape), new(D, D),
+            new(D), new(D, C), new(C)]
+
+
+def _call_backward(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
+                   W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, outs, *, lmax,
+                   num_heads, sep_dir, sep_tensor, pair_dtype) -> None:
+    """One backward through the C interface on ``stream`` into ``outs``
+    (as ``backward_outputs`` makes them), with a workspace of the size the
+    library asks for; raises on a CUDA error.  Arguments are validated by
+    the caller."""
+    bf16 = torch.bfloat16
+    G, M, _, D = t.shape
+    n_bytes = lib.gotennet_fused_gata_bwd_workspace(
+        G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=t.device)
+    ptrs = [a.data_ptr() for a in (t, q, k, x_g, v, rl, X, env_signed, scale,
+                                   W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX)]
+    err = lib.gotennet_fused_gata_bwd(
+        *ptrs, *(o.data_ptr() for o in outs), work.data_ptr(),
+        G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
+        int(scale.dim() == 4), int(pair_dtype == bf16), int(t.dtype == bf16),
+        int(q.dtype == bf16), stream)
+    _raise_on(lib, err, "fused_gata_bwd")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU and ``nvcc``; without a card each one
 skips (the check runs in a fixture, never at import).  On the card:
@@ -19,9 +19,12 @@ from gotennet_tpu_torch.data.dataset import synthetic_molecules
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import HeadConfig
 from gotennet_tpu_torch.ops import fused_gata
-from gotennet_tpu_torch.ops.fused_gata import (fused_gata_forward,
+from gotennet_tpu_torch.ops.fused_gata import (fused_gata_backward,
+                                               fused_gata_backward_reference,
+                                               fused_gata_forward,
                                                fused_gata_forward_reference)
 from gotennet_tpu_torch.serve import Predictor
+from gotennet_tpu_torch.train.trainer import train_steps
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +119,51 @@ def test_predictor_on_card_matches_cpu(card):
     assert fused_gata.fused_gata_forward.launches == launches + 3 * 2
     want = Predictor(cfg, head, seed=2, chunk=4, device="cpu").predict(mols)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+# The backward: float32 sums in another order (and without atomics, in a
+# fixed one) -> 1e-4 of each cotangent's scale in float32; a bf16 pair
+# type may move a rounded pair term by one ulp -> 1e-2.
+@pytest.mark.parametrize("M,D,H,lmax,sep,head_scale,pd", [
+    (8, 32, 4, 2, (True, True), False, torch.float32),
+    (24, 64, 8, 2, (False, False), True, torch.float32),
+    (16, 96, 8, 3, (True, False), True, torch.bfloat16),
+    (32, 256, 8, 2, (True, True), False, torch.bfloat16),
+])
+def test_backward_kernel_matches_plain(card, M, D, H, lmax, sep, head_scale,
+                                       pd):
+    G = 3
+    args = inputs(card, G, M, D, H, lmax, *sep, head_scale, pd, seed=1)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=sep[0], sep_tensor=sep[1],
+              pair_dtype=pd)
+    _, _, sm = fused_gata_forward(*args, **kw, with_attn=True)
+    L = (lmax + 1) ** 2 - 1
+    g_dh = torch.randn(G, M, D, device=card)
+    g_dX = torch.randn(G, M, L, D, device=card)
+    before = fused_gata_backward.launches
+    got = fused_gata_backward(*args, sm, g_dh, g_dX, **kw)
+    torch.cuda.synchronize()
+    assert fused_gata_backward.launches == before + 1
+    want = fused_gata_backward_reference(*args, sm, g_dh, g_dX, **kw)
+    tol = 1e-2 if pd == torch.bfloat16 else 1e-4
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item()
+        assert err <= tol * max(w.abs().max().item(), 1e-30), (i, err)
+    for g in got[:5] + (got[6], got[8]):
+        assert torch.all(g[0, M - 3:] == 0)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """Two training steps in float32, card against CPU, same seed; each
+    step launches both kernels chunks x layers times."""
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16)
+    head = HeadConfig(mean=0.5, stddev=2.0)
+    mols = synthetic_molecules(24, seed=5, min_atoms=5,
+                               max_atoms=29).graph_dicts(range(24))
+    n_fwd, n_bwd = fused_gata_forward.launches, fused_gata_backward.launches
+    got = train_steps(cfg, head, mols, 2, chunk=8, seed=1)
+    assert fused_gata_forward.launches == n_fwd + 2 * 3 * 2
+    assert fused_gata_backward.launches == n_bwd + 2 * 3 * 2
+    want = train_steps(cfg, head, mols, 2, chunk=8, seed=1, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -174,24 +174,34 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
 _LAUNCH = "kern<<<grid, kThreads, p.smem, stream>>>(p);"
 
 
-@pytest.fixture(scope="module")
-def host_build(tmp_path_factory):
+def build_on_host(directory, source, launch):
+    """Compile ``csrc/<source>`` with the host C++ compiler into
+    ``directory``, its one kernel-launch line ``launch`` replaced by a
+    host launch (one std::thread per CUDA thread); returns the loaded
+    library with its C interface declared.  Skips without g++."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to build the CUDA source")
-    d = tmp_path_factory.mktemp("cuda_on_host")
-    (d / "cuda_runtime.h").write_text(_CUDA_RUNTIME_H)
-    (d / "cuda_bf16.h").write_text(_CUDA_BF16_H)
-    src = (_build.CSRC / "fused_gata_fwd.cu").read_text()
-    assert src.count(_LAUNCH) == 1
-    (d / "k.cpp").write_text(src.replace(
-        _LAUNCH, "host_launch(kern, grid, kThreads, p); (void)stream;"))
+    (directory / "cuda_runtime.h").write_text(_CUDA_RUNTIME_H)
+    (directory / "cuda_bf16.h").write_text(_CUDA_BF16_H)
+    src = (_build.CSRC / source).read_text()
+    assert src.count(launch) == 1, f"{source}: launch line not found once"
+    args = launch[launch.index(">>>(") + 4:launch.rindex(")")]
+    (directory / "k.cpp").write_text(src.replace(
+        launch, f"host_launch(kern, grid, kThreads, {args}); (void)stream;"))
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    f"-I{d}", "-o", str(d / "libk.so"), str(d / "k.cpp"),
-                    "-lpthread"], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(d / "libk.so"))
-    _build._declare(lib)
+                    f"-I{directory}", "-o", str(directory / "libk.so"),
+                    str(directory / "k.cpp"), "-lpthread"], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(directory / "libk.so"))
+    _build._declare(lib, source)
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_build(tmp_path_factory):
+    return build_on_host(tmp_path_factory.mktemp("cuda_on_host"),
+                         "fused_gata_fwd.cu", _LAUNCH)
 
 
 # the host build rounds at the same points as the plain version; only
