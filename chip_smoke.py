@@ -33,13 +33,34 @@ Phases, in order; any failure exits non-zero before the result line:
      plain version; three steps are timed after two warm-up steps (CUDA
      events), with real edges per second, the device's busy share of a step
      (``torch.profiler``) and the backward kernel's time per launch on the
-     inputs a step gave it, beside its plain version and its bound.
+     inputs a step gave it, beside its plain version and its bound;
+  7. HTR forward kernel vs plain: the fused-HTR forward against its plain
+     PyTorch version at G=4, D=256, lmax 2, sep_htr, M in {16, 32, 112,
+     120}, float32 and bf16 pair types, bf16 EQ/EK, the flagship grammar and
+     the sigmoid-gated variant (every pair compared, padded ones included);
+  8. HTR backward kernel vs plain: the same grid, all six cotangents, with
+     exact zeros where the cotangent of out is zero (padded atoms);
+  9. GATA kernels at M = 112 and 120: forward and backward against their
+     plain versions at the MD22 chunk's shapes (G=4);
+ 10. MD22 serving: the flagship model with ``fused_htr=True`` answers 32
+     synthetic MD22-sized frames (110-120 atoms at condensed-phase density)
+     through ``Predictor`` in unbucketed 4-frame chunks (M = 120); the launch
+     counters must read 8 chunks x 4 layers of GATA and x 3 of HTR; the
+     answers are held against the same model run through both forward plain
+     versions; the request is timed (CUDA events) and profiled, and the HTR
+     forward kernel timed on the inputs the request gave it;
+ 11. MD22 training: ``train_steps`` takes one step on the same 32 frames
+     (4-frame chunks, unbucketed): 32 GATA and 24 HTR launches each way; the
+     first step's gradients are held against the same step through both
+     backward plain versions; three steps are timed after two warm-up steps,
+     profiled, and the HTR backward kernel timed on a step's inputs.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -65,6 +86,10 @@ TOL_F32, TOL_BF16, TOL_SERVE = 1e-4, 1e-2, 2e-2
 # lands on its neighbour in one layer's cotangents is carried back through
 # the layers below it -> 2e-2 of each parameter's gradient scale.
 TOL_TRAIN = 2e-2
+# MD22-sized frames as bench.py's BENCH_DATASET=md22 makes them, in
+# unbucketed 4-frame chunks (every chunk padded to M = 120)
+MD22_FRAMES, MD22_CHUNK = 32, 4
+MD22_SIZES = dict(min_atoms=110, max_atoms=120, box=6.3)
 
 
 def log(msg: str) -> None:
@@ -108,34 +133,38 @@ def kernel_inputs(M, pair_dtype, head_scale, seed, G=G):
     return [a.cuda() for a in args]
 
 
-def bound_ms(args, pair_dtype, n_out, flop_per_pair) -> tuple:
+def bound_ms(n_bytes, flops, pair_dtype) -> tuple:
     """Least time an H100 SXM could take for one launch: the larger of
-    bytes / 3.35 TB/s (each input read once, each of the ``n_out`` output
-    bytes written once) and the projections' FLOP / the pair type's peak
-    (989 TFLOP/s bf16, 67 TFLOP/s float32), counting the valid pairs only,
-    since invalid pairs add exact zeros."""
-    n_in = sum(a.numel() * a.element_size() for a in args)
-    flops = flop_per_pair * int((args[7] >= 0).sum())
+    ``n_bytes`` / 3.35 TB/s and ``flops`` / the pair type's peak (989
+    TFLOP/s bf16, 67 TFLOP/s float32)."""
     peak = 989e12 if pair_dtype == torch.bfloat16 else 67e12
-    t_bytes, t_ops = (n_in + n_out) / 3.35e12 * 1e3, flops / peak * 1e3
+    t_bytes, t_ops = n_bytes / 3.35e12 * 1e3, flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def n_bytes(tensors) -> int:
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
 def fwd_bound_ms(args, kwargs) -> tuple:
-    """The forward: d_h and dX out; the two projections t W_re and t W_rs,
-    2 D (D + mult D) FLOP per pair."""
+    """The GATA forward: each input read once, d_h and dX written once; the
+    two projections t W_re and t W_rs, 2 D (D + mult D) FLOP per valid pair
+    (invalid pairs add exact zeros)."""
     t, W_re, W_rs = args[0], args[9], args[11]
     Dd, C = W_re.shape[0], W_rs.shape[1]
     Gg, M = t.shape[:2]
     L = args[5].shape[-1]
     n_out = (Gg * M * Dd + Gg * M * L * Dd) * 4
-    return bound_ms(args, kwargs["pair_dtype"], n_out, 2.0 * Dd * (Dd + C))
+    valid = int((args[7] >= 0).sum())
+    return bound_ms(n_bytes(args) + n_out, 2.0 * Dd * (Dd + C) * valid,
+                    kwargs["pair_dtype"])
 
 
 def bwd_bound_ms(args, kwargs) -> tuple:
-    """The backward: the 11 cotangents it computes out (float32); six
-    projections (t W_rs and t W_re recomputed, g_tf W_rs^T, g_zre W_re^T,
-    t^T g_tf, t^T g_zre), 6 D (mult D + D) FLOP per pair."""
+    """The GATA backward: each input read once, the 11 cotangents it
+    computes written once (float32); six projections (t W_rs and t W_re
+    recomputed, g_tf W_rs^T, g_zre W_re^T, t^T g_tf, t^T g_zre), 6 D
+    (mult D + D) FLOP per valid pair."""
     t, scale, W_re, W_rs = args[0], args[8], args[9], args[11]
     Dd, C = W_re.shape[0], W_rs.shape[1]
     Gg, M = t.shape[:2]
@@ -143,7 +172,31 @@ def bwd_bound_ms(args, kwargs) -> tuple:
     n_out = 4 * (Gg * M * M * Dd + 2 * Gg * M * Dd + 2 * Gg * M * C
                  + Gg * M * L * Dd + scale.numel() + Dd * Dd + Dd + Dd * C
                  + C)
-    return bound_ms(args, kwargs["pair_dtype"], n_out, 6.0 * Dd * (C + Dd))
+    valid = int((args[7] >= 0).sum())
+    return bound_ms(n_bytes(args) + n_out, 6.0 * Dd * (C + Dd) * valid,
+                    kwargs["pair_dtype"])
+
+
+def htr_fwd_bound_ms(args, kwargs) -> tuple:
+    """The HTR forward: t, EQ, EK, rl, W_g, b_g read once, out (float32)
+    written once; the projection t W_g, 2 D^2 FLOP per pair, over every pair
+    (the update masks none)."""
+    t, W_g = args[0], args[4]
+    pairs = t.numel() // t.shape[-1]
+    return bound_ms(n_bytes(args) + 4 * t.numel(),
+                    2.0 * W_g.numel() * pairs, kwargs["pair_dtype"])
+
+
+def htr_bwd_bound_ms(args, kwargs) -> tuple:
+    """The HTR backward: the six inputs and the cotangent of out read once,
+    the six cotangents written once (float32); three projections (t W_g
+    recomputed, g_z W_g^T, t^T g_z), 6 D^2 FLOP per pair, over every
+    pair."""
+    t, W_g = args[0], args[4]
+    pairs = t.numel() // t.shape[-1]
+    n_out = 4 * sum(a.numel() for a in args[:6])
+    return bound_ms(n_bytes(args) + n_out, 6.0 * W_g.numel() * pairs,
+                    kwargs["pair_dtype"])
 
 
 def time_calls(fn, calls, reps) -> float:
@@ -160,6 +213,32 @@ def time_calls(fn, calls, reps) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * len(calls))
+
+
+def time_run(run, warmup, reps) -> tuple:
+    """``run()`` ``warmup`` times, then ``reps`` times between CUDA events:
+    (device ms per run, host ms per run, every run's result)."""
+    results = [run() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    results += [run() for _ in range(reps)]
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return start.elapsed_time(end) / reps, host_ms, results
+
+
+def count_pairs(chunks, cfg) -> tuple:
+    """(real edges, self-loops included, as the edge list counts them;
+    padded pairs) of dense chunks on the card."""
+    from gotennet_tpu_torch.models.gotennet_dense import pair_geometry
+    real = sum(int(pair_geometry(b.pos, b.mask, cfg.cutoff,
+                                 cfg.max_num_neighbors).pair_mask.sum())
+               for b in chunks)
+    return real, sum(b.num_graphs * b.max_atoms ** 2 for b in chunks)
 
 
 def profile(run, wall_ms, what, card) -> None:
@@ -187,23 +266,22 @@ def profile(run, wall_ms, what, card) -> None:
         f"{sum(e.count for e in ops)} device ops, "
         f"{100 * busy_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms "
         f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %) | {card}")
-    for e in ops[:6]:
+    for e in ops[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d} x  {e.key[:80]}")
 
 
-def capture(name, run) -> list:
-    """The arguments of every call of ``fused_gata.<name>`` while ``run()``
+def capture(module, name, run) -> list:
+    """The arguments of every call of ``module.<name>`` while ``run()``
     runs (the calls still go to the kernel)."""
-    from gotennet_tpu_torch.ops import fused_gata
-    kernel = getattr(fused_gata, name)
+    kernel = getattr(module, name)
     captured = []
 
     def record(*args, **kwargs):
         captured.append((args, kwargs))
         return kernel(*args, **kwargs)
 
-    with mock.patch.object(fused_gata, name, record):
+    with mock.patch.object(module, name, record):
         run()
     torch.cuda.synchronize()
     return captured
@@ -219,6 +297,8 @@ def kernel_record(meta, captured, kernel, plain, bound, card) -> dict:
     for args, kwargs in captured:
         got = kernel(*args, **kwargs)
         want = plain(*args, **kwargs)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
         for g_, w_ in zip(got, want):
             if g_ is None:
                 continue
@@ -252,57 +332,155 @@ def kernel_record(meta, captured, kernel, plain, bound, card) -> dict:
             "library_ms": None}
 
 
-def check_backward() -> None:
-    """Phase 5: the backward kernel against its plain version at the
-    training shapes."""
+def check_gata_forward(M, pd, head_scale, G) -> None:
+    """The GATA forward kernel against its plain version on one input;
+    padded atoms must get exact zeros."""
     from gotennet_tpu_torch.ops import fused_gata
-    bf16, f32 = torch.bfloat16, torch.float32
-    kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True)
+    kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True,
+              pair_dtype=pd, with_attn=True)
+    args = kernel_inputs(M, pd, head_scale, seed=M, G=G)
+    got = fused_gata.fused_gata_forward(*args, **kw)
+    torch.cuda.synchronize()
+    want = fused_gata.fused_gata_forward_reference(*args, **kw)
+    tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    log(f"[kernel-vs-plain] G={G} M={M} pair={str(pd)[6:]} "
+        f"head_scale={head_scale}: max abs / rel err "
+        + ", ".join(f"{n} {a:.3e}/{r:.3e}" for n, (a, r)
+                    in zip(("d_h", "dX", "sm"), errs))
+        + f" (tol {tol:g} rel)")
+    if not all(r <= tol for _, r in errs):
+        raise AssertionError(f"kernel disagrees at M={M} {pd}")
+    sm = got[2]
+    if not (torch.all(sm[0, M - 3:] == 0)
+            and torch.all(got[0][0, M - 3:] == 0)):
+        raise AssertionError("padded atoms got weight")
+
+
+def check_gata_backward(M, pd, head_scale, G) -> None:
+    """The GATA backward kernel against its plain version on one input;
+    padded atoms' cotangents must be exact zeros."""
+    from gotennet_tpu_torch.ops import fused_gata
+    kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True,
+              pair_dtype=pd)
     names = ("g_t", "g_q", "g_k", "g_xg", "g_v", "g_rl", "g_X", "g_env",
              "g_scale", "g_Wre", "g_bre", "g_Wrs", "g_brs")
     L = (LMAX + 1) ** 2 - 1
-    for M in (16, 24, 32):
-        for pd in (f32, bf16):
-            for head_scale in (False, True):
-                args = kernel_inputs(M, pd, head_scale, seed=100 + M,
-                                     G=TRAIN_CHUNK)
-                _, _, sm = fused_gata.fused_gata_forward(
-                    *args, **kw, pair_dtype=pd, with_attn=True)
-                gen = torch.Generator().manual_seed(M)
-                g_dh = torch.randn(TRAIN_CHUNK, M, D, generator=gen).cuda()
-                g_dX = torch.randn(TRAIN_CHUNK, M, L, D, generator=gen).cuda()
-                got = fused_gata.fused_gata_backward(
-                    *args, sm, g_dh, g_dX, **kw, pair_dtype=pd)
-                torch.cuda.synchronize()
-                want = fused_gata.fused_gata_backward_reference(
-                    *args, sm, g_dh, g_dX, **kw, pair_dtype=pd)
-                tol = TOL_BF16 if pd == bf16 else TOL_F32
-                errs = [rel_err(g, w) for g, w in zip(got, want)]
-                worst = max(range(len(errs)), key=lambda i: errs[i][1])
-                log(f"[bwd-vs-plain] M={M} pair={str(pd)[6:]} "
-                    f"head_scale={head_scale}: max rel err "
-                    + ", ".join(f"{n} {r:.1e}" for n, (_, r)
-                                in zip(names, errs) if n not in
-                                ("g_rl", "g_env"))
-                    + f" (worst {names[worst]}, abs {errs[worst][0]:.3e}; "
-                    f"tol {tol:g} rel)")
-                if errs[worst][1] > tol:
-                    raise AssertionError(f"backward kernel disagrees at M={M}"
-                                         f" {pd} on {names[worst]}")
-                # padded atoms (graph 0's last 3): exact zeros
-                g_t, g_q, g_k, g_xg, g_v, _, g_X, _, g_scale = got[:9]
-                pad = [a[0, M - 3:] for a in (g_t, g_q, g_k, g_xg, g_v, g_X,
-                                              g_scale)]
-                pad += [a[0, :, M - 3:] for a in (g_t, g_scale)]
-                if not all(bool(torch.all(a == 0)) for a in pad):
-                    raise AssertionError("padded atoms got a cotangent")
+    args = kernel_inputs(M, pd, head_scale, seed=100 + M, G=G)
+    _, _, sm = fused_gata.fused_gata_forward(*args, **kw, with_attn=True)
+    gen = torch.Generator().manual_seed(M)
+    g_dh = torch.randn(G, M, D, generator=gen).cuda()
+    g_dX = torch.randn(G, M, L, D, generator=gen).cuda()
+    got = fused_gata.fused_gata_backward(*args, sm, g_dh, g_dX, **kw)
+    torch.cuda.synchronize()
+    want = fused_gata.fused_gata_backward_reference(*args, sm, g_dh, g_dX,
+                                                    **kw)
+    tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    worst = max(range(len(errs)), key=lambda i: errs[i][1])
+    log(f"[bwd-vs-plain] G={G} M={M} pair={str(pd)[6:]} "
+        f"head_scale={head_scale}: max rel err "
+        + ", ".join(f"{n} {r:.1e}" for n, (_, r) in zip(names, errs)
+                    if n not in ("g_rl", "g_env"))
+        + f" (worst {names[worst]}, abs {errs[worst][0]:.3e}; "
+        f"tol {tol:g} rel)")
+    if errs[worst][1] > tol:
+        raise AssertionError(f"backward kernel disagrees at M={M} {pd} on "
+                             f"{names[worst]}")
+    # padded atoms (graph 0's last 3): exact zeros
+    g_t, g_q, g_k, g_xg, g_v, _, g_X, _, g_scale = got[:9]
+    pad = [a[0, M - 3:] for a in (g_t, g_q, g_k, g_xg, g_v, g_X, g_scale)]
+    pad += [a[0, :, M - 3:] for a in (g_t, g_scale)]
+    if not all(bool(torch.all(a == 0)) for a in pad):
+        raise AssertionError("padded atoms got a cotangent")
+
+
+HTR_NAMES = ("g_t", "g_EQ", "g_EK", "g_rl", "g_W_g", "g_b_g")
+
+
+def htr_inputs(M, seed, G=MD22_CHUNK):
+    """HTR inputs at the MD22 path's types (t, rl, W_g, b_g float32; EQ, EK
+    bf16) and a cotangent of out that is zero on the rows and columns of
+    graph 0's last 3 atoms, as the message's backward leaves padded
+    atoms."""
+    gen = torch.Generator().manual_seed(seed)
+    L = (LMAX + 1) ** 2 - 1
+
+    def rand(*s):
+        return torch.randn(s, generator=gen) * 0.4
+
+    args = [rand(G, M, M, D), rand(G, M, L, D).to(torch.bfloat16),
+            rand(G, M, L, D).to(torch.bfloat16), rand(G, M, M, L),
+            rand(D, D) / 8.0, rand(D)]
+    g = torch.randn(G, M, M, D, generator=gen)
+    g[0, M - 3:] = 0.0
+    g[0, :, M - 3:] = 0.0
+    return [a.cuda() for a in args], g.cuda()
+
+
+def htr_cases():
+    """(M, pair type, gate) of phases 7 and 8."""
+    for M in (16, 32, 112, 120):
+        for pd in (torch.float32, torch.bfloat16):
+            for gate in ("", "gated"):
+                yield M, pd, gate
+
+
+def check_htr_forward() -> None:
+    """Phase 7: the HTR forward kernel against its plain version."""
+    from gotennet_tpu_torch.ops import fused_htr
+    for M, pd, gate in htr_cases():
+        args, _ = htr_inputs(M, seed=300 + M)
+        kw = dict(lmax=LMAX, sep_htr=True, rej=True, gate=gate,
+                  pair_dtype=pd)
+        got = fused_htr.fused_htr_forward(*args, **kw)
+        torch.cuda.synchronize()
+        want = fused_htr.fused_htr_forward_reference(*args, **kw)
+        tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+        err, rel = rel_err(got, want)
+        pad = torch.cat([(got - want)[0, M - 3:].flatten(),
+                         (got - want)[0, :, M - 3:].flatten()])
+        log(f"[htr-fwd-vs-plain] M={M} pair={str(pd)[6:]} gate={gate!r}: "
+            f"out max abs {err:.3e} rel {rel:.3e}, on padded pairs max abs "
+            f"{pad.abs().max().item():.3e} (tol {tol:g} rel)")
+        if rel > tol or not torch.isfinite(got).all():
+            raise AssertionError(f"HTR forward disagrees at M={M} {pd}")
+
+
+def check_htr_backward() -> None:
+    """Phase 8: the HTR backward kernel against its plain version; where
+    the cotangent of out is zero, every cotangent it feeds is exactly
+    zero."""
+    from gotennet_tpu_torch.ops import fused_htr
+    for M, pd, gate in htr_cases():
+        args, g = htr_inputs(M, seed=400 + M)
+        kw = dict(lmax=LMAX, sep_htr=True, rej=True, gate=gate,
+                  pair_dtype=pd)
+        got = fused_htr.fused_htr_backward(*args, g, **kw)
+        torch.cuda.synchronize()
+        want = fused_htr.fused_htr_backward_reference(*args, g, **kw)
+        tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        worst = max(range(len(errs)), key=lambda i: errs[i][1])
+        log(f"[htr-bwd-vs-plain] M={M} pair={str(pd)[6:]} gate={gate!r}: "
+            "max rel err " + ", ".join(f"{n} {r:.1e}" for n, (_, r)
+                                       in zip(HTR_NAMES, errs))
+            + f" (worst {HTR_NAMES[worst]}, abs {errs[worst][0]:.3e}; "
+            f"tol {tol:g} rel)")
+        if errs[worst][1] > tol:
+            raise AssertionError(f"HTR backward disagrees at M={M} {pd} on "
+                                 f"{HTR_NAMES[worst]}")
+        g_t, g_EQ, g_EK, g_rl = got[:4]
+        pad = [a[0, M - 3:] for a in (g_t, g_rl, g_EQ, g_EK)]
+        pad += [a[0, :, M - 3:] for a in (g_t, g_rl)]
+        if not all(bool(torch.all(a == 0)) for a in pad):
+            raise AssertionError("a zero cotangent gave a non-zero one")
 
 
 def train_phase(cfg, head, card) -> dict:
     """Phase 6: the training step at full width; returns the backward
     kernel's record."""
     from gotennet_tpu_torch.data.dataset import synthetic_molecules
-    from gotennet_tpu_torch.models.gotennet_dense import pair_geometry
     from gotennet_tpu_torch.models.model import GotenModel
     from gotennet_tpu_torch.ops import fused_gata
     from gotennet_tpu_torch.tasks.base import Task
@@ -356,30 +534,17 @@ def train_phase(cfg, head, card) -> dict:
     def step():
         return train_step(model, opt, chunks, opt.grad_clip, loss_fn=loss_fn)
 
-    step_losses = [step() for _ in range(2)]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    reps = 3
-    t0 = time.perf_counter()
-    start.record()
-    step_losses += [step() for _ in range(reps)]
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / reps
-    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    step_ms, host_ms, step_losses = time_run(step, 2, 3)
     if not all(math.isfinite(x) for x in step_losses):
         raise AssertionError("training loss is not finite")
-    real_edges = sum(int(pair_geometry(b.pos, b.mask, cfg.cutoff,
-                                       cfg.max_num_neighbors).pair_mask.sum())
-                     for b in chunks)
-    padded = sum(b.num_graphs * b.max_atoms ** 2 for b in chunks)
+    real_edges, padded = count_pairs(chunks, cfg)
     log(f"[train] step: {step_ms:.3f} ms (CUDA events), {host_ms:.3f} ms "
         f"(host clock); real edges {real_edges} (self-loops included), "
         f"padded pairs {padded}; {real_edges / (step_ms / 1e3):.1f} real "
         f"edges/s; losses {[round(x, 6) for x in step_losses]} | {card}")
     profile(step, step_ms, "training step", card)
 
-    captured = capture("fused_gata_backward",
+    captured = capture(fused_gata, "fused_gata_backward",
                        lambda: accum_grads(model, loss_fn, chunks))
     record = kernel_record(
         {"name": "fused_gata_bwd", "route": "cuda",
@@ -388,6 +553,170 @@ def train_phase(cfg, head, card) -> dict:
         captured, bwd, fused_gata.fused_gata_backward_reference,
         bwd_bound_ms, card)
     record["launches"] = n_bwd
+    return record
+
+
+def md22_frames() -> list:
+    """bench.py's MD22 batch: 32 synthetic frames of 110-120 atoms at
+    condensed-phase density, with a synthetic energy."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    return synthetic_molecules(MD22_FRAMES, seed=0,
+                               **MD22_SIZES).graph_dicts(range(MD22_FRAMES))
+
+
+def md22_chunks(mols) -> list:
+    """The request's or the step's unbucketed chunks, on the card."""
+    from gotennet_tpu_torch.train.trainer import make_chunks
+    return make_chunks(mols, MD22_CHUNK, "cuda", bucket=False)
+
+
+def md22_serve_phase(cfg, head, card) -> dict:
+    """Phase 10: MD22-sized serving through both forward kernels; returns
+    the HTR forward kernel's record."""
+    from gotennet_tpu_torch.ops import fused_gata, fused_htr
+    from gotennet_tpu_torch.serve import Predictor
+
+    gata, htr = fused_gata.fused_gata_forward, fused_htr.fused_htr_forward
+    mols = md22_frames()
+    pred = Predictor(cfg, head, seed=0, chunk=MD22_CHUNK, bucket=False)
+    n_chunks = math.ceil(MD22_FRAMES / MD22_CHUNK)
+    expected = (n_chunks * N_LAYERS, n_chunks * (N_LAYERS - 1))
+
+    # the main path: one request through the entry point
+    gata.launches = htr.launches = 0
+    got = pred.predict(mols)
+    torch.cuda.synchronize()
+    launches = (gata.launches, htr.launches)
+    log(f"[md22-serve] answered {MD22_FRAMES} frames in {MD22_CHUNK}-frame "
+        f"chunks: launches GATA {launches[0]}, HTR {launches[1]} (chunks x "
+        f"layers = {expected[0]}, chunks x (layers - 1) = {expected[1]})")
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    with mock.patch.object(fused_gata, "fused_gata_forward",
+                           fused_gata.fused_gata_forward_reference), \
+            mock.patch.object(fused_htr, "fused_htr_forward",
+                              fused_htr.fused_htr_forward_reference):
+        want = pred.predict(mols)
+    got_t = torch.from_numpy(got)
+    err, rel = rel_err(got_t, torch.from_numpy(want))
+    log(f"[md22-serve] answers: shape {tuple(got.shape)}, max abs err vs the "
+        f"plain path {err:.4e} (rel {rel:.3e}, tol {TOL_SERVE:g})")
+    if (got.shape != (MD22_FRAMES, 1) or not torch.isfinite(got_t).all()
+            or rel > TOL_SERVE):
+        raise AssertionError("MD22 answers disagree with the plain path")
+
+    real_edges, padded = count_pairs(md22_chunks(mols), cfg)
+    req_ms, host_ms, _ = time_run(lambda: pred.predict(mols), 2, 5)
+    log(f"[time] {MD22_FRAMES}-frame MD22 request: {req_ms:.3f} ms (CUDA "
+        f"events), {host_ms:.3f} ms (host clock); real edges {real_edges} "
+        f"(self-loops included), padded pairs {padded}; "
+        f"{real_edges / (req_ms / 1e3):.1f} real edges/s | {card}")
+    profile(lambda: pred.predict(mols), req_ms,
+            f"{MD22_FRAMES}-frame MD22 request", card)
+    # the GATA forward at M = 120, logged only: its JSON record is the QM9
+    # request's (phase 4)
+    kernel_record({"name": "fused_gata_fwd"},
+                  capture(fused_gata, "fused_gata_forward",
+                          lambda: pred.predict(mols)),
+                  gata, fused_gata.fused_gata_forward_reference, fwd_bound_ms,
+                  card)
+    record = kernel_record(
+        {"name": "fused_htr_fwd", "route": "cuda",
+         "source": "gotennet_tpu_torch/csrc/fused_htr_fwd.cu",
+         "replaces": "gotennet_tpu/ops/pallas/fused_htr.py:79"},
+        capture(fused_htr, "fused_htr_forward", lambda: pred.predict(mols)),
+        htr, fused_htr.fused_htr_forward_reference, htr_fwd_bound_ms, card)
+    record["launches"] = launches[1]
+    return record
+
+
+def md22_train_phase(cfg, head, card) -> dict:
+    """Phase 11: one MD22-sized training step through all four kernels;
+    returns the HTR backward kernel's record."""
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.ops import fused_gata, fused_htr
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (accum_grads, make_loss_fn,
+                                                  train_step, train_steps)
+
+    counters = (fused_gata.fused_gata_forward, fused_gata.fused_gata_backward,
+                fused_htr.fused_htr_forward, fused_htr.fused_htr_backward)
+    mols = md22_frames()
+    n_chunks = math.ceil(MD22_FRAMES / MD22_CHUNK)
+    expected = ((n_chunks * N_LAYERS,) * 2
+                + (n_chunks * (N_LAYERS - 1),) * 2)
+
+    # the main path: one step through the entry point
+    for c in counters:
+        c.launches = 0
+    losses = train_steps(cfg, head, mols, 1, chunk=MD22_CHUNK, lr=LR,
+                         seed=0, bucket=False)
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    log(f"[md22-train] one step on {MD22_FRAMES} frames in {MD22_CHUNK}-frame"
+        f" chunks: loss {losses[0]:.6f}; launches GATA forward/backward "
+        f"{launches[0]}/{launches[1]}, HTR forward/backward "
+        f"{launches[2]}/{launches[3]} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("training loss is not finite")
+
+    # the first step's gradients against both backward plain versions
+    model = GotenModel(cfg, head, seed=0)
+    chunks = md22_chunks(mols)
+    loss_fn = make_loss_fn(model, Task(None))
+    model.train()
+    accum_grads(model, loss_fn, chunks)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    with mock.patch.object(fused_gata, "fused_gata_backward",
+                           fused_gata.fused_gata_backward_reference), \
+            mock.patch.object(fused_htr, "fused_htr_backward",
+                              fused_htr.fused_htr_backward_reference):
+        accum_grads(model, loss_fn, chunks)
+    errs = {n: rel_err(grads[n], p.grad) for n, p in model.named_parameters()}
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[md22-train] first-step gradients, kernels vs plain backwards: "
+        f"{len(errs)} tensors, worst {worst} abs {errs[worst][0]:.3e} rel "
+        f"{errs[worst][1]:.3e} (tol {TOL_TRAIN:g} rel)")
+    if errs[worst][1] > TOL_TRAIN or not all(
+            torch.isfinite(g).all() for g in grads.values()):
+        raise AssertionError("MD22 gradients disagree with the plain "
+                             "backwards")
+
+    # timing: three steps after two warm-up steps
+    opt = make_optimizer(model.parameters(), LR)
+
+    def step():
+        return train_step(model, opt, chunks, opt.grad_clip, loss_fn=loss_fn)
+
+    step_ms, host_ms, step_losses = time_run(step, 2, 3)
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError("training loss is not finite")
+    real_edges, padded = count_pairs(chunks, cfg)
+    log(f"[md22-train] step: {step_ms:.3f} ms (CUDA events), {host_ms:.3f} ms"
+        f" (host clock); real edges {real_edges} (self-loops included), "
+        f"padded pairs {padded}; {real_edges / (step_ms / 1e3):.1f} real "
+        f"edges/s; losses {[round(x, 6) for x in step_losses]} | {card}")
+    profile(step, step_ms, "MD22 training step", card)
+
+    # both backward kernels on a step's inputs; the GATA one logged only (its
+    # JSON record is the QM9 step's, phase 6)
+    kernel_record({"name": "fused_gata_bwd"},
+                  capture(fused_gata, "fused_gata_backward",
+                          lambda: accum_grads(model, loss_fn, chunks)),
+                  fused_gata.fused_gata_backward,
+                  fused_gata.fused_gata_backward_reference, bwd_bound_ms, card)
+    record = kernel_record(
+        {"name": "fused_htr_bwd", "route": "cuda",
+         "source": "gotennet_tpu_torch/csrc/fused_htr_bwd.cu",
+         "replaces": "gotennet_tpu/ops/pallas/fused_htr.py:115"},
+        capture(fused_htr, "fused_htr_backward",
+                lambda: accum_grads(model, loss_fn, chunks)),
+        fused_htr.fused_htr_backward, fused_htr.fused_htr_backward_reference,
+        htr_bwd_bound_ms, card)
+    record["launches"] = launches[3]
     return record
 
 
@@ -400,7 +729,6 @@ def main() -> int:
     from gotennet_tpu_torch.data.dataset import DenseLoader, MoleculeDataset
     from gotennet_tpu_torch.data.dataset import synthetic_molecules
     from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-    from gotennet_tpu_torch.models.gotennet_dense import pair_geometry
     from gotennet_tpu_torch.ops import _build, fused_gata
     from gotennet_tpu_torch.serve import Predictor
     from gotennet_tpu_torch.tasks.qm9 import QM9Task
@@ -408,6 +736,11 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     kernel, plain = (fused_gata.fused_gata_forward,
                      fused_gata.fused_gata_forward_reference)
+
+    start = time.time()
+
+    def phase_done(name) -> None:
+        log(f"[phase] {name} done at {time.time() - start:.1f} s")
 
     # ---- 1. device and build -------------------------------------------
     card = card_line()
@@ -422,28 +755,13 @@ def main() -> int:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[ptxas] {src}: {line.strip()}")
+    phase_done("1 (device and build)")
     # ---- 2. kernel vs plain at flagship shapes ---------------------------
-    kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True)
     for M in (16, 24, 32):
         for pd in (f32, bf16):
             for head_scale in (False, True):
-                args = kernel_inputs(M, pd, head_scale, seed=M)
-                got = kernel(*args, **kw, pair_dtype=pd, with_attn=True)
-                torch.cuda.synchronize()
-                want = plain(*args, **kw, pair_dtype=pd, with_attn=True)
-                tol = TOL_BF16 if pd == bf16 else TOL_F32
-                errs = [rel_err(g, w) for g, w in zip(got, want)]
-                log(f"[kernel-vs-plain] M={M} pair={str(pd)[6:]} "
-                    f"head_scale={head_scale}: max abs / rel err "
-                    + ", ".join(f"{n} {a:.3e}/{r:.3e}" for n, (a, r)
-                                in zip(("d_h", "dX", "sm"), errs))
-                    + f" (tol {tol:g} rel)")
-                if not all(r <= tol for _, r in errs):
-                    raise AssertionError(f"kernel disagrees at M={M} {pd}")
-                sm = got[2]
-                if not (torch.all(sm[0, M - 3:] == 0)
-                        and torch.all(got[0][0, M - 3:] == 0)):
-                    raise AssertionError("padded atoms got weight")
+                check_gata_forward(M, pd, head_scale, G)
+    phase_done("2 (GATA forward vs plain)")
 
     # ---- 3. serving path at full width -----------------------------------
     cfg = GotenNetConfig(n_atom_basis=D, n_interactions=N_LAYERS, lmax=LMAX,
@@ -479,31 +797,17 @@ def main() -> int:
                 or rel > TOL_SERVE):
             raise AssertionError(f"request of {n} disagrees with the plain "
                                  "path")
+    phase_done("3 (QM9 serving)")
 
     # ---- 4. timing ---------------------------------------------------------
     big = requests[-1]
     ds_big = MoleculeDataset(z=[m["z"] for m in big],
                              pos=[m["pos"] for m in big])
-    real_edges = padded_pairs = 0
-    for b in DenseLoader(ds_big, batch_size=CHUNK, bucket=True,
-                         bucket_window=math.ceil(len(big) / CHUNK)):
-        b = b.to("cuda")
-        real_edges += int(pair_geometry(b.pos, b.mask, cfg.cutoff,
-                                        cfg.max_num_neighbors).pair_mask.sum())
-        padded_pairs += b.num_graphs * b.max_atoms ** 2
-    for _ in range(2):
-        pred.predict(big)
-    reps = 5
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        pred.predict(big)
-    end.record()
-    torch.cuda.synchronize()
-    req_ms = start.elapsed_time(end) / reps
-    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    real_edges, padded_pairs = count_pairs(
+        [b.to("cuda") for b in DenseLoader(
+            ds_big, batch_size=CHUNK, bucket=True,
+            bucket_window=math.ceil(len(big) / CHUNK))], cfg)
+    req_ms, host_ms, _ = time_run(lambda: pred.predict(big), 2, 5)
     log(f"[time] 256-molecule request: {req_ms:.3f} ms (CUDA events), "
         f"{host_ms:.3f} ms (host clock); real edges {real_edges} "
         f"(self-loops included), padded pairs {padded_pairs}; "
@@ -516,16 +820,43 @@ def main() -> int:
         {"name": "fused_gata_fwd", "route": "cuda",
          "source": "gotennet_tpu_torch/csrc/fused_gata_fwd.cu",
          "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:108"},
-        capture("fused_gata_forward", lambda: pred.predict(big)), kernel,
-        plain, fwd_bound_ms, card)
+        capture(fused_gata, "fused_gata_forward", lambda: pred.predict(big)),
+        kernel, plain, fwd_bound_ms, card)
     record["launches"] = launches
+    phase_done("4 (QM9 timing)")
 
     # ---- 5. backward kernel vs plain at the training shapes --------------
-    check_backward()
+    for M in (16, 24, 32):
+        for pd in (f32, bf16):
+            for head_scale in (False, True):
+                check_gata_backward(M, pd, head_scale, TRAIN_CHUNK)
+    phase_done("5 (GATA backward vs plain)")
 
     # ---- 6. training at full width ----------------------------------------
     bwd_record = train_phase(cfg, head, card)
-    log(json.dumps({"kernels": [record, bwd_record]}))
+    phase_done("6 (QM9 training)")
+
+    # ---- 7.-8. HTR kernels vs plain ----------------------------------------
+    check_htr_forward()
+    phase_done("7 (HTR forward vs plain)")
+    check_htr_backward()
+    phase_done("8 (HTR backward vs plain)")
+
+    # ---- 9. GATA kernels at the MD22 chunk's M ---------------------------
+    for M in (112, 120):
+        for pd in (f32, bf16):
+            check_gata_forward(M, pd, False, MD22_CHUNK)
+            check_gata_backward(M, pd, False, MD22_CHUNK)
+    phase_done("9 (GATA kernels at M = 112/120)")
+
+    # ---- 10.-11. MD22 serving and training at full width -----------------
+    md22_cfg = dataclasses.replace(cfg, fused_htr=True)
+    htr_record = md22_serve_phase(md22_cfg, head, card)
+    phase_done("10 (MD22 serving)")
+    htr_bwd_record = md22_train_phase(md22_cfg, head, card)
+    phase_done("11 (MD22 training)")
+    log(json.dumps({"kernels": [record, bwd_record, htr_record,
+                                htr_bwd_record]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,7 +29,6 @@ ROADMAP_ITEMS = {
     4: "Data",
     5: "Edge-update variants",
     6: "Dipole and ESE heads",
-    8: "MD22-sized dense molecules",
     9: "Forces",
     10: "Edge-list layout",
     11: "ELL layout",
@@ -146,8 +145,6 @@ class GotenNetConfig:
             raise not_ported("trainable_rbf", 3)
         if self.edge_updates is not True:
             raise not_ported(f"edge_updates={self.edge_updates!r}", 5)
-        if self.fused_htr:
-            raise not_ported("fused_htr=True (the dense HTR kernel)", 8)
         if self.pos_grads:
             raise not_ported("pos_grads=True (position gradients through "
                              "the fused message)", 9)

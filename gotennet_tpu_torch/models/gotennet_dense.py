@@ -3,10 +3,13 @@
 Counterpart of ``gotennet_tpu/models/gotennet_dense.py`` with the fused
 message path: every GATA layer runs its message + aggregation through
 ``ops.fused_gata.fused_gata`` (the CUDA kernels on the card, forward and,
-in training, backward through ``FusedGATA``), and
-the HTR edge update in its expanded-rejection form as plain tensor ops:
+in training, backward through ``FusedGATA``), and the HTR edge update in
+its expanded-rejection form,
 
-    sum_m EQr.EKr = S - pq * pk * (2 - |r_l|^2)
+    sum_m EQr.EKr = S - pq * pk * (2 - |r_l|^2),
+
+through ``ops.fused_htr.fused_htr`` (its CUDA kernels, ``FusedHTR`` in
+training) when ``fused_htr`` is set, as plain tensor ops otherwise.
 
 Parameters carry the reference state-dict names
 (``gata_list.{i}.W_q.weight`` ...).  ``pair_dtype`` and ``node_dtype``
@@ -22,9 +25,10 @@ import torch
 from torch import nn
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
-from gotennet_tpu_torch.models.gotennet import EQFF, GotenNetConfig
+from gotennet_tpu_torch.models.gotennet import (EQFF, GotenNetConfig,
+                                               parse_edge_updates)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
-from gotennet_tpu_torch.ops import fused_gata
+from gotennet_tpu_torch.ops import fused_gata, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
 from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
 from gotennet_tpu_torch.ops.rbf import get_rbf
@@ -232,6 +236,16 @@ class GATADense(nn.Module):
 
         # ---- HTR edge update (expanded rejection), in pair_dtype --------
         EQ, EK = self._htr_projections(X)
+        if cfg.fused_htr and (cfg.evec_dim or D) == D:
+            # one kernel over the pairs: z, gt, S, pq, pk and w stay on
+            # chip (ops/fused_htr.py); gamma_t's single layer in [in, out]
+            info = parse_edge_updates(cfg.edge_updates)
+            layer = self.gamma_t.dense_layers[0]
+            return h, X, fused_htr.fused_htr(
+                t_ij, EQ.contiguous(), EK.contiguous(), rl_ij,
+                layer.weight.t().contiguous(), layer.bias, lmax=cfg.lmax,
+                sep_htr=cfg.sep_htr, rej=info["rej"],
+                gate=info["gated"] or "", pair_dtype=pd)
 
         def pair_terms(lo, hi):
             eq = EQ[..., lo:hi, :].to(pd)

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, loaded with ``ctypes``.  The
 build goes to ``build/`` at the repository root at first use and is
-reused while the source and the flags are unchanged (the file name
-carries their hash).  Nothing here runs at import time.
+reused while the source, the headers of ``csrc/`` and the flags are
+unchanged (the file name carries their hash).  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ __all__ = ["build_all", "load_library", "build_log", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("fused_gata_fwd.cu", "fused_gata_bwd.cu")
+SOURCES = ("fused_gata_fwd.cu", "fused_gata_bwd.cu", "fused_htr_fwd.cu",
+           "fused_htr_bwd.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,6 +42,8 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
@@ -91,6 +95,17 @@ def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
         fn.restype = i32
         fn = lib.gotennet_fused_gata_bwd_workspace
         fn.argtypes = [i32] * 7
+        fn.restype = i64
+    elif source == "fused_htr_fwd.cu":
+        fn = lib.gotennet_fused_htr_fwd
+        fn.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
+        fn.restype = i32
+    elif source == "fused_htr_bwd.cu":
+        fn = lib.gotennet_fused_htr_bwd
+        fn.argtypes = [ptr] * 14 + [i32] * 10 + [ptr]
+        fn.restype = i32
+        fn = lib.gotennet_fused_htr_bwd_workspace
+        fn.argtypes = [i32] * 3
         fn.restype = i64
     else:
         raise ValueError(f"no C interface declared for {source}")

@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's forward-only evaluation pipeline
 (``bench.py``'s ``BENCH_MODE=eval`` and the CLI's ``test`` entry): a
-request is bucketed by size into chunks of ``chunk`` graphs, each chunk
-padded to its own largest molecule (M a multiple of 8), and run through
-``GotenModel`` in the dense layout.
+request is cut into chunks of ``chunk`` graphs, bucketed by size so that
+each chunk is padded to its own largest molecule (M a multiple of 8), or
+unbucketed (``bucket=False``, ``bench.py``'s MD22 mode) with every chunk
+padded to the request's largest molecule, and run through ``GotenModel``
+in the dense layout.
 
     pred = Predictor(cfg, head, state_dict)        # on cuda
     energies = pred.predict([{"z": z0, "pos": pos0}, ...])   # [n, n_out]
@@ -34,6 +36,9 @@ class Predictor:
             ``utils.convert.state_dict_from_jax_params``); None keeps the
             seeded init.
         chunk: graphs per forward call.
+        bucket: sort each request by size so that every chunk is padded
+            only to its own largest molecule; False pads every chunk to
+            the request's largest.
         seed: seed of the init when no weights are given.
         device: ``None`` means ``cuda``; pass ``"cpu"`` for the plain
             versions on the CPU.
@@ -41,13 +46,14 @@ class Predictor:
 
     def __init__(self, cfg: GotenNetConfig, head: HeadConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, *,
-                 chunk: int = 8, seed: int = 0,
+                 chunk: int = 8, bucket: bool = True, seed: int = 0,
                  device: Optional[str | torch.device] = None):
         self.model = GotenModel(cfg, head, seed=seed, device=device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.device = next(self.model.parameters()).device
         self.chunk = chunk
+        self.bucket = bucket
         self.n_out = head.n_out
 
     @torch.inference_mode()
@@ -61,7 +67,7 @@ class Predictor:
             z=[np.asarray(m["z"], np.int32) for m in molecules],
             pos=[np.asarray(m["pos"], np.float32) for m in molecules])
         # one bucketing window over the whole request
-        loader = DenseLoader(ds, batch_size=self.chunk, bucket=True,
+        loader = DenseLoader(ds, batch_size=self.chunk, bucket=self.bucket,
                              bucket_window=math.ceil(n / self.chunk))
         out = torch.empty(n, self.n_out, device=self.device)
         for idx, batch in loader.batches():

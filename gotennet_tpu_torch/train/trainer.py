@@ -53,19 +53,21 @@ def make_loss_fn(model: GotenModel, task: Task) -> Callable:
 
 
 def make_chunks(molecules: Sequence[dict], chunk: int,
-                device: Optional[str | torch.device] = None
-                ) -> List[DenseBatch]:
+                device: Optional[str | torch.device] = None,
+                bucket: bool = True) -> List[DenseBatch]:
     """The accumulation chunks of one batch, as ``bench.py`` cuts them:
-    ``chunk`` graphs each, bucketed by size over one window spanning the
-    batch (each chunk padded to its own largest molecule), on
-    ``device``."""
+    ``chunk`` graphs each, on ``device``.  With ``bucket`` the molecules
+    are sorted by size over one window spanning the batch and each chunk is
+    padded to its own largest molecule; without it (``bench.py``'s MD22
+    mode) they keep their order and every chunk is padded to the batch's
+    largest molecule (rounded up to a multiple of 8)."""
     ds = MoleculeDataset(
         z=[np.asarray(m["z"], np.int32) for m in molecules],
         pos=[np.asarray(m["pos"], np.float32) for m in molecules],
         y=np.asarray([np.asarray(m["y"], np.float32).reshape(-1)
                       for m in molecules]))
     n_chunks = math.ceil(len(molecules) / chunk)
-    loader = DenseLoader(ds, batch_size=chunk, bucket=True,
+    loader = DenseLoader(ds, batch_size=chunk, bucket=bucket,
                          bucket_window=n_chunks)
     return [b.to(device) for b in loader]
 
@@ -112,16 +114,19 @@ def train_steps(cfg: GotenNetConfig, head: HeadConfig,
                 molecules: Sequence[dict], n_steps: int, *, chunk: int = 16,
                 lr: float = 1e-4, seed: int = 0,
                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                device: Optional[str | torch.device] = None) -> List[float]:
+                device: Optional[str | torch.device] = None,
+                bucket: bool = True) -> List[float]:
     """Train a model from a seeded init (or ``state_dict``) for
     ``n_steps`` steps on one batch of ``molecules`` (dicts with ``z``,
-    ``pos`` and ``y``), cut into ``chunk``-graph accumulation chunks, with
+    ``pos`` and ``y``), cut into ``chunk``-graph accumulation chunks
+    (bucketed by size unless ``bucket`` is False, see ``make_chunks``), with
     AdamW(lr, eps=1e-7, no weight decay) after a global-norm clip at 5.0.
     ``device=None`` means ``cuda``.  Returns the loss of each step."""
     model = GotenModel(cfg, head, seed=seed, device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict)
-    chunks = make_chunks(molecules, chunk, next(model.parameters()).device)
+    chunks = make_chunks(molecules, chunk, next(model.parameters()).device,
+                         bucket)
     optimizer = make_optimizer(model.parameters(), lr)
     loss_fn = make_loss_fn(model, Task(None))
     return [train_step(model, optimizer, chunks, optimizer.grad_clip,

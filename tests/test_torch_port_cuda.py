@@ -23,6 +23,10 @@ from gotennet_tpu_torch.ops.fused_gata import (fused_gata_backward,
                                                fused_gata_backward_reference,
                                                fused_gata_forward,
                                                fused_gata_forward_reference)
+from gotennet_tpu_torch.ops.fused_htr import (fused_htr_backward,
+                                              fused_htr_backward_reference,
+                                              fused_htr_forward,
+                                              fused_htr_forward_reference)
 from gotennet_tpu_torch.serve import Predictor
 from gotennet_tpu_torch.train.trainer import train_steps
 
@@ -73,6 +77,7 @@ def inputs(device, G, M, D, H, lmax, sep_dir, sep_tensor, head_scale,
     (16, 96, 8, 3, (True, False), True, torch.bfloat16),
     (32, 256, 8, 2, (True, True), False, torch.bfloat16),
     (70, 32, 4, 1, (False, True), False, torch.bfloat16),
+    (120, 256, 8, 2, (True, True), False, torch.bfloat16),
 ])
 def test_kernel_matches_plain(card, M, D, H, lmax, sep, head_scale, pd):
     args = inputs(card, 3, M, D, H, lmax, *sep, head_scale, pd)
@@ -129,6 +134,7 @@ def test_predictor_on_card_matches_cpu(card):
     (24, 64, 8, 2, (False, False), True, torch.float32),
     (16, 96, 8, 3, (True, False), True, torch.bfloat16),
     (32, 256, 8, 2, (True, True), False, torch.bfloat16),
+    (112, 64, 8, 2, (True, True), True, torch.float32),
 ])
 def test_backward_kernel_matches_plain(card, M, D, H, lmax, sep, head_scale,
                                        pd):
@@ -166,4 +172,114 @@ def test_train_step_on_card_matches_cpu(card):
     assert fused_gata_forward.launches == n_fwd + 2 * 3 * 2
     assert fused_gata_backward.launches == n_bwd + 2 * 3 * 2
     want = train_steps(cfg, head, mols, 2, chunk=8, seed=1, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ---- the fused HTR update ---------------------------------------------------
+HTR_CASES = [
+    # M, D, lmax, (sep_htr, rej, gate), pair type, t type, node type
+    (8, 32, 2, (True, True, ""), torch.float32, torch.float32, torch.float32),
+    (16, 64, 3, (False, True, "gated"), torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),
+    (24, 64, 1, (True, False, "act"), torch.float32, torch.float32,
+     torch.bfloat16),
+    (120, 256, 2, (True, True, ""), torch.bfloat16, torch.float32,
+     torch.bfloat16),
+]
+
+
+def htr_inputs(device, G, M, D, lmax, t_dtype, node_dtype, seed=0):
+    """(t, EQ, EK, rl, W_g, b_g) and a cotangent of out that is zero on the
+    rows and columns of graph 0's last 3 atoms."""
+    rng = np.random.default_rng(seed)
+    L = (lmax + 1) ** 2 - 1
+
+    def rand(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                * 0.4)
+
+    args = [rand(G, M, M, D).to(t_dtype), rand(G, M, L, D).to(node_dtype),
+            rand(G, M, L, D).to(node_dtype), rand(G, M, M, L), rand(D, D),
+            rand(D)]
+    g = torch.randn(G, M, M, D, generator=torch.Generator().manual_seed(seed))
+    g[0, M - 3:] = 0.0
+    g[0, :, M - 3:] = 0.0
+    return [a.to(device) for a in args], g.to(device)
+
+
+# float32: the same arithmetic, sums in another order -> 1e-4 of each
+# output's scale; bf16 pair type: a float32 sum in another order can move a
+# value that is rounded afterwards by one bf16 ulp (2^-8) -> 1e-2.
+@pytest.mark.parametrize("M,D,lmax,variant,pd,td,nd", HTR_CASES)
+def test_htr_kernels_match_plain(card, M, D, lmax, variant, pd, td, nd):
+    args, g = htr_inputs(card, 3, M, D, lmax, td, nd)
+    kw = dict(lmax=lmax, sep_htr=variant[0], rej=variant[1],
+              gate=variant[2], pair_dtype=pd)
+    tol = 1e-2 if pd == torch.bfloat16 else 1e-4
+    n_fwd, n_bwd = fused_htr_forward.launches, fused_htr_backward.launches
+    got = [fused_htr_forward(*args, **kw)]
+    got += fused_htr_backward(*args, g, **kw)
+    torch.cuda.synchronize()
+    assert fused_htr_forward.launches == n_fwd + 1
+    assert fused_htr_backward.launches == n_bwd + 1
+    want = [fused_htr_forward_reference(*args, **kw)]
+    want += fused_htr_backward_reference(*args, g, **kw)
+    for i, (a, w) in enumerate(zip(got, want)):
+        err = (a - w).abs().max().item()
+        assert err <= tol * max(w.abs().max().item(), 1e-30), (i, err)
+    g_t, g_EQ, g_EK, g_rl = got[1:5]
+    for a in (g_t, g_rl):
+        assert torch.all(a[0, M - 3:] == 0) and torch.all(a[0, :, M - 3:] == 0)
+    assert torch.all(g_EQ[0, M - 3:] == 0) and torch.all(g_EK[0, M - 3:] == 0)
+
+
+def test_htr_kernel_checks_arguments(card):
+    args, _ = htr_inputs(card, 1, 8, 32, 2, torch.float32, torch.float32)
+    kw = dict(lmax=2, sep_htr=True, rej=True, gate="")
+    before = fused_htr_forward.launches
+    bad = list(args)
+    bad[3] = bad[3].double()
+    with pytest.raises(ValueError, match="rl must be float32"):
+        fused_htr_forward(*bad, **kw)
+    with pytest.raises(ValueError, match="unsupported gate"):
+        fused_htr_forward(*args, **dict(kw, gate="mlp"))
+    assert fused_htr_forward.launches == before
+
+
+def _md22_frames(n, seed):
+    return synthetic_molecules(n, seed=seed, min_atoms=110, max_atoms=120,
+                               box=6.3).graph_dicts(range(n))
+
+
+def test_md22_predictor_on_card_matches_cpu(card):
+    """MD22-sized frames (M = 120, unbucketed) through both fused HTR and
+    GATA kernels, float32, card against CPU."""
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, fused_htr=True)
+    head = HeadConfig(mean=0.5, stddev=2.0)
+    mols = _md22_frames(8, seed=4)
+    n_gata, n_htr = (fused_gata.fused_gata_forward.launches,
+                     fused_htr_forward.launches)
+    got = Predictor(cfg, head, seed=2, chunk=4, bucket=False).predict(mols)
+    assert fused_gata.fused_gata_forward.launches == n_gata + 2 * 2
+    assert fused_htr_forward.launches == n_htr + 2 * 1
+    want = Predictor(cfg, head, seed=2, chunk=4, bucket=False,
+                     device="cpu").predict(mols)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_md22_train_step_on_card_matches_cpu(card):
+    """Two training steps on MD22-sized frames with fused_htr, float32, card
+    against CPU; each step launches the HTR kernels chunks x (layers - 1)
+    times."""
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, fused_htr=True)
+    head = HeadConfig(mean=0.5, stddev=2.0)
+    mols = _md22_frames(8, seed=5)
+    n_fwd, n_bwd = fused_htr_forward.launches, fused_htr_backward.launches
+    got = train_steps(cfg, head, mols, 2, chunk=4, seed=1, bucket=False)
+    assert fused_htr_forward.launches == n_fwd + 2 * 2
+    assert fused_htr_backward.launches == n_bwd + 2 * 2
+    want = train_steps(cfg, head, mols, 2, chunk=4, seed=1, bucket=False,
+                       device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-4)

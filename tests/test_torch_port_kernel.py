@@ -125,7 +125,7 @@ struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3_ { unsigned x, y, z; };
 inline thread_local uint3_ threadIdx;
-inline uint3_ blockIdx;
+inline thread_local uint3_ blockIdx;
 inline std::barrier<>* g_bar;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 struct alignas(16) float4 { float x, y, z, w; };
@@ -146,19 +146,25 @@ template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 using std::max; using std::min;
+// one thread per CUDA thread of a block, walking the blocks in order; a
+// barrier after each block keeps the next one from starting early
 template <class K, class P>
 void host_launch(K kern, dim3 grid, unsigned nt, const P& p) {
-  for (unsigned bz = 0; bz < grid.z; ++bz)
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = {bx, by, bz};
-      std::barrier<> bar(nt);
-      g_bar = &bar;
-      std::vector<std::thread> th;
-      for (unsigned t = 0; t < nt; ++t)
-        th.emplace_back([&, t] { threadIdx = {t, 0, 0}; kern(p); });
-      for (auto& x : th) x.join();
-    }
+  std::barrier<> bar(nt);
+  g_bar = &bar;
+  std::vector<std::thread> th;
+  for (unsigned t = 0; t < nt; ++t)
+    th.emplace_back([&, t] {
+      threadIdx = {t, 0, 0};
+      for (unsigned bz = 0; bz < grid.z; ++bz)
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          blockIdx = {bx, by, bz};
+          kern(p);
+          bar.arrive_and_wait();
+        }
+    });
+  for (auto& x : th) x.join();
 }
 """
 _CUDA_BF16_H = r"""
@@ -190,7 +196,8 @@ def build_on_host(directory, source, launch):
     (directory / "k.cpp").write_text(src.replace(
         launch, f"host_launch(kern, grid, kThreads, {args}); (void)stream;"))
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    f"-I{directory}", "-o", str(directory / "libk.so"),
+                    f"-I{directory}", f"-I{_build.CSRC}",
+                    "-o", str(directory / "libk.so"),
                     str(directory / "k.cpp"), "-lpthread"], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(directory / "libk.so"))
@@ -218,6 +225,10 @@ def host_build(tmp_path_factory):
     dict(G=1, M=70, D=32, H=4, lmax=2, sep=(True, True), hs=False,
          pd=torch.bfloat16, t=torch.float32, node=torch.float32),
     dict(G=2, M=16, D=128, H=8, lmax=2, sep=(False, True), hs=True,
+         pd=torch.bfloat16, t=torch.float32, node=torch.bfloat16),
+    # the MD22 chunk's M: one destination row of 120 pairs per block, whose
+    # mma.sync fragments also read the 8 zero rows past them
+    dict(G=1, M=120, D=32, H=4, lmax=2, sep=(True, True), hs=False,
          pd=torch.bfloat16, t=torch.float32, node=torch.bfloat16),
 ])
 def test_cuda_source_on_host_matches_plain(host_build, case):

@@ -37,6 +37,25 @@ def test_predictor_matches_model_molecule_by_molecule():
     assert pred.predict([]).shape == (0, 1)
 
 
+def test_unbucketed_predictor_pads_every_chunk_to_the_largest():
+    """bucket=False (bench.py's MD22 mode): every chunk is padded to the
+    request's largest molecule, in request order, and the answers are the
+    bucketed ones (f32; padding only changes the order of f32 sums)."""
+    mols = synthetic_molecules(10, seed=6, min_atoms=4,
+                               max_atoms=21).graph_dicts(range(10))
+    want = Predictor(CFG, HEAD, seed=3, device="cpu", chunk=4).predict(mols)
+    pred = Predictor(CFG, HEAD, seed=3, device="cpu", chunk=4, bucket=False)
+    seen = []
+    pred.model.register_forward_pre_hook(
+        lambda _, args: seen.append((args[0].max_atoms,
+                                     args[0].z[:, 0].tolist())))
+    got = pred.predict(mols)
+    largest = max(len(m["z"]) for m in mols)
+    assert [m for m, _ in seen] == [(largest + 7) // 8 * 8] * 3
+    assert [z for _, z in seen][0] == [int(m["z"][0]) for m in mols[:4]]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -53,7 +72,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     (dict(layernorm="pre"), "item 3"), (dict(steerable_norm="pre"), "item 3"),
     (dict(trainable_rbf=True), "item 3"), (dict(edge_updates="gated"),
                                            "item 5"),
-    (dict(edge_updates=False), "item 5"), (dict(fused_htr=True), "item 8"),
+    (dict(edge_updates=False), "item 5"), (dict(pos_grads=True), "item 9"),
     (dict(scan_layers=True), "item 13")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
