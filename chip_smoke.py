@@ -53,7 +53,23 @@ Phases, in order; any failure exits non-zero before the result line:
      (4-frame chunks, unbucketed): 32 GATA and 24 HTR launches each way; the
      first step's gradients are held against the same step through both
      backward plain versions; three steps are timed after two warm-up steps,
-     profiled, and the HTR backward kernel timed on a step's inputs.
+     profiled, and the HTR backward kernel timed on a step's inputs;
+ 12. ELL message kernel vs plain: the fused ELL forward against its plain
+     PyTorch version at N = 704 rows, K = 36 slots, D = 256, H = 8, lmax 2,
+     float32 and bf16 pair types, scalar and per-head scale, a third of the
+     slots and the last 8 rows padded, and a case with fewer rows than
+     table rows;
+ 13. ELL HTR kernel vs plain: the same shapes, the flagship grammar and the
+     sigmoid-gated variant, float32 and bf16 (every slot compared);
+ 14. ELL serving: the flagship model with ``fused_htr=True`` answers 8
+     synthetic frames of 600-700 atoms at condensed-phase density
+     (``bench.py``'s ``BENCH_DATASET=large``) through
+     ``Predictor(layout="ell")``, one frame per chunk, atoms spatially sorted,
+     64-row gather windows; the launch counters must read 8 chunks x 4
+     layers of the message and x 3 of the HTR update; the answers are held
+     against the same model run through both plain versions; the request is
+     timed (CUDA events) and profiled, and both kernels timed on the inputs
+     the request gave them.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -90,6 +106,10 @@ TOL_TRAIN = 2e-2
 # unbucketed 4-frame chunks (every chunk padded to M = 120)
 MD22_FRAMES, MD22_CHUNK = 32, 4
 MD22_SIZES = dict(min_atoms=110, max_atoms=120, box=6.3)
+# 600-700-atom frames as bench.py's BENCH_DATASET=large makes them: one
+# frame per chunk on the ELL layout (N = 704 rows, K = 36 slots)
+LARGE_FRAMES, ELL_N, ELL_K = 8, 704, 36
+LARGE_SIZES = dict(min_atoms=600, max_atoms=700, box=6.3)
 
 
 def log(msg: str) -> None:
@@ -199,6 +219,29 @@ def htr_bwd_bound_ms(args, kwargs) -> tuple:
                     kwargs["pair_dtype"])
 
 
+def ell_fwd_bound_ms(args, kwargs) -> tuple:
+    """The ELL message: each input read once (the node tables as tables),
+    d_h and dX written once; the two projections t W_re and t W_rs,
+    2 D (D + mult D) FLOP per valid slot (padded ones add exact zeros)."""
+    t, W_re, W_rs = args[0], args[10], args[12]
+    Dd, C = W_re.shape[0], W_rs.shape[1]
+    NR, L = t.shape[0], args[5].shape[-1]
+    n_out = (NR * Dd + NR * L * Dd) * 4
+    valid = int((args[7] >= 0).sum())
+    return bound_ms(n_bytes(args) + n_out, 2.0 * Dd * (Dd + C) * valid,
+                    kwargs["pair_dtype"])
+
+
+def htr_ell_fwd_bound_ms(args, kwargs) -> tuple:
+    """The ELL HTR update: t, EQ, EK (as a table), rl, nbr, W_g, b_g read
+    once, out (float32) written once; the projection t W_g, 2 D^2 FLOP per
+    slot, over every slot (the update masks none)."""
+    t, W_g = args[0], args[5]
+    pairs = t.numel() // t.shape[-1]
+    return bound_ms(n_bytes(args) + 4 * t.numel(),
+                    2.0 * W_g.numel() * pairs, kwargs["pair_dtype"])
+
+
 def time_calls(fn, calls, reps) -> float:
     """Mean ms per call over ``reps`` passes through ``calls``."""
     for c in calls[:2]:
@@ -290,7 +333,8 @@ def capture(module, name, run) -> list:
 @torch.inference_mode()
 def kernel_record(meta, captured, kernel, plain, bound, card) -> dict:
     """Hold the kernel against the plain version on each captured call, and
-    time both per launch, grouped by M, beside ``bound(args, kwargs)``.
+    time both per launch, grouped by the shape of t, beside
+    ``bound(args, kwargs)``.
     (Weights captured while serving are inference tensors, so the replay
     runs in inference mode.)"""
     max_abs = 0.0
@@ -307,13 +351,13 @@ def kernel_record(meta, captured, kernel, plain, bound, card) -> dict:
             if rel > TOL_BF16:
                 raise AssertionError(f"{meta['name']} disagrees on the main "
                                      f"path's inputs (rel err {rel:.3e})")
-    by_m = {}
+    by_shape = {}
     for c in captured:
-        by_m.setdefault(c[0][0].shape[1], []).append(c)
+        by_shape.setdefault(tuple(c[0][0].shape), []).append(c)
     total_k = total_p = total_b = 0.0
     bound_kind = "operations"
-    for M in sorted(by_m):
-        calls = by_m[M]
+    for shape in sorted(by_shape):
+        calls = by_shape[shape]
         k_ms = time_calls(lambda c: kernel(*c[0], **c[1]), calls, 3)
         p_ms = time_calls(lambda c: plain(*c[0], **c[1]), calls, 1)
         bounds = [bound(*c) for c in calls]
@@ -322,8 +366,8 @@ def kernel_record(meta, captured, kernel, plain, bound, card) -> dict:
         total_k += k_ms * len(calls)
         total_p += p_ms * len(calls)
         total_b += b_ms * len(calls)
-        log(f"[time] {meta['name']} M={M}: {len(calls)} launches, kernel "
-            f"{k_ms:.4f} ms/launch, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        log(f"[time] {meta['name']} t{list(shape)}: {len(calls)} launches, "
+            f"kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({bound_kind}) | {card}")
     n = len(captured)
     return {**meta, "launches": None, "max_abs_err": max_abs,
@@ -720,6 +764,166 @@ def md22_train_phase(cfg, head, card) -> dict:
     return record
 
 
+def ell_message_inputs(NR, N, head_scale, seed) -> list:
+    """ELL message inputs on the card at the large request's shapes (float32
+    node tables, as the ELL layer gives them): a third of the slots padded
+    (env -1, pointing at their own row) and the last 8 rows wholly
+    padded."""
+    gen = torch.Generator().manual_seed(seed)
+    L, C = (LMAX + 1) ** 2 - 1, (1 + 2 * LMAX) * D
+
+    def rand(*s):
+        return torch.randn(s, generator=gen) * 0.3
+
+    valid = torch.rand(NR, ELL_K, generator=gen) > 0.3
+    valid[-8:] = False
+    nbr = torch.where(valid, torch.randint(0, N, (NR, ELL_K), generator=gen),
+                      torch.arange(NR)[:, None]).to(torch.int32)
+    env = torch.where(valid, torch.rand(NR, ELL_K, generator=gen),
+                      torch.tensor(-1.0))
+    scale = (torch.rand(NR, ELL_K, H, generator=gen) if head_scale
+             else torch.full((NR, ELL_K), 1.0 / math.sqrt(D)))
+    args = [rand(NR, ELL_K, D), rand(NR, D), rand(N, D), rand(N, C),
+            rand(N, C), rand(NR, ELL_K, L), rand(N, L, D), env, scale, nbr,
+            rand(D, D), rand(D), rand(D, C), rand(C)]
+    return [a.cuda() for a in args]
+
+
+def check_ell_message() -> None:
+    """Phase 12: the ELL message kernel against its plain version; padded
+    rows get exact zeros."""
+    from gotennet_tpu_torch.ops import fused_ell
+    cases = [(ELL_N, ELL_N, pd, hs) for pd in (torch.float32, torch.bfloat16)
+             for hs in (False, True)]
+    cases.append((ELL_N - 64, ELL_N, torch.bfloat16, False))
+    for NR, N, pd, head_scale in cases:
+        args = ell_message_inputs(NR, N, head_scale, seed=500 + NR)
+        kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True,
+                  pair_dtype=pd, with_attn=True)
+        got = fused_ell.fused_ell_forward(*args, **kw)
+        torch.cuda.synchronize()
+        want = fused_ell.fused_ell_forward_reference(*args, **kw)
+        tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        log(f"[ell-vs-plain] NR={NR} N={N} K={ELL_K} pair={str(pd)[6:]} "
+            f"head_scale={head_scale}: max abs / rel err "
+            + ", ".join(f"{n} {a:.3e}/{r:.3e}" for n, (a, r)
+                        in zip(("d_h", "dX", "sm"), errs))
+            + f" (tol {tol:g} rel)")
+        if not all(r <= tol for _, r in errs):
+            raise AssertionError(f"ELL message disagrees at NR={NR} {pd}")
+        if not (torch.all(got[2][-8:] == 0) and torch.all(got[0][-8:] == 0)
+                and torch.all(got[1][-8:] == 0)):
+            raise AssertionError("padded rows got weight")
+
+
+def check_htr_ell() -> None:
+    """Phase 13: the ELL HTR kernel against its plain version."""
+    from gotennet_tpu_torch.ops import fused_htr
+    L = (LMAX + 1) ** 2 - 1
+    gen = torch.Generator().manual_seed(600)
+
+    def rand(*s):
+        return (torch.randn(s, generator=gen) * 0.4).cuda()
+
+    msg = ell_message_inputs(ELL_N, ELL_N, False, seed=601)
+    args = [msg[0], rand(ELL_N, L, D), rand(ELL_N, L, D), msg[5], msg[9],
+            rand(D, D) / 8.0, rand(D)]
+    for pd in (torch.float32, torch.bfloat16):
+        for gate in ("", "gated"):
+            kw = dict(lmax=LMAX, sep_htr=True, rej=True, gate=gate,
+                      pair_dtype=pd)
+            got = fused_htr.fused_htr_ell_forward(*args, **kw)
+            torch.cuda.synchronize()
+            want = fused_htr.fused_htr_ell_forward_reference(*args, **kw)
+            tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+            err, rel = rel_err(got, want)
+            log(f"[htr-ell-vs-plain] N={ELL_N} K={ELL_K} pair={str(pd)[6:]} "
+                f"gate={gate!r}: out max abs {err:.3e} rel {rel:.3e} (tol "
+                f"{tol:g} rel)")
+            if rel > tol or not torch.isfinite(got).all():
+                raise AssertionError(f"ELL HTR disagrees at {pd} {gate!r}")
+
+
+def ell_serve_phase(cfg, head, card) -> list:
+    """Phase 14: the 600-700-atom request on the ELL layout through both ELL
+    kernels; returns their records."""
+    from gotennet_tpu_torch.data.dataset import (MoleculeDataset,
+                                                 synthetic_molecules)
+    from gotennet_tpu_torch.ops import fused_ell, fused_htr
+    from gotennet_tpu_torch.serve import Predictor
+
+    msg, htr = fused_ell.fused_ell_forward, fused_htr.fused_htr_ell_forward
+    mols = synthetic_molecules(LARGE_FRAMES, seed=0, **LARGE_SIZES
+                               ).graph_dicts(range(LARGE_FRAMES))
+    pred = Predictor(cfg, head, seed=0, chunk=1, layout="ell",
+                     spatial_sort=True, block_rows=64)
+    expected = (LARGE_FRAMES * N_LAYERS, LARGE_FRAMES * (N_LAYERS - 1))
+
+    # the main path: one request through the entry point
+    msg.launches = htr.launches = 0
+    got = pred.predict(mols)
+    torch.cuda.synchronize()
+    launches = (msg.launches, htr.launches)
+    log(f"[ell-serve] answered {LARGE_FRAMES} frames of 600-700 atoms, one "
+        f"per chunk: launches ELL message {launches[0]}, ELL HTR "
+        f"{launches[1]} (chunks x layers = {expected[0]}, chunks x (layers "
+        f"- 1) = {expected[1]})")
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    with mock.patch.object(fused_ell, "fused_ell_forward",
+                           fused_ell.fused_ell_forward_reference), \
+            mock.patch.object(fused_htr, "fused_htr_ell_forward",
+                              fused_htr.fused_htr_ell_forward_reference):
+        want = pred.predict(mols)
+    got_t = torch.from_numpy(got)
+    err, rel = rel_err(got_t, torch.from_numpy(want))
+    log(f"[ell-serve] answers: shape {tuple(got.shape)}, max abs err vs the "
+        f"plain path {err:.4e} (rel {rel:.3e}, tol {TOL_SERVE:g})")
+    if (got.shape != (LARGE_FRAMES, 1) or not torch.isfinite(got_t).all()
+            or rel > TOL_SERVE):
+        raise AssertionError("ELL answers disagree with the plain path")
+
+    # the request's chunks as the loader cuts them; its host time is that
+    # of the neighbour probe over the request and of every collation
+    ds = MoleculeDataset(z=[m["z"] for m in mols],
+                         pos=[m["pos"] for m in mols])
+    t0 = time.perf_counter()
+    chunks = [b for _, b in pred.loader(ds).batches()]
+    loader_ms = (time.perf_counter() - t0) * 1e3
+    real_edges = sum(int(b.nbr_mask.sum()) for b in chunks)
+    padded = sum(b.num_nodes * b.max_neighbors for b in chunks)
+    log(f"[ell-serve] chunks: N = {[b.num_nodes for b in chunks]}, K = "
+        f"{[b.max_neighbors for b in chunks]}, gather windows "
+        f"{[b.gather_window for b in chunks]}, halos "
+        f"{[b.gather_halo for b in chunks]}; loader {loader_ms:.3f} ms "
+        f"(host)")
+    req_ms, host_ms, _ = time_run(lambda: pred.predict(mols), 2, 5)
+    log(f"[time] {LARGE_FRAMES}-frame ELL request: {req_ms:.3f} ms (CUDA "
+        f"events), {host_ms:.3f} ms (host clock); real edges {real_edges} "
+        f"(self-loops included), padded slots {padded}; "
+        f"{real_edges / (req_ms / 1e3):.1f} real edges/s | {card}")
+    profile(lambda: pred.predict(mols), req_ms,
+            f"{LARGE_FRAMES}-frame ELL request", card)
+    records = []
+    for name, module, fn_name, kernel, plain, bound, replaces in (
+            ("fused_ell_fwd", fused_ell, "fused_ell_forward", msg,
+             fused_ell.fused_ell_forward_reference, ell_fwd_bound_ms,
+             "gotennet_tpu/ops/pallas/fused_ell.py:77"),
+            ("fused_htr_ell_fwd", fused_htr, "fused_htr_ell_forward", htr,
+             fused_htr.fused_htr_ell_forward_reference, htr_ell_fwd_bound_ms,
+             "gotennet_tpu/ops/pallas/fused_htr.py:339")):
+        record = kernel_record(
+            {"name": name, "route": "cuda",
+             "source": f"gotennet_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces},
+            capture(module, fn_name, lambda: pred.predict(mols)), kernel,
+            plain, bound, card)
+        record["launches"] = launches[len(records)]
+        records.append(record)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -855,8 +1059,16 @@ def main() -> int:
     phase_done("10 (MD22 serving)")
     htr_bwd_record = md22_train_phase(md22_cfg, head, card)
     phase_done("11 (MD22 training)")
+
+    # ---- 12.-14. the ELL layout: both kernels, then 600-700-atom serving --
+    check_ell_message()
+    phase_done("12 (ELL message vs plain)")
+    check_htr_ell()
+    phase_done("13 (ELL HTR vs plain)")
+    ell_records = ell_serve_phase(md22_cfg, head, card)
+    phase_done("14 (ELL serving)")
     log(json.dumps({"kernels": [record, bwd_record, htr_record,
-                                htr_bwd_record]}))
+                                htr_bwd_record, *ell_records]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

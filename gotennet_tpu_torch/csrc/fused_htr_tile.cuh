@@ -1,5 +1,6 @@
-// Device code shared by the fused dense HTR kernels, forward
-// (fused_htr_fwd.cu) and backward (fused_htr_bwd.cu): the pair type's
+// Device code shared by the fused HTR kernels, dense forward
+// (fused_htr_fwd.cu) and backward (fused_htr_bwd.cu) and ELL forward
+// (fused_htr_ell_fwd.cu): the pair type's
 // rounding, the update's per-(pair, channel) terms as the TPU kernel forms
 // them, and the product of a block's pair rows with a 32-column slice of
 // W_g or of its transpose.

@@ -1,20 +1,24 @@
-"""In-memory molecular datasets and the dense-batch loader.
+"""In-memory molecular datasets and the dense- and ELL-batch loaders.
 
-Counterpart of ``gotennet_tpu/data/dataset.py`` for the dense layout:
-the same seed gives the same molecules (numpy ``default_rng``) and the
-same batch composition as the JAX package.
+Counterpart of ``gotennet_tpu/data/dataset.py`` for the dense and ELL
+layouts: the same seed gives the same molecules (numpy ``default_rng``)
+and the same batches as the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch, collate_dense
+from gotennet_tpu_torch.graph.ell_batch import ELLBatch, collate_ell
+from gotennet_tpu_torch.graph.neighborlist import build_edges_np
 
-__all__ = ["MoleculeDataset", "DenseLoader", "synthetic_molecules"]
+__all__ = ["MoleculeDataset", "DenseLoader", "ELLLoader",
+           "synthetic_molecules"]
 
 
 @dataclasses.dataclass
@@ -134,4 +138,70 @@ class DenseLoader:
                                      self.batch_size, m, y_dim=y_dim)
 
     def __iter__(self) -> Iterator[DenseBatch]:
+        return (b for _, b in self.batches())
+
+
+class ELLLoader:
+    """Iterates fixed-capacity ELLBatches (``[N, K]`` neighbour rows) over a
+    dataset, ``batch_size`` molecules each, in order.
+
+    Node capacity: the ``batch_size`` largest molecules plus 8, rounded up
+    to 8 and then to ``block_rows``.  ``max_neighbors`` defaults to the
+    largest degree over every molecule (the JAX loader's
+    ``neighbor_probe="full"``), rounded up to a multiple of 4; a batch
+    whose degree overflows it grows K by 4 and is collated again."""
+
+    def __init__(self, ds: MoleculeDataset, batch_size: int,
+                 cutoff: float = 5.0, max_num_neighbors: int = 32,
+                 max_neighbors: Optional[int] = None,
+                 spatial_sort: bool = False,
+                 block_rows: Optional[int] = None):
+        self.ds = ds
+        self.batch_size = batch_size
+        self.cutoff = cutoff
+        self.max_num_neighbors = max_num_neighbors
+        self.spatial_sort = spatial_sort
+        self.block_rows = block_rows
+        sizes = np.asarray([len(z) for z in ds.z])
+        n_cap = int(np.sort(sizes)[-min(batch_size, len(sizes)):].sum())
+        self.node_capacity = _round_up(n_cap + 8, 8)
+        if block_rows:
+            self.node_capacity = _round_up(self.node_capacity, block_rows)
+        if max_neighbors is None:
+            deg = 1
+            for pos in ds.pos:
+                _, dst = build_edges_np(pos, cutoff, True, max_num_neighbors)
+                if len(dst):
+                    deg = max(deg, int(np.bincount(dst).max()))
+            max_neighbors = _round_up(deg, 4)
+        self.max_neighbors = max_neighbors
+
+    def batches(self) -> Iterator[Tuple[np.ndarray, ELLBatch]]:
+        """Yield ``(dataset indices, batch)``; graph g of the batch holds
+        molecule ``indices[g]``."""
+        bs = self.batch_size
+        y_dim = self.ds.y.shape[1] if self.ds.y is not None else 1
+        for off in range(0, len(self.ds), bs):
+            idx = np.arange(off, min(off + bs, len(self.ds)))
+            graphs = self.ds.graph_dicts(idx)
+            while True:
+                try:
+                    batch = collate_ell(
+                        graphs, self.node_capacity, self.max_neighbors, bs,
+                        cutoff=self.cutoff,
+                        max_num_neighbors=self.max_num_neighbors,
+                        y_dim=y_dim, block_rows=self.block_rows,
+                        spatial_sort=self.spatial_sort)
+                    break
+                except ValueError as e:
+                    if "neighbor capacity" not in str(e):
+                        raise
+                    new_k = _round_up(self.max_neighbors + 4, 4)
+                    logging.getLogger(__name__).warning(
+                        "neighbor capacity %d overflowed; rebucketing to %d",
+                        self.max_neighbors, new_k)
+                    self.max_neighbors = new_k
+            yield idx, batch
+
+    def __iter__(self) -> Iterator[ELLBatch]:
         return (b for _, b in self.batches())

@@ -31,7 +31,7 @@ ROADMAP_ITEMS = {
     6: "Dipole and ESE heads",
     9: "Forces",
     10: "Edge-list layout",
-    11: "ELL layout",
+    11: "ELL layout: training, the unfused update, large tables",
     13: "CLI, configs and tools",
 }
 
@@ -106,6 +106,9 @@ class GotenNetConfig:
     # keep the inter-layer edge state t_ij in pair_dtype
     edge_state_pair_dtype: bool = False
     fused_htr: bool = False
+    # ELL layout: the most node-table rows one fused kernel call takes;
+    # larger tables need the chunked drivers, not ported yet
+    fused_table_rows: int = 2048
     merge_proj: bool = True
     scan_layers: bool = False
     # position gradients through the fused message; None follows the

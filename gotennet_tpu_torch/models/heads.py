@@ -86,13 +86,15 @@ class Atomwise(nn.Module):
             self.atomref = None
 
     def forward(self, z: torch.Tensor, h: torch.Tensor, node_mask: torch.Tensor,
-                num_graphs: int) -> Dict[str, torch.Tensor]:
-        """``z``/``node_mask`` ``[N]`` and ``h`` ``[N, D]`` over
-        ``num_graphs`` equal slabs of nodes."""
+                node_graph: torch.Tensor, num_graphs: int
+                ) -> Dict[str, torch.Tensor]:
+        """``z``, ``node_mask`` and ``node_graph`` (each node's graph)
+        ``[N]``, ``h`` ``[N, D]``; the masked contributions are summed per
+        graph into ``[num_graphs, n_out]``."""
         yi = self.out_net(h)
         yi = yi * self.standardize.stddev + self.standardize.mean
         if self.atomref is not None:
             yi = yi + self.atomref(z.long())
-        y = (yi * node_mask[:, None].to(yi.dtype)).reshape(
-            num_graphs, -1, yi.shape[-1]).sum(dim=1)
+        y = yi.new_zeros(num_graphs, yi.shape[-1]).index_add(
+            0, node_graph.long(), yi * node_mask[:, None].to(yi.dtype))
         return {"property": y, "contributions": yi}

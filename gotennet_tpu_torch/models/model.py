@@ -1,9 +1,9 @@
 """Representation + output head (``gotennet_tpu/models/model.py``),
-dense layout.
+dense and ELL layouts.
 
 ``GotenModel`` returns ``{'property': [G, n_out], 'contributions',
-'representation': [G*M, D], 'vector_representation': [G*M, L, D]}``
-like the JAX model.  It is built on ``cuda`` unless ``device`` says
+'representation': [N, D], 'vector_representation': [N, L, D]}`` like the
+JAX model, with ``N = G*M`` node slots in the dense layout.  It is built on ``cuda`` unless ``device`` says
 otherwise, from a seeded init or, through ``load_state_dict``, from
 weights converted by ``utils.convert.state_dict_from_jax_params``.
 """
@@ -18,8 +18,10 @@ import torch
 from torch import nn
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
+from gotennet_tpu_torch.graph.ell_batch import ELLBatch
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
 from gotennet_tpu_torch.models.gotennet_dense import GotenNetDense
+from gotennet_tpu_torch.models.gotennet_ell import GotenNetELL
 from gotennet_tpu_torch.models.heads import Atomwise
 from gotennet_tpu_torch.nn.dense import Dense
 from gotennet_tpu_torch.utils.device import resolve_device
@@ -68,15 +70,18 @@ def init_parameters_(module: nn.Module, generator: torch.Generator,
 
 
 class GotenModel(nn.Module):
-    """GotenNet representation + one output head, dense layout."""
+    """GotenNet representation + one output head; ``layout`` is "dense"
+    (``DenseBatch``) or "ell" (``ELLBatch``, forward only)."""
 
     def __init__(self, cfg: GotenNetConfig, head: HeadConfig,
                  layout: str = "dense", *, seed: int = 0,
                  device: Optional[str | torch.device] = None):
         super().__init__()
-        if layout != "dense":
-            raise not_ported(f"layout={layout!r}",
-                             10 if layout == "edge" else 11)
+        if layout == "edge":
+            raise not_ported("layout='edge'", 10)
+        if layout not in ("dense", "ell"):
+            raise ValueError(f"unknown layout {layout!r}; choose dense or "
+                             "ell")
         if head.kind != "atomwise":
             raise not_ported(f"head kind {head.kind!r}", 6)
         if head.derivative:
@@ -91,7 +96,9 @@ class GotenModel(nn.Module):
             cfg = dataclasses.replace(cfg, pos_grads=head.derivative)
         self.cfg = cfg
         self.head = head
-        self.representation = GotenNetDense(cfg)
+        self.layout = layout
+        self.representation = (GotenNetDense(cfg) if layout == "dense"
+                               else GotenNetELL(cfg))
         self.output_modules = nn.ModuleList([Atomwise(
             n_in=cfg.n_atom_basis, n_out=head.n_out, n_layers=head.n_layers,
             n_hidden=head.n_hidden, activation=head.activation,
@@ -101,13 +108,20 @@ class GotenModel(nn.Module):
         # serving mode after construction; training code calls .train()
         self.eval()
 
-    def forward(self, batch: DenseBatch) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: DenseBatch | ELLBatch
+                ) -> Dict[str, torch.Tensor]:
         h, X = self.representation(batch)
-        G, M = h.shape[:2]
-        h = h.reshape(G * M, -1)
-        X = X.reshape(G * M, X.shape[2], X.shape[3])
-        out = self.output_modules[0](batch.z.reshape(-1), h,
-                                     batch.mask.reshape(-1), G)
+        if self.layout == "dense":
+            G, M = h.shape[:2]
+            h = h.reshape(G * M, -1)
+            X = X.reshape(G * M, X.shape[2], X.shape[3])
+            node_graph = torch.arange(G, device=h.device).repeat_interleave(M)
+            out = self.output_modules[0](batch.z.reshape(-1), h,
+                                         batch.mask.reshape(-1), node_graph,
+                                         G)
+        else:
+            out = self.output_modules[0](batch.z, h, batch.node_mask,
+                                         batch.node_graph, batch.num_graphs)
         out["representation"] = h
         out["vector_representation"] = X
         return out

@@ -24,7 +24,7 @@ __all__ = ["build_all", "load_library", "build_log", "SOURCES"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("fused_gata_fwd.cu", "fused_gata_bwd.cu", "fused_htr_fwd.cu",
-           "fused_htr_bwd.cu")
+           "fused_htr_bwd.cu", "fused_ell_fwd.cu", "fused_htr_ell_fwd.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -107,6 +107,14 @@ def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
         fn = lib.gotennet_fused_htr_bwd_workspace
         fn.argtypes = [i32] * 3
         fn.restype = i64
+    elif source == "fused_ell_fwd.cu":
+        fn = lib.gotennet_fused_ell_fwd
+        fn.argtypes = [ptr] * 17 + [i32] * 12 + [ptr]
+        fn.restype = i32
+    elif source == "fused_htr_ell_fwd.cu":
+        fn = lib.gotennet_fused_htr_ell_fwd
+        fn.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
+        fn.restype = i32
     else:
         raise ValueError(f"no C interface declared for {source}")
     lib.gotennet_cuda_error_string.argtypes = [i32]

@@ -209,18 +209,18 @@ def _check(cond: bool, msg: str, who: str = "fused_gata_forward") -> None:
         raise ValueError(f"{who}: {msg}")
 
 
-def _check_inputs(who, args, *, lmax, num_heads, sep_dir, sep_tensor,
-                  pair_dtype) -> Tuple[int, ...]:
-    """Device, type, shape and contiguity of the 13 inputs (a dict by
-    name), as both kernels take them; returns (G, M, D, H, L, C)."""
+def _check_common(who, args, *, lmax, num_heads, sep_dir, sep_tensor,
+                  pair_dtype) -> Tuple[int, int, int, int]:
+    """What the message kernels of both layouts ask of their inputs (a dict
+    by name, D the last axis of ``t``): one device, contiguity, the types,
+    channel blocks that fit D and the heads, a scalar or per-head scale;
+    returns (D, H, L, C)."""
     f32, bf16 = torch.float32, torch.bfloat16
     t, q = args["t"], args["q"]
-    G, M, M2, D = t.shape
-    H = num_heads
+    D, H = t.shape[-1], num_heads
     L = (lmax + 1) ** 2 - 1
     C = args["W_rs"].shape[-1]
-    mult = C // D
-    blocks = _block_layout(sep_dir, sep_tensor, lmax)
+    n_blocks = len(_block_layout(sep_dir, sep_tensor, lmax))
     for name, a in args.items():
         _check(a.device == t.device, f"{name} is on {a.device}, t on "
                f"{t.device}", who)
@@ -234,24 +234,35 @@ def _check_inputs(who, args, *, lmax, num_heads, sep_dir, sep_tensor,
                  "b_rs"):
         _check(args[name].dtype == f32, f"{name} must be float32", who)
     _check(pair_dtype in (f32, bf16), f"pair_dtype {pair_dtype}", who)
-    _check(M2 == M, "t must be [G, M, M, D]", who)
     _check(D % 32 == 0 and D % H == 0, f"D={D} must be a multiple of 32 "
            f"and of num_heads={H}", who)
-    _check(C == mult * D and mult == len(blocks),
-           f"W_rs width {C} does not match the channel blocks "
-           f"(expected {len(blocks)} x D)", who)
+    _check(C == n_blocks * D, f"W_rs width {C} does not match the channel "
+           f"blocks (expected {n_blocks} x D)", who)
     _check(C % H == 0, f"mult*D={C} must be divisible by num_heads={H}", who)
-    _check(M <= MAX_PAIRS_PER_BLOCK, f"M={M} > {MAX_PAIRS_PER_BLOCK}", who)
-    shapes = dict(q=(G, M, D), k=(G, M, D), x_g=(G, M, C), v=(G, M, C),
-                  rl=(G, M, M, L), X=(G, M, L, D), env_signed=(G, M, M),
-                  W_re=(D, D), b_re=(D,), W_rs=(D, C), b_rs=(C,))
+    pairs = tuple(t.shape[:-1])
+    _check(tuple(args["scale"].shape) in (pairs, pairs + (H,)),
+           f"scale has shape {tuple(args['scale'].shape)}", who)
+    return D, H, L, C
+
+
+def _check_shapes(who, args, shapes) -> None:
     for name, shp in shapes.items():
         _check(tuple(args[name].shape) == shp,
                f"{name} has shape {tuple(args[name].shape)}, expected {shp}",
                who)
-    scale = args["scale"]
-    _check(tuple(scale.shape) in ((G, M, M, H), (G, M, M)),
-           f"scale has shape {tuple(scale.shape)}", who)
+
+
+def _check_inputs(who, args, **kw) -> Tuple[int, ...]:
+    """Device, type, shape and contiguity of the 13 inputs (a dict by
+    name), as both kernels take them; returns (G, M, D, H, L, C)."""
+    D, H, L, C = _check_common(who, args, **kw)
+    G, M, M2, _ = args["t"].shape
+    _check(M2 == M, "t must be [G, M, M, D]", who)
+    _check(M <= MAX_PAIRS_PER_BLOCK, f"M={M} > {MAX_PAIRS_PER_BLOCK}", who)
+    _check_shapes(who, args, dict(
+        q=(G, M, D), k=(G, M, D), x_g=(G, M, C), v=(G, M, C),
+        rl=(G, M, M, L), X=(G, M, L, D), env_signed=(G, M, M), W_re=(D, D),
+        b_re=(D,), W_rs=(D, C), b_rs=(C,)))
     return G, M, D, H, L, C
 
 

@@ -29,6 +29,13 @@ float32.
 likewise runs ``csrc/fused_htr_bwd.cu`` or ``fused_htr_backward_reference``.
 Nothing falls back.  ``FusedHTR`` wires the two through autograd, and
 ``fused_htr`` picks it only when a gradient is wanted.
+
+The ELL layout's update (TPU kernel ``_ell_htr_kernel``, wired by
+``make_fused_htr_ell``) is the same update with ``i`` the destination row
+r of ``t [NR, K, D]`` and ``j = nbr[r, s]`` a row of the source table
+``EK [N, L, D]``: ``fused_htr_ell_forward`` runs ``csrc/fused_htr_ell_fwd.cu``
+or ``fused_htr_ell_forward_reference``.  Its backward is not ported yet:
+``fused_htr_ell`` raises when a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -38,11 +45,13 @@ from typing import List, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from gotennet_tpu_torch.ops.fused_gata import _check, _check_shapes, _raise_on
 from gotennet_tpu_torch.ops.spherical import degree_slices
 
 __all__ = ["fused_htr", "FusedHTR", "fused_htr_forward",
            "fused_htr_forward_reference", "fused_htr_backward",
-           "fused_htr_backward_reference"]
+           "fused_htr_backward_reference", "fused_htr_ell",
+           "fused_htr_ell_forward", "fused_htr_ell_forward_reference"]
 
 # gate names, in the order of the kernels' gate codes
 GATES = ("", "gated", "gatedt", "act")
@@ -188,19 +197,13 @@ def fused_htr_backward_reference(t, EQ, EK, rl, W_g, b_g, g, *, lmax: int,
     return g_t, g_EQ, g_EK, g_rl, g_W, g_b
 
 
-def _check(cond: bool, msg: str, who: str) -> None:
-    if not cond:
-        raise ValueError(f"{who}: {msg}")
-
-
-def _check_inputs(who, t, EQ, EK, rl, W_g, b_g, *, lmax, gate,
-                  pair_dtype) -> Tuple[int, int, int, int]:
-    """Device, type, shape and contiguity of the six inputs, as both
-    kernels take them; returns (G, M, D, L)."""
+def _check_common(who, named, *, lmax, gate, pair_dtype) -> Tuple[int, int]:
+    """What the dense and the ELL kernels ask of their inputs (a dict by
+    name, D the last axis of ``t``): one device, contiguity, the types, the
+    gate and lmax; returns (D, L)."""
     f32, bf16 = torch.float32, torch.bfloat16
-    G, M, M2, D = t.shape
-    L = (lmax + 1) ** 2 - 1
-    named = dict(t=t, EQ=EQ, EK=EK, rl=rl, W_g=W_g, b_g=b_g)
+    t, EQ, EK = named["t"], named["EQ"], named["EK"]
+    D = t.shape[-1]
     for name, a in named.items():
         _check(a.device == t.device, f"{name} is on {a.device}, t on "
                f"{t.device}", who)
@@ -213,14 +216,21 @@ def _check_inputs(who, t, EQ, EK, rl, W_g, b_g, *, lmax, gate,
     _check(pair_dtype in (f32, bf16), f"pair_dtype {pair_dtype}", who)
     _check(gate in GATES, f"unsupported gate {gate!r}", who)
     _check(1 <= lmax <= MAX_LMAX, f"lmax={lmax} outside 1..{MAX_LMAX}", who)
-    _check(M2 == M, "t must be [G, M, M, D]", who)
     _check(D % 32 == 0, f"D={D} must be a multiple of 32", who)
-    shapes = dict(EQ=(G, M, L, D), EK=(G, M, L, D), rl=(G, M, M, L),
-                  W_g=(D, D), b_g=(D,))
-    for name, shp in shapes.items():
-        _check(tuple(named[name].shape) == shp,
-               f"{name} has shape {tuple(named[name].shape)}, expected {shp}",
-               who)
+    return D, (lmax + 1) ** 2 - 1
+
+
+def _check_inputs(who, t, EQ, EK, rl, W_g, b_g, *, lmax, gate,
+                  pair_dtype) -> Tuple[int, int, int, int]:
+    """Device, type, shape and contiguity of the six inputs, as both dense
+    kernels take them; returns (G, M, D, L)."""
+    named = dict(t=t, EQ=EQ, EK=EK, rl=rl, W_g=W_g, b_g=b_g)
+    D, L = _check_common(who, named, lmax=lmax, gate=gate,
+                         pair_dtype=pair_dtype)
+    G, M, M2, _ = t.shape
+    _check(M2 == M, "t must be [G, M, M, D]", who)
+    _check_shapes(who, named, dict(EQ=(G, M, L, D), EK=(G, M, L, D),
+                                   rl=(G, M, M, L), W_g=(D, D), b_g=(D,)))
     return G, M, D, L
 
 
@@ -322,13 +332,6 @@ def _flags(t, EQ, *, lmax, sep_htr, rej, gate, pair_dtype) -> Tuple[int, ...]:
             int(EQ.dtype == bf16))
 
 
-def _raise_on(lib, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: CUDA error {err} "
-            f"({lib.gotennet_cuda_error_string(err).decode()})")
-
-
 def _launch(t, EQ, EK, rl, W_g, b_g, *, lmax, sep_htr, rej, gate,
             pair_dtype) -> torch.Tensor:
     from gotennet_tpu_torch.ops._build import load_library
@@ -404,3 +407,116 @@ def _call_backward(lib, stream, t, EQ, EK, rl, W_g, b_g, g, outs,
         *(a.data_ptr() for a in (t, EQ, EK, rl, W_g, b_g, g, *outs, work)),
         *_flags(t, EQ, **kw), stream)
     _raise_on(lib, err, "fused_htr_bwd")
+
+
+# ---- the ELL layout ----------------------------------------------------------
+
+def fused_htr_ell_forward_reference(t, EQ, EK, rl, nbr, W_g, b_g, *,
+                                    lmax: int, sep_htr: bool, rej: bool,
+                                    gate: str,
+                                    pair_dtype: torch.dtype = torch.float32
+                                    ) -> torch.Tensor:
+    """Plain PyTorch version of the ELL kernel: ``out [NR, K, D]`` float32.
+    Row r is a one-row graph whose K partners are the gathered
+    ``EK[nbr[r]]``, so the dense update gives it with the same cast
+    points."""
+    out = fused_htr_forward_reference(
+        t[:, None], EQ[:, None], EK[nbr.long()], rl[:, None], W_g, b_g,
+        lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+        pair_dtype=pair_dtype)
+    return out[:, 0]
+
+
+def _check_ell_inputs(who, t, EQ, EK, rl, nbr, W_g, b_g, *, lmax, gate,
+                      pair_dtype) -> None:
+    """Device, type, shape and contiguity of the ELL kernel's inputs."""
+    named = dict(t=t, EQ=EQ, EK=EK, rl=rl, nbr=nbr, W_g=W_g, b_g=b_g)
+    D, L = _check_common(who, named, lmax=lmax, gate=gate,
+                         pair_dtype=pair_dtype)
+    NR, K, _ = t.shape
+    N = EK.shape[0]
+    _check(nbr.dtype == torch.int32, "nbr must be int32", who)
+    _check(NR <= N, f"{NR} destination rows > {N} table rows", who)
+    _check_shapes(who, named, dict(EQ=(NR, L, D), EK=(N, L, D),
+                                   rl=(NR, K, L), nbr=(NR, K), W_g=(D, D),
+                                   b_g=(D,)))
+
+
+def fused_htr_ell_forward(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax: int,
+                          sep_htr: bool, rej: bool, gate: str,
+                          pair_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """Fused ELL HTR forward; the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors.
+
+    Args (JAX package layout):
+        t: ``[NR, K, D]`` edge state, float32 or bfloat16.
+        EQ: ``[NR, L, D]`` destination rows, EK: ``[N, L, D]`` source
+            table (N >= NR), one type, float32 or bfloat16.
+        rl: ``[NR, K, L]`` float32; nbr: ``[NR, K]`` int32 rows of EK.
+        W_g ``[D, D]`` (``[in, out]``), b_g ``[D]``: float32.
+
+    Returns ``out [NR, K, D]`` float32, every slot updated (padded ones
+    too, as the TPU kernel does).  ``fused_htr_ell_forward.launches``
+    counts kernel launches.
+    """
+    kw = dict(lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+              pair_dtype=pair_dtype)
+    args = (t, EQ, EK, rl, nbr, W_g, b_g)
+    if t.device.type == "cpu":
+        return fused_htr_ell_forward_reference(*args, **kw)
+    if t.device.type != "cuda":
+        raise ValueError(f"fused_htr_ell_forward: no kernel for {t.device}")
+    return _launch_ell(*args, **kw)
+
+
+fused_htr_ell_forward.launches = 0
+_counted_ell = fused_htr_ell_forward
+
+
+def fused_htr_ell(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax: int, sep_htr: bool,
+                  rej: bool, gate: str,
+                  pair_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``out`` of the ELL update, forward only.  Raises
+    ``NotImplementedError`` when autograd records and an input needs a
+    gradient: the backward kernel (``_ell_htr_bwd_kernel``) is not
+    ported."""
+    args = (t, EQ, EK, rl, nbr, W_g, b_g)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        from gotennet_tpu_torch.models.gotennet import not_ported
+        raise not_ported("training on the ELL layout (gradients through the "
+                         "fused ELL HTR update)", 11)
+    return fused_htr_ell_forward(*args, lmax=lmax, sep_htr=sep_htr, rej=rej,
+                                 gate=gate, pair_dtype=pair_dtype)
+
+
+def _launch_ell(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax, sep_htr, rej, gate,
+                pair_dtype) -> torch.Tensor:
+    from gotennet_tpu_torch.ops._build import load_library
+
+    _check_ell_inputs("fused_htr_ell_forward", t, EQ, EK, rl, nbr, W_g, b_g,
+                      lmax=lmax, gate=gate, pair_dtype=pair_dtype)
+    out = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    with torch.cuda.device(t.device):
+        _call_ell_kernel(load_library("fused_htr_ell_fwd.cu"),
+                         torch.cuda.current_stream(t.device).cuda_stream,
+                         t, EQ, EK, rl, nbr, W_g, b_g, out, lmax=lmax,
+                         sep_htr=sep_htr, rej=rej, gate=gate,
+                         pair_dtype=pair_dtype)
+    _counted_ell.launches += 1
+    return out
+
+
+def _call_ell_kernel(lib, stream, t, EQ, EK, rl, nbr, W_g, b_g, out, *,
+                     lmax, sep_htr, rej, gate, pair_dtype) -> None:
+    """One ELL forward through the C interface on ``stream`` into ``out``;
+    raises on the launch's CUDA error.  Arguments are validated by the
+    caller."""
+    bf16 = torch.bfloat16
+    NR, K, D = t.shape
+    err = lib.gotennet_fused_htr_ell_fwd(
+        *(a.data_ptr() for a in (t, EQ, EK, rl, nbr, W_g, b_g, out)),
+        NR, EK.shape[0], K, D, lmax, int(sep_htr), int(rej),
+        GATES.index(gate), int(pair_dtype == bf16), int(t.dtype == bf16),
+        int(EQ.dtype == bf16), stream)
+    _raise_on(lib, err, "fused_htr_ell_fwd")

@@ -2,11 +2,15 @@
 
 Counterpart of the JAX package's forward-only evaluation pipeline
 (``bench.py``'s ``BENCH_MODE=eval`` and the CLI's ``test`` entry): a
-request is cut into chunks of ``chunk`` graphs, bucketed by size so that
-each chunk is padded to its own largest molecule (M a multiple of 8), or
+request is cut into chunks of ``chunk`` graphs and run through
+``GotenModel``.  In the dense layout each chunk is bucketed by size so
+that it is padded to its own largest molecule (M a multiple of 8), or
 unbucketed (``bucket=False``, ``bench.py``'s MD22 mode) with every chunk
-padded to the request's largest molecule, and run through ``GotenModel``
-in the dense layout.
+padded to the request's largest molecule.  In the ELL layout
+(``layout="ell"``, ``bench.py``'s ``BENCH_DATASET=large`` mode) every
+chunk is one ``ELLBatch`` with the request's node capacity and neighbour
+slots (probed over the whole request), atoms spatially sorted and
+``block_rows``-row gather windows.
 
     pred = Predictor(cfg, head, state_dict)        # on cuda
     energies = pred.predict([{"z": z0, "pos": pos0}, ...])   # [n, n_out]
@@ -20,7 +24,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from gotennet_tpu_torch.data.dataset import DenseLoader, MoleculeDataset
+from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
+                                             MoleculeDataset)
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 
@@ -36,25 +41,46 @@ class Predictor:
             ``utils.convert.state_dict_from_jax_params``); None keeps the
             seeded init.
         chunk: graphs per forward call.
-        bucket: sort each request by size so that every chunk is padded
-            only to its own largest molecule; False pads every chunk to
-            the request's largest.
+        bucket: (dense) sort each request by size so that every chunk is
+            padded only to its own largest molecule; False pads every
+            chunk to the request's largest.
         seed: seed of the init when no weights are given.
         device: ``None`` means ``cuda``; pass ``"cpu"`` for the plain
             versions on the CPU.
+        layout: "dense" or "ell".
+        spatial_sort, block_rows: (ELL) sort each molecule's atoms by
+            spatial cell and measure gather windows over ``block_rows``-row
+            blocks (None: no windows).
     """
 
     def __init__(self, cfg: GotenNetConfig, head: HeadConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, *,
                  chunk: int = 8, bucket: bool = True, seed: int = 0,
-                 device: Optional[str | torch.device] = None):
-        self.model = GotenModel(cfg, head, seed=seed, device=device)
+                 device: Optional[str | torch.device] = None,
+                 layout: str = "dense", spatial_sort: bool = True,
+                 block_rows: Optional[int] = 64):
+        self.model = GotenModel(cfg, head, layout, seed=seed, device=device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.device = next(self.model.parameters()).device
+        self.cfg = cfg
         self.chunk = chunk
         self.bucket = bucket
+        self.layout = layout
+        self.spatial_sort = spatial_sort
+        self.block_rows = block_rows
         self.n_out = head.n_out
+
+    def loader(self, ds: MoleculeDataset) -> DenseLoader | ELLLoader:
+        """The loader that cuts one request (``ds``) into chunks."""
+        if self.layout == "ell":
+            return ELLLoader(ds, batch_size=self.chunk, cutoff=self.cfg.cutoff,
+                             max_num_neighbors=self.cfg.max_num_neighbors,
+                             spatial_sort=self.spatial_sort,
+                             block_rows=self.block_rows)
+        # one bucketing window over the whole request
+        return DenseLoader(ds, batch_size=self.chunk, bucket=self.bucket,
+                           bucket_window=math.ceil(len(ds) / self.chunk))
 
     @torch.inference_mode()
     def predict(self, molecules: Sequence[dict]) -> np.ndarray:
@@ -66,11 +92,8 @@ class Predictor:
         ds = MoleculeDataset(
             z=[np.asarray(m["z"], np.int32) for m in molecules],
             pos=[np.asarray(m["pos"], np.float32) for m in molecules])
-        # one bucketing window over the whole request
-        loader = DenseLoader(ds, batch_size=self.chunk, bucket=self.bucket,
-                             bucket_window=math.ceil(n / self.chunk))
         out = torch.empty(n, self.n_out, device=self.device)
-        for idx, batch in loader.batches():
+        for idx, batch in self.loader(ds).batches():
             prop = self.model(batch.to(self.device))["property"]
             out[torch.as_tensor(idx, device=self.device)] = prop[:len(idx)]
         return out.cpu().numpy()

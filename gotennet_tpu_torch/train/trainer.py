@@ -22,7 +22,7 @@ import torch
 
 from gotennet_tpu_torch.data.dataset import DenseLoader, MoleculeDataset
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.tasks.base import Task
 from gotennet_tpu_torch.train.optim import clip_by_global_norm, make_optimizer
@@ -115,13 +115,17 @@ def train_steps(cfg: GotenNetConfig, head: HeadConfig,
                 lr: float = 1e-4, seed: int = 0,
                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
                 device: Optional[str | torch.device] = None,
-                bucket: bool = True) -> List[float]:
+                bucket: bool = True, layout: str = "dense") -> List[float]:
     """Train a model from a seeded init (or ``state_dict``) for
     ``n_steps`` steps on one batch of ``molecules`` (dicts with ``z``,
     ``pos`` and ``y``), cut into ``chunk``-graph accumulation chunks
     (bucketed by size unless ``bucket`` is False, see ``make_chunks``), with
     AdamW(lr, eps=1e-7, no weight decay) after a global-norm clip at 5.0.
-    ``device=None`` means ``cuda``.  Returns the loss of each step."""
+    ``device=None`` means ``cuda``.  Returns the loss of each step.  Only
+    the dense layout trains: the ELL kernels' backward is not ported."""
+    if layout != "dense":
+        raise not_ported(f"training on layout={layout!r}",
+                         11 if layout == "ell" else 10)
     model = GotenModel(cfg, head, seed=seed, device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict)

@@ -23,8 +23,12 @@ from gotennet_tpu_torch.ops.fused_gata import (fused_gata_backward,
                                                fused_gata_backward_reference,
                                                fused_gata_forward,
                                                fused_gata_forward_reference)
+from gotennet_tpu_torch.ops.fused_ell import (fused_ell_forward,
+                                              fused_ell_forward_reference)
 from gotennet_tpu_torch.ops.fused_htr import (fused_htr_backward,
                                               fused_htr_backward_reference,
+                                              fused_htr_ell_forward,
+                                              fused_htr_ell_forward_reference,
                                               fused_htr_forward,
                                               fused_htr_forward_reference)
 from gotennet_tpu_torch.serve import Predictor
@@ -283,3 +287,103 @@ def test_md22_train_step_on_card_matches_cpu(card):
     want = train_steps(cfg, head, mols, 2, chunk=4, seed=1, bucket=False,
                        device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# ---- the ELL layout ----------------------------------------------------------
+def ell_inputs(device, NR, N, K, D, H, lmax, head_scale, seed=0):
+    """Message-kernel inputs in argument order (ELL layout, float32 node
+    tables as the model gives them); a third of the slots padded (env -1,
+    pointing at their own row), the last row wholly padded."""
+    rng = np.random.default_rng(seed)
+    L = (lmax + 1) ** 2 - 1
+    C = (1 + 2 * lmax) * D
+
+    def rand(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                * 0.3)
+
+    valid = rng.random((NR, K)) > 0.3
+    valid[-1] = False
+    nbr = np.where(valid, rng.integers(0, N, (NR, K)),
+                   np.arange(NR)[:, None]).astype(np.int32)
+    env = np.where(valid, rng.random((NR, K)), -1.0).astype(np.float32)
+    scale = (torch.from_numpy(rng.random((NR, K, H)).astype(np.float32))
+             if head_scale else torch.full((NR, K), 1.0 / math.sqrt(D)))
+    args = [rand(NR, K, D), rand(NR, D), rand(N, D), rand(N, C), rand(N, C),
+            rand(NR, K, L), rand(N, L, D), torch.from_numpy(env), scale,
+            torch.from_numpy(nbr), rand(D, D), rand(D), rand(D, C), rand(C)]
+    return [a.to(device) for a in args]
+
+
+# float32: the same arithmetic, sums in another order -> 1e-4 of each
+# output's scale; bf16 pair type: a float32 sum in another order can move a
+# value that is rounded afterwards by one bf16 ulp (2^-8) -> 1e-2.
+@pytest.mark.parametrize("NR,N,K,head_scale,pd", [
+    (200, 256, 36, False, torch.float32),
+    (200, 256, 36, True, torch.bfloat16),
+    (97, 97, 28, True, torch.float32),
+    (704, 704, 36, False, torch.bfloat16),
+])
+def test_ell_kernels_match_plain(card, NR, N, K, head_scale, pd):
+    D, H, lmax = 256, 8, 2
+    args = ell_inputs(card, NR, N, K, D, H, lmax, head_scale)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=True, sep_tensor=True,
+              pair_dtype=pd, with_attn=True)
+    tol = 1e-2 if pd == torch.bfloat16 else 1e-4
+    before = fused_ell_forward.launches
+    got = fused_ell_forward(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_ell_forward.launches == before + 1
+    want = fused_ell_forward_reference(*args, **kw)
+    for g, w, name in zip(got, want, ("d_h", "dX", "sm")):
+        err = (g - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (name, err)
+    assert torch.all(got[2][-1] == 0) and torch.all(got[0][-1] == 0)
+
+    L = (lmax + 1) ** 2 - 1
+    gen = torch.Generator().manual_seed(1)
+    h_args = [args[0], (torch.randn(NR, L, D, generator=gen) * 0.4).to(card),
+              (torch.randn(N, L, D, generator=gen) * 0.4).to(card), args[5],
+              args[9], args[10] / 8.0, args[11]]
+    for gate in ("", "gated"):
+        hkw = dict(lmax=lmax, sep_htr=True, rej=True, gate=gate,
+                   pair_dtype=pd)
+        before = fused_htr_ell_forward.launches
+        out = fused_htr_ell_forward(*h_args, **hkw)
+        torch.cuda.synchronize()
+        assert fused_htr_ell_forward.launches == before + 1
+        want = fused_htr_ell_forward_reference(*h_args, **hkw)
+        err = (out - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), (gate, err)
+
+
+def test_ell_kernels_check_arguments(card):
+    args = ell_inputs(card, 16, 16, 12, 32, 4, 2, False)
+    kw = dict(lmax=2, num_heads=4, sep_dir=True, sep_tensor=True)
+    before = fused_ell_forward.launches
+    bad = list(args)
+    bad[9] = bad[9].long()
+    with pytest.raises(ValueError, match="nbr must be int32"):
+        fused_ell_forward(*bad, **kw)
+    bad = list(args)
+    bad[2] = bad[2][:8].contiguous()     # fewer table rows than rows
+    with pytest.raises(ValueError, match="table rows"):
+        fused_ell_forward(*bad, **kw)
+    assert fused_ell_forward.launches == before
+
+
+def test_ell_predictor_on_card_matches_cpu(card):
+    """Two 600-700-atom frames on the ELL layout through both ELL kernels,
+    float32, card against CPU."""
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, fused_htr=True)
+    head = HeadConfig(mean=0.5, stddev=2.0)
+    mols = synthetic_molecules(2, seed=7, min_atoms=600, max_atoms=700,
+                               box=6.3).graph_dicts(range(2))
+    n_msg, n_htr = fused_ell_forward.launches, fused_htr_ell_forward.launches
+    got = Predictor(cfg, head, seed=2, chunk=1, layout="ell").predict(mols)
+    assert fused_ell_forward.launches == n_msg + 2 * 2
+    assert fused_htr_ell_forward.launches == n_htr + 2 * 1
+    want = Predictor(cfg, head, seed=2, chunk=1, layout="ell",
+                     device="cpu").predict(mols)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
