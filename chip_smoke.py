@@ -69,7 +69,19 @@ Phases, in order; any failure exits non-zero before the result line:
      layers of the message and x 3 of the HTR update; the answers are held
      against the same model run through both plain versions; the request is
      timed (CUDA events) and profiled, and both kernels timed on the inputs
-     the request gave them.
+     the request gave them;
+ 15. ELL message backward kernel vs plain: at phase 12's shapes and cases,
+     all 13 cotangents, exact zeros for g_t, g_rl, g_env and g_scale at
+     padded slots, and the same bits from a second run;
+ 16. ELL HTR backward kernel vs plain: phase 13's shapes and variants, all
+     six cotangents, the same bits from a second run;
+ 17. ELL training: ``train_steps(layout="ell")`` takes one step on phase 14's
+     8 frames, one per chunk: 32 ELL message and 24 ELL HTR launches each
+     way; the first step's gradients are held against the same step through
+     both backward plain versions; three steps are timed after two warm-up
+     steps (CUDA events), with real edges per second, the device's busy share
+     of a step (``torch.profiler``) and both backward kernels timed on the
+     inputs a step gave them, beside their plain versions and bounds.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -240,6 +252,39 @@ def htr_ell_fwd_bound_ms(args, kwargs) -> tuple:
     pairs = t.numel() // t.shape[-1]
     return bound_ms(n_bytes(args) + 4 * t.numel(),
                     2.0 * W_g.numel() * pairs, kwargs["pair_dtype"])
+
+
+def ell_bwd_bound_ms(args, kwargs) -> tuple:
+    """The ELL message backward: each input read once (the node tables and
+    the transposed slot list as tables), the 13 cotangents written once
+    (float32); six projections (t W_rs and t W_re recomputed, g_tf W_rs^T,
+    g_zre W_re^T, t^T g_tf, t^T g_zre), 6 D (mult D + D) FLOP per valid
+    slot (padded ones add exact zeros)."""
+    t, k, scale, W_re, W_rs = args[0], args[2], args[8], args[10], args[12]
+    Dd, C = W_re.shape[0], W_rs.shape[1]
+    NR, K = t.shape[:2]
+    N, L = k.shape[0], args[5].shape[-1]
+    n_out = 4 * (NR * K * Dd + NR * Dd + N * Dd + 2 * N * C + NR * K * L
+                 + N * L * Dd + NR * K + scale.numel() + Dd * Dd + Dd
+                 + Dd * C + C)
+    n_in = n_bytes(args) + n_bytes(kwargs.get("slots") or ())
+    valid = int((args[7] >= 0).sum())
+    return bound_ms(n_in + n_out, 6.0 * Dd * (C + Dd) * valid,
+                    kwargs["pair_dtype"])
+
+
+def htr_ell_bwd_bound_ms(args, kwargs) -> tuple:
+    """The ELL HTR backward: t, EQ, EK (as a table), rl, nbr, W_g, b_g, the
+    cotangent of out and the transposed slot list read once, the six
+    cotangents written once (float32); three projections (t W_g recomputed,
+    g_z W_g^T, t^T g_z), 6 D^2 FLOP per slot, over every slot."""
+    t, EQ, EK, rl, W_g = args[0], args[1], args[2], args[3], args[5]
+    pairs = t.numel() // t.shape[-1]
+    n_out = 4 * (t.numel() + EQ.numel() + EK.numel() + rl.numel()
+                 + W_g.numel() + W_g.shape[0])
+    n_in = n_bytes(args) + n_bytes(kwargs.get("slots") or ())
+    return bound_ms(n_in + n_out, 6.0 * W_g.numel() * pairs,
+                    kwargs["pair_dtype"])
 
 
 def time_calls(fn, calls, reps) -> float:
@@ -845,17 +890,23 @@ def check_htr_ell() -> None:
                 raise AssertionError(f"ELL HTR disagrees at {pd} {gate!r}")
 
 
+def large_frames() -> list:
+    """bench.py's large batch: 8 synthetic frames of 600-700 atoms at
+    condensed-phase density, with a synthetic energy."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    return synthetic_molecules(LARGE_FRAMES, seed=0, **LARGE_SIZES
+                               ).graph_dicts(range(LARGE_FRAMES))
+
+
 def ell_serve_phase(cfg, head, card) -> list:
     """Phase 14: the 600-700-atom request on the ELL layout through both ELL
     kernels; returns their records."""
-    from gotennet_tpu_torch.data.dataset import (MoleculeDataset,
-                                                 synthetic_molecules)
+    from gotennet_tpu_torch.data.dataset import MoleculeDataset
     from gotennet_tpu_torch.ops import fused_ell, fused_htr
     from gotennet_tpu_torch.serve import Predictor
 
     msg, htr = fused_ell.fused_ell_forward, fused_htr.fused_htr_ell_forward
-    mols = synthetic_molecules(LARGE_FRAMES, seed=0, **LARGE_SIZES
-                               ).graph_dicts(range(LARGE_FRAMES))
+    mols = large_frames()
     pred = Predictor(cfg, head, seed=0, chunk=1, layout="ell",
                      spatial_sort=True, block_rows=64)
     expected = (LARGE_FRAMES * N_LAYERS, LARGE_FRAMES * (N_LAYERS - 1))
@@ -920,6 +971,193 @@ def ell_serve_phase(cfg, head, card) -> list:
             capture(module, fn_name, lambda: pred.predict(mols)), kernel,
             plain, bound, card)
         record["launches"] = launches[len(records)]
+        records.append(record)
+    return records
+
+
+ELL_MSG_NAMES = ("g_t", "g_q", "g_k", "g_xg", "g_v", "g_rl", "g_X", "g_env",
+                 "g_scale", "g_Wre", "g_bre", "g_Wrs", "g_brs")
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_ell_message_backward() -> None:
+    """Phase 15: the ELL message backward kernel against its plain version;
+    padded slots get exact zeros, and a rerun gives the same bits."""
+    from gotennet_tpu_torch.ops import fused_ell
+    L = (LMAX + 1) ** 2 - 1
+    cases = [(ELL_N, ELL_N, pd, hs) for pd in (torch.float32, torch.bfloat16)
+             for hs in (False, True)]
+    cases.append((ELL_N - 64, ELL_N, torch.bfloat16, False))
+    for NR, N, pd, head_scale in cases:
+        args = ell_message_inputs(NR, N, head_scale, seed=700 + NR)
+        kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True,
+                  pair_dtype=pd)
+        _, _, sm = fused_ell.fused_ell_forward(*args, **kw, with_attn=True)
+        gen = torch.Generator().manual_seed(NR)
+        g_dh = torch.randn(NR, D, generator=gen).cuda()
+        g_dX = torch.randn(NR, L, D, generator=gen).cuda()
+        slots = fused_ell.source_slots(args[9], N)
+        got = fused_ell.fused_ell_backward(*args, sm, g_dh, g_dX, **kw,
+                                           slots=slots)
+        again = fused_ell.fused_ell_backward(*args, sm, g_dh, g_dX, **kw,
+                                             slots=slots)
+        torch.cuda.synchronize()
+        want = fused_ell.fused_ell_backward_reference(*args, sm, g_dh, g_dX,
+                                                      **kw)
+        tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        worst = max(range(len(errs)), key=lambda i: errs[i][1])
+        log(f"[ell-bwd-vs-plain] NR={NR} N={N} K={ELL_K} pair={str(pd)[6:]} "
+            f"head_scale={head_scale}: max rel err "
+            + ", ".join(f"{n} {r:.1e}" for n, (_, r)
+                        in zip(ELL_MSG_NAMES, errs))
+            + f" (worst {ELL_MSG_NAMES[worst]}, abs {errs[worst][0]:.3e}; "
+            f"tol {tol:g} rel)")
+        if errs[worst][1] > tol:
+            raise AssertionError(f"ELL message backward disagrees at NR={NR} "
+                                 f"{pd} on {ELL_MSG_NAMES[worst]}")
+        pad = args[7] < 0
+        if not all(bool(torch.all(got[i][pad] == 0)) for i in (0, 5, 7, 8)):
+            raise AssertionError("a padded slot got a cotangent")
+        if not same_bits(got, again):
+            raise AssertionError("ELL message backward differs between runs")
+
+
+def check_htr_ell_backward() -> None:
+    """Phase 16: the ELL HTR backward kernel against its plain version; a
+    rerun gives the same bits."""
+    from gotennet_tpu_torch.ops import fused_ell, fused_htr
+    L = (LMAX + 1) ** 2 - 1
+    gen = torch.Generator().manual_seed(800)
+
+    def rand(*s):
+        return (torch.randn(s, generator=gen) * 0.4).cuda()
+
+    msg = ell_message_inputs(ELL_N, ELL_N, False, seed=801)
+    args = [msg[0], rand(ELL_N, L, D), rand(ELL_N, L, D), msg[5], msg[9],
+            rand(D, D) / 8.0, rand(D)]
+    g = torch.randn(ELL_N, ELL_K, D, generator=gen).cuda()
+    slots = fused_ell.source_slots(msg[9], ELL_N)
+    for pd in (torch.float32, torch.bfloat16):
+        for gate in ("", "gated"):
+            kw = dict(lmax=LMAX, sep_htr=True, rej=True, gate=gate,
+                      pair_dtype=pd)
+            got = fused_htr.fused_htr_ell_backward(*args, g, **kw,
+                                                   slots=slots)
+            again = fused_htr.fused_htr_ell_backward(*args, g, **kw,
+                                                     slots=slots)
+            torch.cuda.synchronize()
+            want = fused_htr.fused_htr_ell_backward_reference(*args, g, **kw)
+            tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+            errs = [rel_err(a, w) for a, w in zip(got, want)]
+            worst = max(range(len(errs)), key=lambda i: errs[i][1])
+            log(f"[htr-ell-bwd-vs-plain] N={ELL_N} K={ELL_K} "
+                f"pair={str(pd)[6:]} gate={gate!r}: max rel err "
+                + ", ".join(f"{n} {r:.1e}" for n, (_, r)
+                            in zip(HTR_NAMES, errs))
+                + f" (worst {HTR_NAMES[worst]}, abs {errs[worst][0]:.3e}; "
+                f"tol {tol:g} rel)")
+            if errs[worst][1] > tol:
+                raise AssertionError(f"ELL HTR backward disagrees at {pd} "
+                                     f"{gate!r} on {HTR_NAMES[worst]}")
+            if not same_bits(got, again):
+                raise AssertionError("ELL HTR backward differs between runs")
+
+
+def ell_train_phase(cfg, head, card) -> list:
+    """Phase 17: one ELL training step on the 600-700-atom frames through
+    all four ELL kernels; returns both backward kernels' records."""
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.ops import fused_ell, fused_htr
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (accum_grads, make_chunks,
+                                                  make_loss_fn, train_step,
+                                                  train_steps)
+
+    counters = (fused_ell.fused_ell_forward, fused_ell.fused_ell_backward,
+                fused_htr.fused_htr_ell_forward,
+                fused_htr.fused_htr_ell_backward)
+    mols = large_frames()
+    expected = ((LARGE_FRAMES * N_LAYERS,) * 2
+                + (LARGE_FRAMES * (N_LAYERS - 1),) * 2)
+
+    # the main path: one step through the entry point
+    for c in counters:
+        c.launches = 0
+    losses = train_steps(cfg, head, mols, 1, chunk=1, lr=LR, seed=0,
+                         layout="ell")
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    log(f"[ell-train] one step on {LARGE_FRAMES} frames of 600-700 atoms, one"
+        f" per chunk: loss {losses[0]:.6f}; launches ELL message forward/"
+        f"backward {launches[0]}/{launches[1]}, ELL HTR forward/backward "
+        f"{launches[2]}/{launches[3]} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("training loss is not finite")
+
+    # the first step's gradients against both backward plain versions
+    model = GotenModel(cfg, head, "ell", seed=0)
+    chunks = make_chunks(mols, 1, "cuda", layout="ell", cutoff=cfg.cutoff,
+                         max_num_neighbors=cfg.max_num_neighbors)
+    loss_fn = make_loss_fn(model, Task(None))
+    model.train()
+    accum_grads(model, loss_fn, chunks)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    with mock.patch.object(fused_ell, "fused_ell_backward",
+                           fused_ell.fused_ell_backward_reference), \
+            mock.patch.object(fused_htr, "fused_htr_ell_backward",
+                              fused_htr.fused_htr_ell_backward_reference):
+        accum_grads(model, loss_fn, chunks)
+    errs = {n: rel_err(grads[n], p.grad) for n, p in model.named_parameters()}
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[ell-train] first-step gradients, kernels vs plain backwards: "
+        f"{len(errs)} tensors, worst {worst} abs {errs[worst][0]:.3e} rel "
+        f"{errs[worst][1]:.3e} (tol {TOL_TRAIN:g} rel)")
+    if errs[worst][1] > TOL_TRAIN or not all(
+            torch.isfinite(g).all() for g in grads.values()):
+        raise AssertionError("ELL gradients disagree with the plain "
+                             "backwards")
+
+    # timing: three steps after two warm-up steps
+    opt = make_optimizer(model.parameters(), LR)
+
+    def step():
+        return train_step(model, opt, chunks, opt.grad_clip, loss_fn=loss_fn)
+
+    step_ms, host_ms, step_losses = time_run(step, 2, 3)
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError("training loss is not finite")
+    real_edges = sum(int(b.nbr_mask.sum()) for b in chunks)
+    padded = sum(b.num_nodes * b.max_neighbors for b in chunks)
+    log(f"[ell-train] step: {step_ms:.3f} ms (CUDA events), {host_ms:.3f} ms "
+        f"(host clock); real edges {real_edges} (self-loops included), padded"
+        f" slots {padded}; {real_edges / (step_ms / 1e3):.1f} real edges/s; "
+        f"losses {[round(x, 6) for x in step_losses]} | {card}")
+    profile(step, step_ms, "ELL training step", card)
+
+    # both backward kernels on a step's inputs
+    records = []
+    for name, module, kernel, n_launches, plain, bound, replaces in (
+            ("fused_ell_bwd", fused_ell, counters[1], launches[1],
+             fused_ell.fused_ell_backward_reference, ell_bwd_bound_ms,
+             "gotennet_tpu/ops/pallas/fused_ell.py:256"),
+            ("fused_htr_ell_bwd", fused_htr, counters[3], launches[3],
+             fused_htr.fused_htr_ell_backward_reference, htr_ell_bwd_bound_ms,
+             "gotennet_tpu/ops/pallas/fused_htr.py:383")):
+        record = kernel_record(
+            {"name": name, "route": "cuda",
+             "source": f"gotennet_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces},
+            capture(module, kernel.__name__,
+                    lambda: accum_grads(model, loss_fn, chunks)),
+            kernel, plain, bound, card)
+        record["launches"] = n_launches
         records.append(record)
     return records
 
@@ -1067,8 +1305,18 @@ def main() -> int:
     phase_done("13 (ELL HTR vs plain)")
     ell_records = ell_serve_phase(md22_cfg, head, card)
     phase_done("14 (ELL serving)")
+
+    # ---- 15.-17. ELL training: both backward kernels, then one step -------
+    check_ell_message_backward()
+    phase_done("15 (ELL message backward vs plain)")
+    check_htr_ell_backward()
+    phase_done("16 (ELL HTR backward vs plain)")
+    ell_bwd_records = ell_train_phase(md22_cfg, head, card)
+    phase_done("17 (ELL training)")
     log(json.dumps({"kernels": [record, bwd_record, htr_record,
-                                htr_bwd_record, *ell_records]}))
+                                htr_bwd_record, ell_records[0],
+                                ell_bwd_records[0], ell_records[1],
+                                ell_bwd_records[1]]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

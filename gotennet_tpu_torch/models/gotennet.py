@@ -31,7 +31,7 @@ ROADMAP_ITEMS = {
     6: "Dipole and ESE heads",
     9: "Forces",
     10: "Edge-list layout",
-    11: "ELL layout: training, the unfused update, large tables",
+    11: "ELL layout: the unfused update, large tables",
     13: "CLI, configs and tools",
 }
 

@@ -4,10 +4,12 @@ Counterpart of ``gotennet_tpu/models/gotennet_ell.py`` on one device, with
 its fused path (``fused=True, fused_htr=True``): every GATA layer runs its
 message + aggregation through ``ops.fused_ell.fused_ell`` and its HTR
 update through ``ops.fused_htr.fused_htr_ell`` (the CUDA kernels on the
-card).  Both are forward only: training on this layout raises
-``NotImplementedError`` (ROADMAP.md Queue 1, item 11), and so do the
-unfused edge update and node tables above ``fused_table_rows``, which the
-JAX package runs through its chunked drivers.
+card, forward and backward).  The transposed slot list both backward
+kernels sum table gradients by is built once per forward and shared by
+every layer.  The unfused edge update and node tables above
+``fused_table_rows``, which the JAX package runs through its chunked
+drivers, raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 11), and
+so does attention dropout in training (item 1).
 
 Types follow the JAX layer, not the dense one: the node projections (q,
 k, x_g, v, EQ, EK), ``W_ndp`` and ``W_erp`` compute in float32, only EQFF
@@ -21,7 +23,7 @@ dense layout's names, so one state dict serves both layouts.
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -119,10 +121,13 @@ class GATAELL(nn.Module):
             else:
                 self.W_vk = Dense(D, D, use_bias=False, **kw)
 
-    def forward(self, h, X, t_ij, rl_ij, dist, nbr, nbr_mask, n_edges
+    def forward(self, h, X, t_ij, rl_ij, dist, nbr, nbr_mask, n_edges,
+                slots: Optional[fused_ell.Slots]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         D = cfg.n_atom_basis
+        if self.training and cfg.attn_dropout > 0.0:
+            raise not_ported("attention dropout in training", 1)
         q, k = self.W_q(h), self.W_k(h)
         x_g = self.gamma_s[1](self.gamma_s[0](h))
         v = self.gamma_v[1](self.gamma_v[0](h))
@@ -138,7 +143,7 @@ class GATAELL(nn.Module):
             self.W_re.weight.t().contiguous(), self.W_re.bias,
             self.W_rs.weight.t().contiguous(), self.W_rs.bias, lmax=cfg.lmax,
             num_heads=cfg.num_heads, sep_dir=cfg.sep_dir,
-            sep_tensor=cfg.sep_tensor, pair_dtype=cfg.pair_dtype)
+            sep_tensor=cfg.sep_tensor, pair_dtype=cfg.pair_dtype, slots=slots)
         h = h + d_h
         X = X + dX
         if self.last_layer:
@@ -155,7 +160,7 @@ class GATAELL(nn.Module):
         return h, X, fused_htr.fused_htr_ell(
             t_ij, EQ, EK, rl_ij, nbr, layer.weight.t().contiguous(),
             layer.bias, lmax=cfg.lmax, sep_htr=cfg.sep_htr, rej=info["rej"],
-            gate=info["gated"] or "", pair_dtype=cfg.pair_dtype)
+            gate=info["gated"] or "", pair_dtype=cfg.pair_dtype, slots=slots)
 
 
 class GotenNetELL(nn.Module):
@@ -216,7 +221,11 @@ class GotenNetELL(nn.Module):
         n_edges = counts[idx]
         X = torch.zeros(N, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
                         device=h.device)
+        # what the backward kernels sum table gradients by, once per batch
+        slots = (fused_ell.source_slots(nbr, N) if torch.is_grad_enabled()
+                 else None)
         for gata, eqff in zip(self.gata_list, self.eqff_list):
-            h, X, t_ij = gata(h, X, t_ij, rl_ij, dist, nbr, nm, n_edges)
+            h, X, t_ij = gata(h, X, t_ij, rl_ij, dist, nbr, nm, n_edges,
+                              slots)
             h, X = eqff(h, X)
         return h, X

@@ -27,9 +27,16 @@ term.
 
 ``fused_ell_forward`` runs the hand-written CUDA kernel
 (``csrc/fused_ell_fwd.cu``) on CUDA tensors and the plain version
-``fused_ell_forward_reference`` on CPU tensors; nothing falls back.  The
-backward kernel is not ported yet: ``fused_ell`` raises when a gradient
-is wanted (ROADMAP.md Queue 1, item 11).
+``fused_ell_forward_reference`` on CPU tensors; ``fused_ell_backward``
+likewise runs ``csrc/fused_ell_bwd.cu`` or ``fused_ell_backward_reference``.
+Nothing falls back.  ``FusedELL`` wires the two through autograd, and
+``fused_ell`` picks it only when a gradient is wanted.
+
+The backward kernel sums the table gradients (g_k, g_xg, g_v, g_X) per
+table row over the slots that read it, in the order of the transposed slot
+list ``source_slots(nbr, N)``: a stable sort of the flat ``nbr``, built once
+per batch by the caller (``GotenNetELL``) and shared by every layer and by
+the HTR update's backward.
 """
 
 from __future__ import annotations
@@ -37,19 +44,39 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gotennet_tpu_torch.ops.fused_gata import (_block_layout, _check,
                                                _check_common, _check_shapes,
                                                _raise_on)
 
-__all__ = ["fused_ell", "fused_ell_forward", "fused_ell_forward_reference"]
+__all__ = ["fused_ell", "FusedELL", "fused_ell_forward",
+           "fused_ell_forward_reference", "fused_ell_backward",
+           "fused_ell_backward_reference", "source_slots"]
 
 Out = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+# (starts [N + 1], order [NR * K]), both int32: table row n is read by the
+# flat slots order[starts[n]:starts[n + 1]], in increasing slot order
+Slots = Tuple[torch.Tensor, torch.Tensor]
 ARG_NAMES = ("t", "q", "k", "x_g", "v", "rl", "X", "env_signed", "scale",
              "nbr", "W_re", "b_re", "W_rs", "b_rs")
 # a thread block holds every slot of its destination rows, at most 128
 # pair rows
 MAX_SLOTS = 128
+# the backward sums per head and per SH component in registers
+MAX_HEADS, MAX_LMAX = 16, 4
+
+
+def source_slots(nbr: torch.Tensor, N: int) -> Slots:
+    """The transposed slot list of ``nbr [NR, K]`` (indices in ``[0, N)``):
+    every slot, padded ones included, grouped by the table row it reads.
+    The sort is stable, so each table row's slots come in a fixed order and
+    the backward kernels' sums over them repeat bit for bit."""
+    flat = nbr.reshape(-1).long()
+    order = torch.sort(flat, stable=True).indices.to(torch.int32)
+    starts = torch.zeros(N + 1, dtype=torch.int32, device=nbr.device)
+    starts[1:] = torch.cumsum(torch.bincount(flat, minlength=N), 0)
+    return starts, order
 
 
 def fused_ell_forward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
@@ -98,6 +125,111 @@ def fused_ell_forward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
             else:
                 dX[:, m] += (o_b * X_p[:, m][idx]).to(f32).sum(dim=1)
     return d_h, dX, (sm if with_attn else None)
+
+
+def fused_ell_backward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
+                                 nbr, W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX,
+                                 *, lmax: int, num_heads: int, sep_dir: bool,
+                                 sep_tensor: bool,
+                                 pair_dtype: torch.dtype = torch.float32,
+                                 slots: Optional[Slots] = None
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward kernel: the analytic VJP of
+    the forward, from its pre-scale softmax ``sm`` ``[NR,K,H]`` and the
+    float32 cotangents ``g_dh`` ``[NR,D]`` and ``g_dX`` ``[NR,L,D]``.
+    (``slots`` is the kernel's; the table sums here are ``index_add_``.)
+
+    Cast points follow the TPU kernel ``_ell_bwd_kernel``: every slot-sized
+    product is formed from factors rounded to ``pair_dtype`` and is rounded
+    itself (``r`` below); the cotangent of ``o`` sums its m terms in the
+    pair type, one rounding per partial sum; every sum over slots, channels
+    or table rows accumulates in float32, the table sums over terms rounded
+    to the pair type (the transposed one-hot matmul); the softmax backward
+    and the silu chain stay in float32.  Returns the 13 cotangents of every
+    input but ``nbr``, in input order, all float32; ``g_env`` is zero at
+    padded slots."""
+    f32 = torch.float32
+
+    def r(a):
+        return a.to(pair_dtype).to(f32)
+
+    NR, K, D = t.shape
+    N = k.shape[0]
+    H = num_heads
+    C = W_rs.shape[1]
+    e_per = C // H
+    idx = nbr.long()
+    flat = idx.reshape(-1)
+
+    def scat(a):
+        """[NR, K, F...] slot terms -> [N, F...] sums per table row."""
+        out = torch.zeros((N,) + a.shape[2:], dtype=f32, device=a.device)
+        return out.index_add_(0, flat, r(a).reshape((NR * K,) + a.shape[2:]))
+
+    scale_h = scale if scale.dim() == 3 else scale[..., None]
+    tp = r(t.to(f32))                                        # [NR,K,D]
+    envp = r(env_signed.clamp(min=0.0))[..., None]           # [NR,K,1]
+    attn_c = r(sm * scale_h).repeat_interleave(e_per, dim=-1)  # [NR,K,C]
+    xg = r(x_g.to(f32))[idx]                                 # [NR,K,C]
+    vj = r(v.to(f32))[idx]
+    gdx = r(g_dX)                                            # [NR,L,D]
+    tf = r(tp @ r(W_rs) + b_rs)                              # [NR,K,C]
+
+    # the cotangent of o, block by block; g_rl and g_X from the blocks that
+    # use rl and X
+    g_o = torch.empty_like(tf)
+    g_rl = torch.zeros(rl.shape, dtype=f32, device=t.device)
+    g_X = torch.zeros(X.shape, dtype=f32, device=t.device)
+    for b, (kind, lo, hi) in enumerate(_block_layout(sep_dir, sep_tensor,
+                                                     lmax)):
+        cols = slice(b * D, (b + 1) * D)
+        if kind == "scalar":
+            g_o[..., cols] = r(g_dh)[:, None, :]
+            continue
+        acc = None
+        for m in range(lo, hi):
+            f = r(rl[..., m:m + 1]) if kind == "dir" else r(X[:, m])[idx]
+            term = r(f * gdx[:, None, m, :])
+            acc = term if acc is None else r(acc + term)
+        g_o[..., cols] = acc
+        o_c = r(r(r(tf[..., cols] * xg[..., cols]) * envp)
+                + r(attn_c[..., cols] * vj[..., cols]))
+        for m in range(lo, hi):
+            if kind == "dir":
+                g_rl[..., m] = r(gdx[:, None, m, :] * o_c).sum(dim=-1)
+            else:
+                g_X[:, m] = scat(o_c * gdx[:, None, m, :])
+
+    g_tf = r(r(g_o * xg) * envp)
+    g_xg = scat(r(g_o * tf) * envp)
+    g_v = scat(attn_c * g_o)
+    g_env = r(r(g_o * tf) * xg).sum(dim=-1)
+    g_env = torch.where(env_signed >= 0, g_env, torch.zeros_like(g_env))
+    g_attn = r(g_o * vj).reshape(NR, K, H, e_per).sum(dim=-1)
+    g_t = g_tf @ r(W_rs).t()
+    g_Wrs = torch.einsum("rsd,rsc->dc", tp, g_tf)
+    g_brs = g_tf.sum(dim=(0, 1))
+
+    # softmax backward and the attention filter, float32
+    g_scale = sm * g_attn
+    if scale.dim() == 2:
+        g_scale = g_scale.sum(dim=-1)
+    g_sm = g_attn * scale_h
+    g_logits = sm * (g_sm - (sm * g_sm).sum(dim=1, keepdim=True))
+    g_p = r(g_logits).repeat_interleave(D // H, dim=-1)      # [NR,K,D]
+    zre = tp @ r(W_re) + b_re
+    sig = torch.sigmoid(zre)
+    ta = r(zre * sig)
+    qi = r(q.to(f32))[:, None]
+    kj = r(k.to(f32))[idx]
+    g_q = r(r(g_p * ta) * kj).sum(dim=1)
+    g_k = scat(r(g_p * ta) * qi)
+    g_zre = r(r(g_p * qi) * kj) * (sig + zre * sig * (1.0 - sig))
+    g_t = g_t + r(g_zre) @ r(W_re).t()
+    g_Wre = torch.einsum("rsd,rse->de", tp, r(g_zre))
+    g_bre = g_zre.sum(dim=(0, 1))
+    return (g_t, g_q, g_k, g_xg, g_v, g_rl, g_X, g_env, g_scale, g_Wre,
+            g_bre, g_Wrs, g_brs)
 
 
 def _check_inputs(who, args, **kw) -> Tuple[int, ...]:
@@ -151,25 +283,85 @@ def fused_ell_forward(t, q, k, x_g, v, rl, X, env_signed, scale, nbr,
     return _launch(*args, **kw)
 
 
+def fused_ell_backward(t, q, k, x_g, v, rl, X, env_signed, scale, nbr,
+                       W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, *, lmax: int,
+                       num_heads: int, sep_dir: bool, sep_tensor: bool,
+                       pair_dtype: torch.dtype = torch.float32,
+                       slots: Optional[Slots] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Fused ELL message backward; the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors.  Inputs as ``fused_ell_forward``'s, plus
+    the forward's pre-scale softmax ``sm`` and the float32 cotangents
+    ``g_dh``, ``g_dX``; ``slots`` is ``source_slots(nbr, N)`` (built here
+    when None).  Returns the 13 cotangents as
+    ``fused_ell_backward_reference``.  ``fused_ell_backward.launches``
+    counts kernel launches."""
+    kw = dict(lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
+              sep_tensor=sep_tensor, pair_dtype=pair_dtype, slots=slots)
+    args = (t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
+            W_rs, b_rs, sm, g_dh, g_dX)
+    if t.device.type == "cpu":
+        return fused_ell_backward_reference(*args, **kw)
+    if t.device.type != "cuda":
+        raise ValueError(f"fused_ell_backward: no kernel for {t.device}")
+    return _launch_backward(*args, **kw)
+
+
 fused_ell_forward.launches = 0
-# the counter stays on the public wrapper even while a caller patches the
-# module's name (as chip_smoke.py does to capture the kernel's inputs)
+fused_ell_backward.launches = 0
+# the counters stay on the public wrappers even while a caller patches the
+# module's names (as chip_smoke.py does to capture the kernels' inputs)
 _counted = fused_ell_forward
+_counted_bwd = fused_ell_backward
+
+
+class FusedELL(torch.autograd.Function):
+    """The fused ELL step through autograd, as ``make_fused_ell`` wires it
+    with ``jax.custom_vjp``: the forward saves the inputs and the pre-scale
+    softmax, the backward hands them to ``fused_ell_backward``.  Each
+    cotangent that is asked for comes back in its input's type (``g_rl``,
+    ``g_env`` and ``g_scale`` included); ``nbr`` gets none."""
+
+    @staticmethod
+    def forward(ctx, t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re,
+                b_re, W_rs, b_rs, lmax, num_heads, sep_dir, sep_tensor,
+                pair_dtype, slots):
+        ctx.kw = dict(lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
+                      sep_tensor=sep_tensor, pair_dtype=pair_dtype)
+        ctx.slots = slots
+        inputs = (t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
+                  W_rs, b_rs)
+        d_h, dX, sm = fused_ell_forward(*inputs, **ctx.kw, with_attn=True)
+        ctx.save_for_backward(*inputs, sm)
+        return d_h, dX
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_dh, g_dX):
+        *inputs, sm = ctx.saved_tensors
+        grads = list(fused_ell_backward(
+            *inputs, sm, g_dh.float().contiguous(), g_dX.float().contiguous(),
+            **ctx.kw, slots=ctx.slots))
+        grads.insert(9, None)                       # nbr
+        out = tuple(g.to(a.dtype) if n else None
+                    for g, a, n in zip(grads, inputs, ctx.needs_input_grad))
+        return out + (None,) * 6
 
 
 def fused_ell(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
               W_rs, b_rs, *, lmax: int, num_heads: int, sep_dir: bool,
-              sep_tensor: bool, pair_dtype: torch.dtype = torch.float32
+              sep_tensor: bool, pair_dtype: torch.dtype = torch.float32,
+              slots: Optional[Slots] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(d_h, dX)`` of the fused step, forward only.  Raises
-    ``NotImplementedError`` when autograd records and an input needs a
-    gradient: the backward kernel (``_ell_bwd_kernel``) is not ported."""
+    """``(d_h, dX)`` of the fused step.  Through ``FusedELL`` when autograd
+    records and an input needs a gradient (``slots``, the transposed slot
+    list, goes to the backward); otherwise the forward alone, which keeps
+    no softmax."""
     args = (t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
             W_rs, b_rs)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        from gotennet_tpu_torch.models.gotennet import not_ported
-        raise not_ported("training on the ELL layout (gradients through the "
-                         "fused ELL message)", 11)
+        return FusedELL.apply(*args, lmax, num_heads, sep_dir, sep_tensor,
+                              pair_dtype, slots)
     d_h, dX, _ = fused_ell_forward(
         *args, lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
         sep_tensor=sep_tensor, pair_dtype=pair_dtype)
@@ -216,3 +408,87 @@ def _call_kernel(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale, nbr,
         int(scale.dim() == 3), int(pair_dtype == bf16), int(t.dtype == bf16),
         int(q.dtype == bf16), stream)
     _raise_on(lib, err, "fused_ell_fwd")
+
+
+def backward_outputs(t, k, scale, C: int, L: int):
+    """Empty float32 outputs of the backward kernel, on ``t``'s device:
+    g_t, g_q, g_k, g_xg, g_v, g_rl, g_X, g_env, g_scale, g_Wre, g_bre,
+    g_Wrs, g_brs."""
+    NR, K, D = t.shape
+    N = k.shape[0]
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=t.device)
+
+    return [new(NR, K, D), new(NR, D), new(N, D), new(N, C), new(N, C),
+            new(NR, K, L), new(N, L, D), new(NR, K), new(*scale.shape),
+            new(D, D), new(D), new(D, C), new(C)]
+
+
+def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re,
+                     b_re, W_rs, b_rs, sm, g_dh, g_dX, *, lmax, num_heads,
+                     sep_dir, sep_tensor, pair_dtype, slots
+                     ) -> Tuple[torch.Tensor, ...]:
+    from gotennet_tpu_torch.ops._build import load_library
+
+    who = "fused_ell_backward"
+    inputs = (t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
+              W_rs, b_rs)
+    NR, N, K, D, H, L, C = _check_inputs(
+        who, dict(zip(ARG_NAMES, inputs)), lmax=lmax, num_heads=num_heads,
+        sep_dir=sep_dir, sep_tensor=sep_tensor, pair_dtype=pair_dtype)
+    _check(H <= MAX_HEADS and lmax <= MAX_LMAX,
+           f"num_heads={H} > {MAX_HEADS} or lmax={lmax} > {MAX_LMAX}", who)
+    for name, a, shp in (("sm", sm, (NR, K, H)), ("g_dh", g_dh, (NR, D)),
+                         ("g_dX", g_dX, (NR, L, D))):
+        _check(a.device == t.device and a.dtype == torch.float32
+               and a.is_contiguous() and tuple(a.shape) == shp,
+               f"{name} must be a contiguous float32 tensor of shape {shp} "
+               f"on {t.device}", who)
+    slots = _checked_slots(who, slots, nbr, N)
+    outs = backward_outputs(t, k, scale, C, L)
+    with torch.cuda.device(t.device):
+        _call_backward(load_library("fused_ell_bwd.cu"),
+                       torch.cuda.current_stream(t.device).cuda_stream,
+                       *inputs, sm, g_dh, g_dX, slots, outs, lmax=lmax,
+                       num_heads=H, sep_dir=sep_dir, sep_tensor=sep_tensor,
+                       pair_dtype=pair_dtype)
+    _counted_bwd.launches += 1
+    return tuple(outs)
+
+
+def _checked_slots(who, slots: Optional[Slots], nbr, N: int) -> Slots:
+    """``slots`` as the kernels take them (``source_slots`` when None)."""
+    if slots is None:
+        return source_slots(nbr, N)
+    starts, order = slots
+    for name, a, n in (("starts", starts, N + 1), ("order", order,
+                                                   nbr.numel())):
+        _check(a.device == nbr.device and a.dtype == torch.int32
+               and a.is_contiguous() and tuple(a.shape) == (n,),
+               f"slots' {name} must be a contiguous int32 tensor of shape "
+               f"({n},) on {nbr.device}", who)
+    return starts, order
+
+
+def _call_backward(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
+                   nbr, W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, slots, outs,
+                   *, lmax, num_heads, sep_dir, sep_tensor, pair_dtype) -> None:
+    """One backward through the C interface on ``stream`` into ``outs``
+    (as ``backward_outputs`` makes them), with a workspace of the size the
+    library asks for; raises on a CUDA error.  Arguments are validated by
+    the caller."""
+    bf16 = torch.bfloat16
+    NR, K, D = t.shape
+    n_bytes = lib.gotennet_fused_ell_bwd_workspace(
+        NR, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=t.device)
+    ptrs = [a.data_ptr() for a in (t, q, k, x_g, v, rl, X, env_signed, scale,
+                                   nbr, W_re, b_re, W_rs, b_rs, sm, g_dh,
+                                   g_dX, *slots, *outs, work)]
+    err = lib.gotennet_fused_ell_bwd(
+        *ptrs, NR, k.shape[0], K, D, num_heads, lmax, int(sep_dir),
+        int(sep_tensor), int(scale.dim() == 3), int(pair_dtype == bf16),
+        int(t.dtype == bf16), int(q.dtype == bf16), stream)
+    _raise_on(lib, err, "fused_ell_bwd")

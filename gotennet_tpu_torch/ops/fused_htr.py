@@ -34,24 +34,29 @@ The ELL layout's update (TPU kernel ``_ell_htr_kernel``, wired by
 ``make_fused_htr_ell``) is the same update with ``i`` the destination row
 r of ``t [NR, K, D]`` and ``j = nbr[r, s]`` a row of the source table
 ``EK [N, L, D]``: ``fused_htr_ell_forward`` runs ``csrc/fused_htr_ell_fwd.cu``
-or ``fused_htr_ell_forward_reference``.  Its backward is not ported yet:
-``fused_htr_ell`` raises when a gradient is wanted.
+or ``fused_htr_ell_forward_reference``, ``fused_htr_ell_backward``
+``csrc/fused_htr_ell_bwd.cu`` or ``fused_htr_ell_backward_reference``;
+``FusedHTRELL`` wires them through autograd and ``fused_htr_ell`` picks it
+when a gradient is wanted.  The backward kernel sums g_EK per table row in
+the order of ``fused_ell.source_slots``.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from gotennet_tpu_torch.ops.fused_ell import Slots, _checked_slots
 from gotennet_tpu_torch.ops.fused_gata import _check, _check_shapes, _raise_on
 from gotennet_tpu_torch.ops.spherical import degree_slices
 
 __all__ = ["fused_htr", "FusedHTR", "fused_htr_forward",
            "fused_htr_forward_reference", "fused_htr_backward",
-           "fused_htr_backward_reference", "fused_htr_ell",
-           "fused_htr_ell_forward", "fused_htr_ell_forward_reference"]
+           "fused_htr_backward_reference", "fused_htr_ell", "FusedHTRELL",
+           "fused_htr_ell_forward", "fused_htr_ell_forward_reference",
+           "fused_htr_ell_backward", "fused_htr_ell_backward_reference"]
 
 # gate names, in the order of the kernels' gate codes
 GATES = ("", "gated", "gatedt", "act")
@@ -170,8 +175,8 @@ def fused_htr_backward_reference(t, EQ, EK, rl, W_g, b_g, g, *, lmax: int,
 
     g_w_p = g_w.to(pd)
     L = rl.shape[-1]
-    g_EQ = torch.zeros(G, M, L, D, dtype=f32, device=t.device)
-    g_EK = torch.zeros(G, M, L, D, dtype=f32, device=t.device)
+    g_EQ = torch.zeros(EQ.shape, dtype=f32, device=t.device)
+    g_EK = torch.zeros(EK.shape, dtype=f32, device=t.device)
     g_rl = torch.zeros(rl.shape, dtype=f32, device=t.device)
     for (lo, hi), sv in zip(_blocks(lmax, sep_htr), saved):
         if rej:
@@ -427,6 +432,28 @@ def fused_htr_ell_forward_reference(t, EQ, EK, rl, nbr, W_g, b_g, *,
     return out[:, 0]
 
 
+def fused_htr_ell_backward_reference(t, EQ, EK, rl, nbr, W_g, b_g, g, *,
+                                     lmax: int, sep_htr: bool, rej: bool,
+                                     gate: str,
+                                     pair_dtype: torch.dtype = torch.float32,
+                                     slots: Optional[Slots] = None) -> Grads:
+    """Plain PyTorch version of the ELL backward kernel: the dense backward
+    on NR one-row graphs whose K partners are the gathered ``EK[nbr[r]]``,
+    so the cast points are ``_ell_htr_bwd_kernel``'s; each slot's EK term
+    (rounded to ``pair_dtype``, as the transposed one-hot matmul takes it)
+    is then summed per table row in float32.  (``slots`` is the kernel's;
+    the table sum here is ``index_add_``.)  Returns ``(g_t, g_EQ, g_EK,
+    g_rl, g_W_g, g_b_g)``, all float32."""
+    idx = nbr.long().reshape(-1)
+    g_t, g_EQ, g_EKs, g_rl, g_W, g_b = fused_htr_backward_reference(
+        t[:, None], EQ[:, None], EK[idx].reshape(nbr.shape + EK.shape[1:]),
+        rl[:, None], W_g, b_g, g[:, None], lmax=lmax, sep_htr=sep_htr,
+        rej=rej, gate=gate, pair_dtype=pair_dtype)
+    g_EK = torch.zeros(EK.shape, dtype=torch.float32, device=t.device)
+    g_EK.index_add_(0, idx, g_EKs.reshape((-1,) + EK.shape[1:]))
+    return g_t[:, 0], g_EQ[:, 0], g_EK, g_rl[:, 0], g_W, g_b
+
+
 def _check_ell_inputs(who, t, EQ, EK, rl, nbr, W_g, b_g, *, lmax, gate,
                       pair_dtype) -> None:
     """Device, type, shape and contiguity of the ELL kernel's inputs."""
@@ -470,22 +497,70 @@ def fused_htr_ell_forward(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax: int,
     return _launch_ell(*args, **kw)
 
 
+def fused_htr_ell_backward(t, EQ, EK, rl, nbr, W_g, b_g, g, *, lmax: int,
+                           sep_htr: bool, rej: bool, gate: str,
+                           pair_dtype: torch.dtype = torch.float32,
+                           slots: Optional[Slots] = None) -> Grads:
+    """Fused ELL HTR backward; the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors.  Inputs as ``fused_htr_ell_forward``'s, plus the
+    float32 cotangent ``g`` of ``out``; ``slots`` is
+    ``fused_ell.source_slots(nbr, N)`` (built here when None).  Returns the
+    six cotangents as ``fused_htr_ell_backward_reference``.
+    ``fused_htr_ell_backward.launches`` counts kernel launches."""
+    kw = dict(lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+              pair_dtype=pair_dtype, slots=slots)
+    args = (t, EQ, EK, rl, nbr, W_g, b_g, g)
+    if t.device.type == "cpu":
+        return fused_htr_ell_backward_reference(*args, **kw)
+    if t.device.type != "cuda":
+        raise ValueError(f"fused_htr_ell_backward: no kernel for {t.device}")
+    return _launch_ell_backward(*args, **kw)
+
+
 fused_htr_ell_forward.launches = 0
+fused_htr_ell_backward.launches = 0
 _counted_ell = fused_htr_ell_forward
+_counted_ell_bwd = fused_htr_ell_backward
+
+
+class FusedHTRELL(torch.autograd.Function):
+    """The ELL update through autograd, as ``make_fused_htr_ell`` wires it
+    with ``jax.custom_vjp``: the forward saves its inputs, the backward hands
+    them to ``fused_htr_ell_backward``.  Cotangents come back in their
+    inputs' types; ``nbr`` gets none."""
+
+    @staticmethod
+    def forward(ctx, t, EQ, EK, rl, nbr, W_g, b_g, lmax, sep_htr, rej, gate,
+                pair_dtype, slots):
+        ctx.kw = dict(lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+                      pair_dtype=pair_dtype)
+        ctx.slots = slots
+        ctx.save_for_backward(t, EQ, EK, rl, nbr, W_g, b_g)
+        return fused_htr_ell_forward(t, EQ, EK, rl, nbr, W_g, b_g, **ctx.kw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        grads = list(fused_htr_ell_backward(*inputs, g.float().contiguous(),
+                                            **ctx.kw, slots=ctx.slots))
+        grads.insert(4, None)                       # nbr
+        out = tuple(gr.to(a.dtype) if n else None
+                    for gr, a, n in zip(grads, inputs, ctx.needs_input_grad))
+        return out + (None,) * 6
 
 
 def fused_htr_ell(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax: int, sep_htr: bool,
                   rej: bool, gate: str,
-                  pair_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``out`` of the ELL update, forward only.  Raises
-    ``NotImplementedError`` when autograd records and an input needs a
-    gradient: the backward kernel (``_ell_htr_bwd_kernel``) is not
-    ported."""
+                  pair_dtype: torch.dtype = torch.float32,
+                  slots: Optional[Slots] = None) -> torch.Tensor:
+    """``out`` of the ELL update.  Through ``FusedHTRELL`` when autograd
+    records and an input needs a gradient (``slots``, the transposed slot
+    list, goes to the backward); otherwise the forward alone."""
     args = (t, EQ, EK, rl, nbr, W_g, b_g)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        from gotennet_tpu_torch.models.gotennet import not_ported
-        raise not_ported("training on the ELL layout (gradients through the "
-                         "fused ELL HTR update)", 11)
+        return FusedHTRELL.apply(*args, lmax, sep_htr, rej, gate, pair_dtype,
+                                 slots)
     return fused_htr_ell_forward(*args, lmax=lmax, sep_htr=sep_htr, rej=rej,
                                  gate=gate, pair_dtype=pair_dtype)
 
@@ -520,3 +595,59 @@ def _call_ell_kernel(lib, stream, t, EQ, EK, rl, nbr, W_g, b_g, out, *,
         GATES.index(gate), int(pair_dtype == bf16), int(t.dtype == bf16),
         int(EQ.dtype == bf16), stream)
     _raise_on(lib, err, "fused_htr_ell_fwd")
+
+
+def _launch_ell_backward(t, EQ, EK, rl, nbr, W_g, b_g, g, *, lmax, sep_htr,
+                         rej, gate, pair_dtype, slots) -> Grads:
+    from gotennet_tpu_torch.ops._build import load_library
+
+    who = "fused_htr_ell_backward"
+    _check_ell_inputs(who, t, EQ, EK, rl, nbr, W_g, b_g, lmax=lmax,
+                      gate=gate, pair_dtype=pair_dtype)
+    _check(g.device == t.device and g.dtype == torch.float32
+           and g.is_contiguous() and g.shape == t.shape,
+           f"g must be a contiguous float32 tensor of shape "
+           f"{tuple(t.shape)} on {t.device}", who)
+    slots = _checked_slots(who, slots, nbr, EK.shape[0])
+    outs = ell_backward_outputs(t, EK)
+    with torch.cuda.device(t.device):
+        _call_ell_backward(load_library("fused_htr_ell_bwd.cu"),
+                           torch.cuda.current_stream(t.device).cuda_stream,
+                           t, EQ, EK, rl, nbr, W_g, b_g, g, slots, outs,
+                           lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+                           pair_dtype=pair_dtype)
+    _counted_ell_bwd.launches += 1
+    return tuple(outs)
+
+
+def ell_backward_outputs(t, EK) -> List[torch.Tensor]:
+    """Empty float32 outputs of the ELL backward kernel, on ``t``'s device:
+    g_t, g_EQ, g_EK, g_rl, g_W_g, g_b_g."""
+    NR, K, D = t.shape
+    N, L, _ = EK.shape
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=t.device)
+
+    return [new(NR, K, D), new(NR, L, D), new(N, L, D), new(NR, K, L),
+            new(D, D), new(D)]
+
+
+def _call_ell_backward(lib, stream, t, EQ, EK, rl, nbr, W_g, b_g, g, slots,
+                       outs, *, lmax, sep_htr, rej, gate, pair_dtype) -> None:
+    """One ELL backward through the C interface on ``stream`` into ``outs``
+    (as ``ell_backward_outputs`` makes them), with a workspace of the size
+    the library asks for; raises on a CUDA error.  Arguments are validated
+    by the caller."""
+    bf16 = torch.bfloat16
+    NR, K, D = t.shape
+    n_bytes = lib.gotennet_fused_htr_ell_bwd_workspace(NR, K, D)
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=t.device)
+    err = lib.gotennet_fused_htr_ell_bwd(
+        *(a.data_ptr() for a in (t, EQ, EK, rl, nbr, W_g, b_g, g, *slots,
+                                 *outs, work)),
+        NR, EK.shape[0], K, D, lmax, int(sep_htr), int(rej),
+        GATES.index(gate), int(pair_dtype == bf16), int(t.dtype == bf16),
+        int(EQ.dtype == bf16), stream)
+    _raise_on(lib, err, "fused_htr_ell_bwd")

@@ -20,9 +20,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from gotennet_tpu_torch.data.dataset import DenseLoader, MoleculeDataset
+from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
+                                             MoleculeDataset)
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
+from gotennet_tpu_torch.graph.ell_batch import ELLBatch
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.tasks.base import Task
 from gotennet_tpu_torch.train.optim import clip_by_global_norm, make_optimizer
@@ -54,21 +56,30 @@ def make_loss_fn(model: GotenModel, task: Task) -> Callable:
 
 def make_chunks(molecules: Sequence[dict], chunk: int,
                 device: Optional[str | torch.device] = None,
-                bucket: bool = True) -> List[DenseBatch]:
+                bucket: bool = True, layout: str = "dense",
+                cutoff: float = 5.0, max_num_neighbors: int = 32
+                ) -> List[DenseBatch | ELLBatch]:
     """The accumulation chunks of one batch, as ``bench.py`` cuts them:
-    ``chunk`` graphs each, on ``device``.  With ``bucket`` the molecules
-    are sorted by size over one window spanning the batch and each chunk is
-    padded to its own largest molecule; without it (``bench.py``'s MD22
-    mode) they keep their order and every chunk is padded to the batch's
-    largest molecule (rounded up to a multiple of 8)."""
+    ``chunk`` graphs each, on ``device``.  Dense: with ``bucket`` the
+    molecules are sorted by size over one window spanning the batch and each
+    chunk is padded to its own largest molecule; without it (``bench.py``'s
+    MD22 mode) they keep their order and every chunk is padded to the
+    batch's largest molecule (rounded up to a multiple of 8).  ELL
+    (``bench.py``'s large mode): in order, atoms spatially sorted, 64-row
+    gather windows, every chunk at the batch's node and neighbour capacity,
+    as ``Predictor(layout="ell")`` cuts a request."""
     ds = MoleculeDataset(
         z=[np.asarray(m["z"], np.int32) for m in molecules],
         pos=[np.asarray(m["pos"], np.float32) for m in molecules],
         y=np.asarray([np.asarray(m["y"], np.float32).reshape(-1)
                       for m in molecules]))
-    n_chunks = math.ceil(len(molecules) / chunk)
-    loader = DenseLoader(ds, batch_size=chunk, bucket=bucket,
-                         bucket_window=n_chunks)
+    if layout == "ell":
+        loader = ELLLoader(ds, batch_size=chunk, cutoff=cutoff,
+                           max_num_neighbors=max_num_neighbors,
+                           spatial_sort=True, block_rows=64)
+    else:
+        loader = DenseLoader(ds, batch_size=chunk, bucket=bucket,
+                             bucket_window=math.ceil(len(molecules) / chunk))
     return [b.to(device) for b in loader]
 
 
@@ -119,18 +130,15 @@ def train_steps(cfg: GotenNetConfig, head: HeadConfig,
     """Train a model from a seeded init (or ``state_dict``) for
     ``n_steps`` steps on one batch of ``molecules`` (dicts with ``z``,
     ``pos`` and ``y``), cut into ``chunk``-graph accumulation chunks
-    (bucketed by size unless ``bucket`` is False, see ``make_chunks``), with
+    (see ``make_chunks``; ``bucket`` applies to the dense layout), with
     AdamW(lr, eps=1e-7, no weight decay) after a global-norm clip at 5.0.
-    ``device=None`` means ``cuda``.  Returns the loss of each step.  Only
-    the dense layout trains: the ELL kernels' backward is not ported."""
-    if layout != "dense":
-        raise not_ported(f"training on layout={layout!r}",
-                         11 if layout == "ell" else 10)
-    model = GotenModel(cfg, head, seed=seed, device=device)
+    ``layout`` is "dense" or "ell".  ``device=None`` means ``cuda``.
+    Returns the loss of each step."""
+    model = GotenModel(cfg, head, layout, seed=seed, device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     chunks = make_chunks(molecules, chunk, next(model.parameters()).device,
-                         bucket)
+                         bucket, layout, cfg.cutoff, cfg.max_num_neighbors)
     optimizer = make_optimizer(model.parameters(), lr)
     loss_fn = make_loss_fn(model, Task(None))
     return [train_step(model, optimizer, chunks, optimizer.grad_clip,

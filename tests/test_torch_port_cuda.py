@@ -23,10 +23,15 @@ from gotennet_tpu_torch.ops.fused_gata import (fused_gata_backward,
                                                fused_gata_backward_reference,
                                                fused_gata_forward,
                                                fused_gata_forward_reference)
-from gotennet_tpu_torch.ops.fused_ell import (fused_ell_forward,
-                                              fused_ell_forward_reference)
+from gotennet_tpu_torch.ops.fused_ell import (fused_ell_backward,
+                                              fused_ell_backward_reference,
+                                              fused_ell_forward,
+                                              fused_ell_forward_reference,
+                                              source_slots)
 from gotennet_tpu_torch.ops.fused_htr import (fused_htr_backward,
                                               fused_htr_backward_reference,
+                                              fused_htr_ell_backward,
+                                              fused_htr_ell_backward_reference,
                                               fused_htr_ell_forward,
                                               fused_htr_ell_forward_reference,
                                               fused_htr_forward,
@@ -387,3 +392,100 @@ def test_ell_predictor_on_card_matches_cpu(card):
     want = Predictor(cfg, head, seed=2, chunk=1, layout="ell",
                      device="cpu").predict(mols)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _close(got, want, tol):
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item()
+        assert err <= tol * max(w.abs().max().item(), 1e-30), (i, err)
+
+
+# tolerances as test_ell_kernels_match_plain's; reruns give the same bits
+# (every sum has one owner, no atomics)
+@pytest.mark.parametrize("NR,N,head_scale,pd", [
+    (704, 704, False, torch.float32),
+    (704, 704, True, torch.bfloat16),
+    (640, 704, False, torch.bfloat16),
+])
+def test_ell_backward_kernels_match_plain(card, NR, N, head_scale, pd):
+    D, H, lmax, K = 256, 8, 2, 36
+    L = (lmax + 1) ** 2 - 1
+    args = ell_inputs(card, NR, N, K, D, H, lmax, head_scale, seed=3)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=True, sep_tensor=True,
+              pair_dtype=pd)
+    _, _, sm = fused_ell_forward(*args, **kw, with_attn=True)
+    gen = torch.Generator().manual_seed(2)
+    g_dh = torch.randn(NR, D, generator=gen).to(card)
+    g_dX = torch.randn(NR, L, D, generator=gen).to(card)
+    slots = source_slots(args[9], N)
+    tol = 1e-2 if pd == torch.bfloat16 else 1e-4
+    before = fused_ell_backward.launches
+    got = fused_ell_backward(*args, sm, g_dh, g_dX, **kw, slots=slots)
+    again = fused_ell_backward(*args, sm, g_dh, g_dX, **kw, slots=slots)
+    torch.cuda.synchronize()
+    assert fused_ell_backward.launches == before + 2
+    _close(got, fused_ell_backward_reference(*args, sm, g_dh, g_dX, **kw),
+           tol)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    pad = args[7] < 0
+    for a in (got[0], got[5], got[7], got[8]):      # g_t, g_rl, g_env, g_scale
+        assert torch.all(a[pad] == 0)
+
+    h_args = [args[0], (torch.randn(NR, L, D, generator=gen) * 0.4).to(card),
+              (torch.randn(N, L, D, generator=gen) * 0.4).to(card), args[5],
+              args[9], args[10] / 8.0, args[11]]
+    g = torch.randn(NR, K, D, generator=gen).to(card)
+    for gate in ("", "gated"):
+        hkw = dict(lmax=lmax, sep_htr=True, rej=True, gate=gate,
+                   pair_dtype=pd)
+        before = fused_htr_ell_backward.launches
+        got = fused_htr_ell_backward(*h_args, g, **hkw, slots=slots)
+        again = fused_htr_ell_backward(*h_args, g, **hkw, slots=slots)
+        torch.cuda.synchronize()
+        assert fused_htr_ell_backward.launches == before + 2
+        _close(got, fused_htr_ell_backward_reference(*h_args, g, **hkw), tol)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ell_backward_kernels_check_arguments(card):
+    args = ell_inputs(card, 16, 16, 12, 32, 4, 2, False)
+    kw = dict(lmax=2, num_heads=4, sep_dir=True, sep_tensor=True)
+    _, _, sm = fused_ell_forward(*args, **kw, with_attn=True)
+    g_dh = torch.zeros(16, 32, device=card)
+    g_dX = torch.zeros(16, 8, 32, device=card)
+    before = fused_ell_backward.launches
+    with pytest.raises(ValueError, match="g_dX must be"):
+        fused_ell_backward(*args, sm, g_dh, g_dX.double(), **kw)
+    starts, order = source_slots(args[9], 16)
+    with pytest.raises(ValueError, match="slots' order"):
+        fused_ell_backward(*args, sm, g_dh, g_dX, **kw,
+                           slots=(starts, order.long()))
+    assert fused_ell_backward.launches == before
+    h_args = [args[0], torch.zeros(16, 8, 32, device=card),
+              torch.zeros(16, 8, 32, device=card), args[5], args[9],
+              args[10], args[11]]
+    before = fused_htr_ell_backward.launches
+    with pytest.raises(ValueError, match="g must be"):
+        fused_htr_ell_backward(*h_args, torch.zeros(16, 12, 32, 2,
+                                                     device=card),
+                               lmax=2, sep_htr=True, rej=True, gate="")
+    assert fused_htr_ell_backward.launches == before
+
+
+def test_ell_train_step_on_card_matches_cpu(card):
+    """Two ELL training steps on 600-700-atom frames, float32, card against
+    CPU; each step launches all four ELL kernels chunks x layers times (the
+    HTR ones chunks x (layers - 1))."""
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, fused_htr=True)
+    head = HeadConfig(mean=0.5, stddev=2.0)
+    mols = synthetic_molecules(2, seed=9, min_atoms=600, max_atoms=700,
+                               box=6.3).graph_dicts(range(2))
+    counters = (fused_ell_forward, fused_ell_backward, fused_htr_ell_forward,
+                fused_htr_ell_backward)
+    before = [c.launches for c in counters]
+    got = train_steps(cfg, head, mols, 2, chunk=1, seed=1, layout="ell")
+    assert [c.launches - b for c, b in zip(counters, before)] == [8, 8, 4, 4]
+    want = train_steps(cfg, head, mols, 2, chunk=1, seed=1, layout="ell",
+                       device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -5,8 +5,9 @@ The host-side graph code (``build_edges_np``, ``spatial_order``,
 plain versions of the two ELL kernels are held against the Pallas kernels
 in interpret mode on the same numpy inputs; the whole ELL model, from a
 converted JAX init, against JAX's ``fused=True, fused_htr=True`` ELL model;
-``Predictor(layout="ell")`` against per-frame model calls; both CUDA
-sources, built for the host, against the plain versions.  Sizes are small:
+``Predictor(layout="ell")`` against per-frame model calls; both forward
+CUDA sources, built for the host, against the plain versions (the backward
+ones: tests/test_torch_port_ell_train.py).  Sizes are small:
 D = 32, 2 layers, frames of 40-60 atoms.
 """
 
@@ -305,33 +306,31 @@ def test_ell_predictor_matches_per_frame_model():
 
 
 def test_ell_training_raises():
-    """The ELL kernels are forward only: a gradient through either
-    dispatcher, the model in training or train_steps on ELL raises."""
+    """What still raises when training on ELL: attention dropout in training
+    (item 1: the layer would otherwise drop it silently) and, through
+    train_steps, a node table above fused_table_rows (item 11: the chunked
+    drivers).  Without them the dispatchers record the backward."""
     inputs = [torch.from_numpy(a) for a in ell_inputs(
         0, 8, 8, 12, 32, 4, 2, True, True, False)]
     inputs[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fused_ell.fused_ell(*inputs, lmax=2, num_heads=4, sep_dir=True,
-                            sep_tensor=True)
-    with torch.no_grad():
-        d_h, _ = fused_ell.fused_ell(*inputs, lmax=2, num_heads=4,
-                                     sep_dir=True, sep_tensor=True)
-    assert d_h.shape == (8, 32)
+    d_h, _ = fused_ell.fused_ell(*inputs, lmax=2, num_heads=4, sep_dir=True,
+                                 sep_tensor=True)
+    assert d_h.shape == (8, 32) and d_h.grad_fn is not None
     h_in = [torch.from_numpy(a) for a in htr_ell_inputs(0, 8, 8, 12, 32, 2)]
     h_in[5].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fused_htr.fused_htr_ell(*h_in, lmax=2, sep_htr=True, rej=True,
-                                gate="")
-    cfg = _port_cfg(False)
+    assert fused_htr.fused_htr_ell(*h_in, lmax=2, sep_htr=True, rej=True,
+                                   gate="").grad_fn is not None
     mols = synthetic_molecules(2, seed=0, **FRAMES).graph_dicts(range(2))
-    model = GotenModel(cfg, HeadConfig(), layout="ell", device="cpu")
+    model = GotenModel(_port_cfg(False, attn_dropout=0.1), HeadConfig(),
+                       layout="ell", device="cpu")
     batch = next(iter(ELLLoader(synthetic_molecules(2, seed=0, **FRAMES),
                                 batch_size=2)))
     model.train()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 1:"):
         model(batch)
     with pytest.raises(NotImplementedError, match="item 11"):
-        train_steps(cfg, HeadConfig(), mols, 1, device="cpu", layout="ell")
+        train_steps(_port_cfg(False, fused_table_rows=64), HeadConfig(), mols,
+                    1, chunk=2, device="cpu", layout="ell")
 
 
 def test_table_above_fused_table_rows_raises():

@@ -83,11 +83,11 @@ def test_unported_options_raise(kw, item):
 def test_unported_layouts_heads_and_training_dropout_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         GotenModel(CFG, HEAD, layout="edge", device="cpu")
-    # the ELL layout serves; training on it waits for its backward kernels
+    # the edge-list layout neither serves nor trains
     mols = synthetic_molecules(2, seed=0, min_atoms=4,
                                max_atoms=9).graph_dicts(range(2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_steps(CFG, HEAD, mols, 1, device="cpu", layout="ell")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        train_steps(CFG, HEAD, mols, 1, device="cpu", layout="edge")
     with pytest.raises(NotImplementedError, match="item 6"):
         GotenModel(CFG, HeadConfig(kind="dipole"), device="cpu")
     cfg = GotenNetConfig(n_atom_basis=32, n_interactions=1, num_heads=4,
