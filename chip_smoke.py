@@ -81,13 +81,32 @@ Phases, in order; any failure exits non-zero before the result line:
      both backward plain versions; three steps are timed after two warm-up
      steps (CUDA events), with real edges per second, the device's busy share
      of a step (``torch.profiler``) and both backward kernels timed on the
-     inputs a step gave them, beside their plain versions and bounds.
+     inputs a step gave them, beside their plain versions and bounds;
+ 18. GATA backward with position cotangents vs plain: ``pos_grads=True``
+     (g_rl and g_env, the half forces need) at M 16/24/32 (G=16) and
+     112/120 (G=4), float32 and bf16, scalar and per-head scale: all 13
+     cotangents, exact zeros at padded atoms and invalid pairs, the same
+     bits from a second run;
+ 19. MD22 forces: the flagship model with ``fused_htr=True`` and MD22Task's
+     force head answers phase 10's 32 frames with energies and forces
+     through ``Predictor.predict_with_forces`` (unbucketed 4-frame chunks):
+     32 GATA forward and backward launches and 24 HTR forward and backward
+     launches; energies and forces held against the same model through all
+     four plain versions; a finite-difference check of the forces on one
+     frame with float32 pair and node types; the request timed (CUDA events)
+     and profiled, and the GATA backward timed on the request's own inputs
+     beside its bound and plain version;
+ 20. ELL forces: phase 14's 8 frames of 600-700 atoms, one per chunk,
+     through ``predict_with_forces(layout="ell")``: 32 ELL message and 24
+     ELL HTR launches each way, energies and forces held against the plain
+     path, timed and profiled.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -194,9 +213,10 @@ def fwd_bound_ms(args, kwargs) -> tuple:
 
 def bwd_bound_ms(args, kwargs) -> tuple:
     """The GATA backward: each input read once, the 11 cotangents it
-    computes written once (float32); six projections (t W_rs and t W_re
-    recomputed, g_tf W_rs^T, g_zre W_re^T, t^T g_tf, t^T g_zre), 6 D
-    (mult D + D) FLOP per valid pair."""
+    computes written once (float32; 13 with ``pos_grads``: g_rl and g_env
+    too); six projections (t W_rs and t W_re recomputed, g_tf W_rs^T, g_zre
+    W_re^T, t^T g_tf, t^T g_zre), 6 D (mult D + D) FLOP per valid pair (the
+    position sums add ~2 mult D per pair, left out)."""
     t, scale, W_re, W_rs = args[0], args[8], args[9], args[11]
     Dd, C = W_re.shape[0], W_rs.shape[1]
     Gg, M = t.shape[:2]
@@ -204,6 +224,8 @@ def bwd_bound_ms(args, kwargs) -> tuple:
     n_out = 4 * (Gg * M * M * Dd + 2 * Gg * M * Dd + 2 * Gg * M * C
                  + Gg * M * L * Dd + scale.numel() + Dd * Dd + Dd + Dd * C
                  + C)
+    if kwargs.get("pos_grads"):
+        n_out += 4 * (Gg * M * M * L + Gg * M * M)
     valid = int((args[7] >= 0).sum())
     return bound_ms(n_bytes(args) + n_out, 6.0 * Dd * (C + Dd) * valid,
                     kwargs["pair_dtype"])
@@ -446,9 +468,12 @@ def check_gata_forward(M, pd, head_scale, G) -> None:
         raise AssertionError("padded atoms got weight")
 
 
-def check_gata_backward(M, pd, head_scale, G) -> None:
+def check_gata_backward(M, pd, head_scale, G, pos_grads=False) -> None:
     """The GATA backward kernel against its plain version on one input;
-    padded atoms' cotangents must be exact zeros."""
+    padded atoms' cotangents must be exact zeros.  With ``pos_grads`` the
+    position cotangents g_rl and g_env are compared too (exact zeros at
+    padded atoms and invalid pairs), and a second run must give the same
+    bits."""
     from gotennet_tpu_torch.ops import fused_gata
     kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True,
               pair_dtype=pd)
@@ -460,6 +485,7 @@ def check_gata_backward(M, pd, head_scale, G) -> None:
     gen = torch.Generator().manual_seed(M)
     g_dh = torch.randn(G, M, D, generator=gen).cuda()
     g_dX = torch.randn(G, M, L, D, generator=gen).cuda()
+    kw["pos_grads"] = pos_grads
     got = fused_gata.fused_gata_backward(*args, sm, g_dh, g_dX, **kw)
     torch.cuda.synchronize()
     want = fused_gata.fused_gata_backward_reference(*args, sm, g_dh, g_dX,
@@ -467,10 +493,10 @@ def check_gata_backward(M, pd, head_scale, G) -> None:
     tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
     errs = [rel_err(g, w) for g, w in zip(got, want)]
     worst = max(range(len(errs)), key=lambda i: errs[i][1])
-    log(f"[bwd-vs-plain] G={G} M={M} pair={str(pd)[6:]} "
-        f"head_scale={head_scale}: max rel err "
+    log(f"[{'pos-' if pos_grads else ''}bwd-vs-plain] G={G} M={M} "
+        f"pair={str(pd)[6:]} head_scale={head_scale}: max rel err "
         + ", ".join(f"{n} {r:.1e}" for n, (_, r) in zip(names, errs)
-                    if n not in ("g_rl", "g_env"))
+                    if pos_grads or n not in ("g_rl", "g_env"))
         + f" (worst {names[worst]}, abs {errs[worst][0]:.3e}; "
         f"tol {tol:g} rel)")
     if errs[worst][1] > tol:
@@ -480,8 +506,13 @@ def check_gata_backward(M, pd, head_scale, G) -> None:
     g_t, g_q, g_k, g_xg, g_v, _, g_X, _, g_scale = got[:9]
     pad = [a[0, M - 3:] for a in (g_t, g_q, g_k, g_xg, g_v, g_X, g_scale)]
     pad += [a[0, :, M - 3:] for a in (g_t, g_scale)]
+    if pos_grads:
+        pad += [got[5][0, M - 3:], got[5][0, :, M - 3:], got[7][args[7] < 0]]
     if not all(bool(torch.all(a == 0)) for a in pad):
         raise AssertionError("padded atoms got a cotangent")
+    if pos_grads and not same_bits(
+            got, fused_gata.fused_gata_backward(*args, sm, g_dh, g_dX, **kw)):
+        raise AssertionError("GATA backward differs between runs")
 
 
 HTR_NAMES = ("g_t", "g_EQ", "g_EK", "g_rl", "g_W_g", "g_b_g")
@@ -1162,6 +1193,164 @@ def ell_train_phase(cfg, head, card) -> list:
     return records
 
 
+def force_head():
+    """MD22Task's head: Atomwise energies with forces (derivative=True)."""
+    from gotennet_tpu_torch.tasks.force_task import MD22Task
+    return MD22Task("energy", dataset_meta={"mean": 0.0,
+                                            "std": 1.0}).build_head()
+
+
+def hold_forces(what, got, want) -> None:
+    """Energies and forces of a request (as ``predict_with_forces`` gives
+    them) against the plain path's, each within TOL_SERVE of its scale."""
+    (e, f), (we, wf) = got, want
+    e_err, e_rel = rel_err(torch.from_numpy(e), torch.from_numpy(we))
+    f_err = max(float(abs(a - b).max()) for a, b in zip(f, wf))
+    f_rel = f_err / max(float(abs(b).max()) for b in wf)
+    log(f"[{what}] energies {tuple(e.shape)}, max abs err vs the plain path "
+        f"{e_err:.4e} (rel {e_rel:.3e}); forces of {len(f)} frames "
+        f"{[x.shape[0] for x in f][:4]}..., max abs err {f_err:.4e} (rel "
+        f"{f_rel:.3e}); tol {TOL_SERVE:g} rel")
+    finite = all(bool(torch.isfinite(torch.from_numpy(x)).all()) for x in f)
+    if not finite or max(e_rel, f_rel) > TOL_SERVE or not \
+            torch.isfinite(torch.from_numpy(e)).all():
+        raise AssertionError(f"{what}: energies or forces disagree with the "
+                             "plain path")
+
+
+def force_request_run(what, pred, mols, counters, expected, plains, card
+                      ) -> tuple:
+    """One force request through the entry point with every counter at 0
+    (the launches must read ``expected``), the same request through the
+    plain versions (``plains``: (module, name, plain) to patch), then the
+    request timed and profiled; returns (launches, the kernels' answer,
+    request ms)."""
+    for c in counters:
+        c.launches = 0
+    got = pred.predict_with_forces(mols)
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    log(f"[{what}] answered {len(mols)} frames with forces: launches "
+        f"{launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in plains:
+            stack.enter_context(mock.patch.object(module, name, plain))
+        want = pred.predict_with_forces(mols)
+    hold_forces(what, got, want)
+    req_ms, host_ms, _ = time_run(lambda: pred.predict_with_forces(mols), 2,
+                                  3)
+    log(f"[time] {len(mols)}-frame {what} request: {req_ms:.3f} ms (CUDA "
+        f"events), {host_ms:.3f} ms (host clock) | {card}")
+    profile(lambda: pred.predict_with_forces(mols), req_ms,
+            f"{len(mols)}-frame {what} request", card)
+    return launches, got, req_ms
+
+
+def finite_difference_check(cfg, frame) -> None:
+    """Forces against the central difference of the energy on one frame,
+    float32 pair and node types: three atoms whose distances all stay at
+    least 3 eps off the cutoff (a pair crossing it changes the energy by a
+    step) each move by eps = 1e-2 A along a random unit vector u; -F_a.u
+    must match within 2e-2 of |F_a|."""
+    from gotennet_tpu_torch.serve import Predictor
+    f32 = torch.float32
+    pred = Predictor(dataclasses.replace(cfg, pair_dtype=f32, node_dtype=f32),
+                     force_head(), seed=0, chunk=1, bucket=False)
+    _, (forces,) = pred.predict_with_forces([frame])
+    pos = torch.from_numpy(frame["pos"]).double()
+    eps = 1e-2
+    far = ((torch.cdist(pos, pos) - cfg.cutoff).abs() > 3 * eps).all(dim=1)
+    rows = torch.nonzero(far)[:3, 0].tolist()
+    gen = torch.Generator().manual_seed(7)
+
+    def energy(row, step):
+        moved = frame["pos"].copy()
+        moved[row] += step
+        return float(pred.predict([{"z": frame["z"], "pos": moved}])[0, 0])
+
+    worst = 0.0
+    for row in rows:
+        u = torch.randn(3, generator=gen, dtype=torch.float64)
+        u = (u / u.norm()).numpy()
+        num = (energy(row, eps * u) - energy(row, -eps * u)) / (2 * eps)
+        ana = -float(forces[row].astype("float64") @ u)
+        rel = abs(num - ana) / float((forces[row] ** 2).sum() ** 0.5)
+        worst = max(worst, rel)
+        log(f"[fd] atom {row}: -F.u {ana:.6f}, central difference {num:.6f} "
+            f"(eps {eps} A), err {rel:.3e} of |F| (tol 2e-2)")
+    if len(rows) < 3 or worst > 2e-2:
+        raise AssertionError("forces disagree with the energy's finite "
+                             "differences")
+
+
+def md22_force_phase(cfg, card) -> dict:
+    """Phase 19: the MD22 force request through both GATA and both HTR
+    kernels; returns the record of the GATA backward with position
+    cotangents."""
+    from gotennet_tpu_torch.ops import fused_gata, fused_htr
+    from gotennet_tpu_torch.serve import Predictor
+
+    counters = (fused_gata.fused_gata_forward, fused_gata.fused_gata_backward,
+                fused_htr.fused_htr_forward, fused_htr.fused_htr_backward)
+    mols = md22_frames()
+    n_chunks = math.ceil(MD22_FRAMES / MD22_CHUNK)
+    expected = ((n_chunks * N_LAYERS,) * 2
+                + (n_chunks * (N_LAYERS - 1),) * 2)
+    pred = Predictor(cfg, force_head(), seed=0, chunk=MD22_CHUNK,
+                     bucket=False)
+    plains = [(fused_gata, n, getattr(fused_gata, f"{n}_reference"))
+              for n in ("fused_gata_forward", "fused_gata_backward")]
+    plains += [(fused_htr, n, getattr(fused_htr, f"{n}_reference"))
+               for n in ("fused_htr_forward", "fused_htr_backward")]
+    launches, _, req_ms = force_request_run(
+        "md22-forces", pred, mols, counters, expected, plains, card)
+    real_edges, padded = count_pairs(md22_chunks(mols), cfg)
+    log(f"[md22-forces] real edges {real_edges} (self-loops included), "
+        f"padded pairs {padded}; {real_edges / (req_ms / 1e3):.1f} real "
+        f"edges/s | {card}")
+    finite_difference_check(cfg, mols[0])
+    record = kernel_record(
+        {"name": "fused_gata_bwd_pos_grads", "route": "cuda",
+         "source": "gotennet_tpu_torch/csrc/fused_gata_bwd.cu",
+         "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:350"},
+        capture(fused_gata, "fused_gata_backward",
+                lambda: pred.predict_with_forces(mols)),
+        counters[1], fused_gata.fused_gata_backward_reference, bwd_bound_ms,
+        card)
+    record["launches"] = launches[1]
+    return record
+
+
+def ell_force_phase(cfg, card) -> None:
+    """Phase 20: the ELL force request through all four ELL kernels."""
+    from gotennet_tpu_torch.data.dataset import MoleculeDataset
+    from gotennet_tpu_torch.ops import fused_ell, fused_htr
+    from gotennet_tpu_torch.serve import Predictor
+
+    counters = (fused_ell.fused_ell_forward, fused_ell.fused_ell_backward,
+                fused_htr.fused_htr_ell_forward,
+                fused_htr.fused_htr_ell_backward)
+    expected = ((LARGE_FRAMES * N_LAYERS,) * 2
+                + (LARGE_FRAMES * (N_LAYERS - 1),) * 2)
+    pred = Predictor(cfg, force_head(), seed=0, chunk=1, layout="ell",
+                     spatial_sort=True, block_rows=64)
+    plains = [(fused_ell, n, getattr(fused_ell, f"{n}_reference"))
+              for n in ("fused_ell_forward", "fused_ell_backward")]
+    plains += [(fused_htr, n, getattr(fused_htr, f"{n}_reference"))
+               for n in ("fused_htr_ell_forward", "fused_htr_ell_backward")]
+    mols = large_frames()
+    _, _, req_ms = force_request_run("ell-forces", pred, mols, counters,
+                                     expected, plains, card)
+    ds = MoleculeDataset(z=[m["z"] for m in mols],
+                         pos=[m["pos"] for m in mols])
+    real_edges = sum(int(b.nbr_mask.sum())
+                     for _, b in pred.loader(ds).batches())
+    log(f"[ell-forces] real edges {real_edges} (self-loops included); "
+        f"{real_edges / (req_ms / 1e3):.1f} real edges/s | {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1313,10 +1502,22 @@ def main() -> int:
     phase_done("16 (ELL HTR backward vs plain)")
     ell_bwd_records = ell_train_phase(md22_cfg, head, card)
     phase_done("17 (ELL training)")
+
+    # ---- 18.-20. forces: the GATA backward's position half, then serving --
+    for M, g in ((16, TRAIN_CHUNK), (24, TRAIN_CHUNK), (32, TRAIN_CHUNK),
+                 (112, MD22_CHUNK), (120, MD22_CHUNK)):
+        for pd in (f32, bf16):
+            for head_scale in (False, True):
+                check_gata_backward(M, pd, head_scale, g, pos_grads=True)
+    phase_done("18 (GATA backward with position cotangents vs plain)")
+    pos_record = md22_force_phase(md22_cfg, card)
+    phase_done("19 (MD22 forces)")
+    ell_force_phase(md22_cfg, card)
+    phase_done("20 (ELL forces)")
     log(json.dumps({"kernels": [record, bwd_record, htr_record,
                                 htr_bwd_record, ell_records[0],
                                 ell_bwd_records[0], ell_records[1],
-                                ell_bwd_records[1]]}))
+                                ell_bwd_records[1], pos_record]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,7 +4,9 @@
 // over every pair of a launch (weight gradients as a product whose depth runs
 // over pairs, bias gradients as column sums), each split over blocks into
 // partials that one pass then adds in a fixed order, so no sum uses atomics
-// and reruns give the same bits.
+// and reruns give the same bits.  For the two message backwards also the
+// forward's o at one (pair, channel), and the sums over a pair's channels
+// (a warp per pair, then one thread adds the 32 lanes in order).
 //
 // The including source defines kThreads, to_f and rnd<kBF> before it, and
 // run(), its one launch site, anywhere.
@@ -146,6 +148,34 @@ __global__ void __launch_bounds__(kThreads) partsum_kernel(const PartSum s) {
   float acc = 0.f;
   for (int z = 0; z < s.splits; ++z) acc += s.part[(size_t)z * s.n + e];
   s.out[e] = acc;
+}
+
+// ---- the message backwards' per-pair sums -----------------------------------
+// the forward's o at (pair, channel c) from t_filter, the rounded node values
+// x_g[j] and v[j], the envelope and the rounded attention of c's head
+template <bool kBF>
+__device__ __forceinline__ float o_at(float tf, float xv, float vv,
+                                      float envp, float ac) {
+  return rnd<kBF>(rnd<kBF>(rnd<kBF>(tf * xv) * envp) + rnd<kBF>(ac * vv));
+}
+
+// A warp per pair (or slot), `row` its place in the block, sums nq values
+// over the pair's channels: lane l leaves its partial sums acc[0..nq) in
+// `red` ([rows][nq][kLanePad] floats of shared memory), and after a
+// __syncthreads lane_total(red, row, nq, u) adds the 32 lanes of sum u in
+// order (no warp shuffles, so the host build runs the same code).
+constexpr int kLanePad = 33;
+
+__device__ __forceinline__ void store_lanes(float* red, int row, int nq,
+                                            int lane, const float* acc) {
+  for (int u = 0; u < nq; ++u) red[(row * nq + u) * kLanePad + lane] = acc[u];
+}
+
+__device__ __forceinline__ float lane_total(const float* red, int row, int nq,
+                                            int u) {
+  float s = 0.f;
+  for (int l = 0; l < 32; ++l) s += red[(row * nq + u) * kLanePad + l];
+  return s;
 }
 
 // ---- host side ------------------------------------------------------------

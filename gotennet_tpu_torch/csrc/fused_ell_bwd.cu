@@ -158,23 +158,15 @@ __device__ float grad_o(const Params& p, long long i, long long j,
   return s;
 }
 
-// the forward's o at (slot, channel c) from t_filter, the rounded table
-// values, the envelope and the rounded attention of c's head
-template <bool kBF>
-__device__ __forceinline__ float o_at(float tf, float xv, float vv,
-                                      float envp, float ac) {
-  return rnd<kBF>(rnd<kBF>(rnd<kBF>(tf * xv) * envp) + rnd<kBF>(ac * vv));
-}
-
 // pass 2: one warp per slot at a time, kSlotsPerBlock slots per block.  Lane
 // l takes channels l, l + 32, ...: it writes g_tf = g_o x_g[j] max(env, 0)
-// and sums, into shared memory, g_env's terms g_o tf x_g[j], g_attn's terms
-// g_o v[j] (per head) and g_rl's terms g_dX[i,m] o (direction blocks); then
-// one thread per (slot, sum) adds the 32 lanes in order.
+// and sums g_env's terms g_o tf x_g[j], g_attn's terms g_o v[j] (per head)
+// and g_rl's terms g_dX[i,m] o (direction blocks); then one thread per
+// (slot, sum) adds the 32 lanes in order (store_lanes, lane_total).
 template <bool kBF, typename NT>
 __global__ void __launch_bounds__(kThreads) slot_kernel(const Params p) {
   extern __shared__ float4 smem4[];
-  float* red = reinterpret_cast<float*>(smem4);   // [kSlotsPerBlock][nq][33]
+  float* red = reinterpret_cast<float*>(smem4);   // [slots][nq][kLanePad]
   const int C = p.C, D = p.D, H = p.H, L = p.L, nq = 1 + H + L;
   const int e_per = C / H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -207,15 +199,14 @@ __global__ void __launch_bounds__(kThreads) slot_kernel(const Params p) {
         }
       }
     }
-    for (int u = 0; u < nq; ++u) red[(r * nq + u) * 33 + lane] = acc[u];
+    store_lanes(red, r, nq, lane, acc);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < kSlotsPerBlock * nq; e += kThreads) {
     const int r = e / nq, u = e % nq;
     const long long slot = slot0 + r;
     if (slot >= p.P) continue;
-    float s = 0.f;
-    for (int l = 0; l < 32; ++l) s += red[(r * nq + u) * 33 + l];
+    const float s = lane_total(red, r, nq, u);
     if (u == 0) {
       p.genv[slot] = p.env[slot] >= 0.f ? s : 0.f;
     } else if (u <= H) {
@@ -378,7 +369,7 @@ cudaError_t backward(const Params& p, int t_bf16, cudaStream_t s) {
   // 2. g_tf, g_attn, g_env, g_rl per slot
   auto slot_kern = slot_kernel<kBF, NT>;
   const size_t slot_smem =
-      (size_t)kSlotsPerBlock * (1 + p.H + p.L) * 33 * sizeof(float);
+      (size_t)kSlotsPerBlock * (1 + p.H + p.L) * kLanePad * sizeof(float);
   CHECK(cudaFuncSetAttribute(slot_kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)slot_smem));

@@ -1,9 +1,10 @@
 // Fused dense-GATA message + aggregation, backward, for sm_90a.
 //
 // Replaces the TPU kernel `_bwd_kernel` of gotennet_tpu/ops/pallas/fused_gata.py
-// (launched by `_pallas_backward`, wired by `make_fused_gata`) with
-// pos_grads=False: the cotangents of every input of the forward except rl and
-// env_signed.  The math and the cast points are written out in
+// (launched by `_pallas_backward`, wired by `make_fused_gata`): the
+// cotangents of every input of the forward, those of rl and env_signed (the
+// position gradients, pos_grads=True) only when the caller passes outputs for
+// them.  The math and the cast points are written out in
 // gotennet_tpu_torch/ops/fused_gata.py (`fused_gata_backward_reference`), the
 // plain PyTorch version this kernel is held against.
 //
@@ -32,9 +33,13 @@
 //  8. g_t = g_tf W_rs^T + g_zre W_re^T, one product each;
 //  9. the weight gradients t^T g_tf and t^T g_zre, and the bias gradients
 //     (column sums), as sums over all pairs of the chunk: split over blocks
-//     into partials, then one pass adds the partials in a fixed order.
+//     into partials, then one pass adds the partials in a fixed order;
+// 10. with position gradients only, a warp per pair: g_env and g_rl, sums
+//     over the pair's channels (each lane sums its channels, then one thread
+//     adds the 32 lanes in order), as the ELL backward's slot pass sums them.
 // Padded atoms and invalid pairs (env < 0) have softmax 0 and envelope 0, so
-// every term they touch is an exact zero.
+// every term they touch is an exact zero (o too, so g_rl is zero there; g_env
+// is set to zero on invalid pairs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,6 +50,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPairsPerBlock = 16;             // pairs per block of pass 10
+constexpr int kMaxL = 24;                      // SH components (lmax <= 4)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -89,7 +96,8 @@ struct Params {
   const float* sm;     // [G, M, M, H]  the forward's pre-scale softmax
   const float* gdh;    // [G, M, D]
   const float* gdx;    // [G, M, L, D]
-  float *gt, *gq, *gk, *gxg, *gv, *gX, *gscale, *gwre, *gbre, *gwrs, *gbrs;
+  float *gt, *gq, *gk, *gxg, *gv, *grl, *gX, *genv, *gscale, *gwre, *gbre,
+      *gwrs, *gbrs;                     // grl, genv: null without pos_grads
   // workspace: tf, gtf [P, C]; zre, gz [P, D]; ga [P, H]; part (partials)
   float *tf, *gtf, *zre, *gz, *ga, *part;
   int G, M, D, H, L, C, lmax, sep_dir, sep_tensor, scale_heads;
@@ -279,10 +287,67 @@ __global__ void __launch_bounds__(kThreads) grad_nodes_kernel(const Params p) {
       const float envp = rnd<kBF>(fmaxf(p.env[pair], 0.f));
       const float tf = p.tf[pair * C + c];
       const float ac = rnd<kBF>(p.sm[pair * H + head] * scale_at(p, pair, head));
-      const float o = rnd<kBF>(rnd<kBF>(rnd<kBF>(tf * xv) * envp) + rnd<kBF>(ac * vv));
+      const float o = o_at<kBF>(tf, xv, vv, envp, ac);
       s += rnd<kBF>(o * rnd<kBF>(p.gdx[(gi * L + m) * D + d]));
     }
     p.gX[(gj * L + m) * D + d] = s;
+  }
+}
+
+// pass 10 (position gradients): one warp per pair at a time, kPairsPerBlock
+// pairs per block.  Lane l takes channels l, l + 32, ...: it sums g_env's
+// terms g_o tf x_g[j] over every channel and g_rl's terms g_dX[i,m] o over
+// the direction blocks, each product of rounded factors left unrounded (the
+// TPU kernel forms g_rl as a float32-accumulating matmul); then one thread
+// per (pair, sum) adds the 32 lanes in order.
+template <bool kBF, typename NT>
+__global__ void __launch_bounds__(kThreads) pos_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);   // [pairs][nq][kLanePad]
+  const int M = p.M, C = p.C, D = p.D, H = p.H, L = p.L, nq = 1 + L;
+  const int e_per = C / H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t n = (size_t)p.G * M * M;
+  const size_t pair0 = (size_t)blockIdx.x * kPairsPerBlock;
+  const NT* xg = static_cast<const NT*>(p.xg);
+  const NT* v = static_cast<const NT*>(p.v);
+  for (int r = warp; r < kPairsPerBlock; r += kThreads / 32) {
+    const size_t pair = pair0 + r;
+    float acc[1 + kMaxL];
+    for (int u = 0; u < nq; ++u) acc[u] = 0.f;
+    if (pair < n) {
+      const size_t gi = pair / M, gj = gi / M * M + pair % M;
+      const float envp = rnd<kBF>(fmaxf(p.env[pair], 0.f));
+      for (int c = lane; c < C; c += 32) {
+        const Block blk = block_of(p, c / D);
+        const float go = grad_o<kBF>(p, gi, gj, pair, c);
+        const float tf = p.tf[pair * C + c];
+        const float xv = rnd<kBF>(to_f(xg[gj * C + c]));
+        acc[0] += rnd<kBF>(rnd<kBF>(go * tf) * xv);
+        if (blk.kind != 1) continue;
+        const int h = c / e_per;
+        const float ac = rnd<kBF>(p.sm[pair * H + h] * scale_at(p, pair, h));
+        const float vv = rnd<kBF>(to_f(v[gj * C + c]));
+        const float o = o_at<kBF>(tf, xv, vv, envp, ac);
+        const float* gx = p.gdx + gi * L * D + c % D;
+        for (int m = blk.mlo; m < blk.mhi; ++m) {
+          acc[1 + m] += rnd<kBF>(gx[m * D]) * o;
+        }
+      }
+    }
+    store_lanes(red, r, nq, lane, acc);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kPairsPerBlock * nq; e += kThreads) {
+    const int r = e / nq, u = e % nq;
+    const size_t pair = pair0 + r;
+    if (pair >= n) continue;
+    const float s = lane_total(red, r, nq, u);
+    if (u == 0) {
+      p.genv[pair] = p.env[pair] >= 0.f ? s : 0.f;
+    } else {
+      p.grl[pair * L + u - 1] = s;
+    }
   }
 }
 
@@ -357,6 +422,16 @@ cudaError_t backward(const Params& p, int t_bf16, cudaStream_t s) {
   CHECK(product_over_pairs<kBF>(gw, p.part, s));
   CHECK(column_sums(p.gtf, P, C, p.part, p.gbrs, s));
   CHECK(column_sums(p.gz, P, D, p.part, p.gbre, s));
+  if (p.grl == nullptr) return cudaSuccess;
+  // 10. g_env and g_rl, position gradients only
+  auto pos_kern = pos_kernel<kBF, NT>;
+  const size_t pos_smem = (size_t)kPairsPerBlock * (1 + p.L) * kLanePad *
+                          sizeof(float);
+  CHECK(cudaFuncSetAttribute(pos_kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)pos_smem));
+  CHECK(run(pos_kern, dim3((unsigned)((P + kPairsPerBlock - 1) / kPairsPerBlock)),
+            pos_smem, p, s));
   return cudaSuccess;
 }
 
@@ -373,13 +448,15 @@ extern "C" long long gotennet_fused_gata_bwd_workspace(int G, int M, int D,
 
 // Launches on `stream` and allocates nothing (`work` holds at least
 // gotennet_fused_gata_bwd_workspace bytes); returns the first CUDA error.
+// grl and genv are both null (no position gradients) or both given.
 extern "C" int gotennet_fused_gata_bwd(
     const void* t, const void* q, const void* k, const void* xg,
     const void* v, const float* rl, const float* X, const float* env,
     const float* scale, const float* wre, const float* bre, const float* wrs,
     const float* brs, const float* sm, const float* gdh, const float* gdx,
-    float* gt, float* gq, float* gk, float* gxg, float* gv, float* gX,
-    float* gscale, float* gwre, float* gbre, float* gwrs, float* gbrs,
+    float* gt, float* gq, float* gk, float* gxg, float* gv, float* grl,
+    float* gX, float* genv, float* gscale, float* gwre, float* gbre,
+    float* gwrs, float* gbrs,
     float* work, int G, int M, int D, int H, int lmax, int sep_dir,
     int sep_tensor, int scale_heads, int pair_bf16, int t_bf16,
     int node_bf16, void* stream) {
@@ -388,15 +465,17 @@ extern "C" int gotennet_fused_gata_bwd(
   p.rl = rl; p.X = X; p.env = env; p.scale = scale;
   p.wre = wre; p.bre = bre; p.wrs = wrs; p.brs = brs;
   p.sm = sm; p.gdh = gdh; p.gdx = gdx;
-  p.gt = gt; p.gq = gq; p.gk = gk; p.gxg = gxg; p.gv = gv; p.gX = gX;
-  p.gscale = gscale; p.gwre = gwre; p.gbre = gbre; p.gwrs = gwrs;
+  p.gt = gt; p.gq = gq; p.gk = gk; p.gxg = gxg; p.gv = gv; p.grl = grl;
+  p.gX = gX; p.genv = genv; p.gscale = gscale; p.gwre = gwre; p.gbre = gbre; p.gwrs = gwrs;
   p.gbrs = gbrs;
   p.G = G; p.M = M; p.D = D; p.H = H; p.lmax = lmax;
   p.L = (lmax + 1) * (lmax + 1) - 1;
   p.C = D * (1 + (sep_dir ? lmax : 1) + (sep_tensor ? lmax : 1));
   p.sep_dir = sep_dir; p.sep_tensor = sep_tensor; p.scale_heads = scale_heads;
   if (G <= 0 || M <= 0) return (int)cudaSuccess;
-  if (D % H || p.C % H) return (int)cudaErrorInvalidValue;
+  if (D % H || p.C % H || (grl == nullptr) != (genv == nullptr) ||
+      (grl != nullptr && p.L > kMaxL))
+    return (int)cudaErrorInvalidValue;
   const Layout w = layout(G, M, D, H, p.C);
   p.tf = work + w.tf; p.gtf = work + w.gtf; p.zre = work + w.zre;
   p.gz = work + w.gz; p.ga = work + w.ga; p.part = work + w.part;

@@ -28,6 +28,7 @@ class MoleculeDataset:
     z: List[np.ndarray]                     # [M_i] int
     pos: List[np.ndarray]                   # [M_i, 3] float
     y: Optional[np.ndarray] = None          # [n, T] graph targets
+    dy: Optional[List[np.ndarray]] = None   # [M_i, 3] forces
 
     def __len__(self) -> int:
         return len(self.z)
@@ -38,19 +39,22 @@ class MoleculeDataset:
             g = {"z": self.z[i], "pos": self.pos[i]}
             if self.y is not None:
                 g["y"] = self.y[i]
+            if self.dy is not None:
+                g["dy"] = self.dy[i]
             out.append(g)
         return out
 
 
 def synthetic_molecules(n: int, seed: int = 0, min_atoms: int = 6,
-                        max_atoms: int = 24, box: float = 4.0
-                        ) -> MoleculeDataset:
+                        max_atoms: int = 24, box: float = 4.0,
+                        with_forces: bool = False) -> MoleculeDataset:
     """Random QM9-like molecules: organic atom types, positions spread so
     typical neighbour counts match a 5 A cutoff, and a smooth synthetic
-    target (a sum of Gaussian pair terms).  Forces are not ported yet
-    (ROADMAP.md Queue 1, item 9)."""
+    target (a sum of Gaussian pair terms); ``with_forces`` adds its
+    negative gradient as force targets (drawing nothing more from the
+    generator)."""
     rng = np.random.default_rng(seed)
-    zs, poss, ys = [], [], []
+    zs, poss, ys, dys = [], [], [], []
     types = np.asarray([1, 6, 7, 8, 9])
     probs = np.asarray([0.5, 0.3, 0.1, 0.08, 0.02])
     for _ in range(n):
@@ -65,7 +69,13 @@ def synthetic_molecules(n: int, seed: int = 0, min_atoms: int = 6,
         zs.append(z)
         poss.append(pos.astype(np.float32))
         ys.append([e])
-    return MoleculeDataset(z=zs, pos=poss, y=np.asarray(ys, np.float32))
+        if with_forces:
+            k = w[..., None] * np.exp(-d2)[..., None] * (-2.0 * diff)
+            g = 0.01 * 2.0 * np.nansum(
+                np.where(np.isfinite(d2)[..., None], k, 0.0), axis=1)
+            dys.append((-g).astype(np.float32))
+    return MoleculeDataset(z=zs, pos=poss, y=np.asarray(ys, np.float32),
+                           dy=dys if with_forces else None)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -135,7 +145,8 @@ class DenseLoader:
             m = self.max_atoms if not self.bucket else min(
                 self.max_atoms, _round_up(max(8, int(sizes[idx].max())), 8))
             yield idx, collate_dense(self.ds.graph_dicts(idx),
-                                     self.batch_size, m, y_dim=y_dim)
+                                     self.batch_size, m, y_dim=y_dim,
+                                     with_forces=self.ds.dy is not None)
 
     def __iter__(self) -> Iterator[DenseBatch]:
         return (b for _, b in self.batches())
@@ -191,7 +202,8 @@ class ELLLoader:
                         cutoff=self.cutoff,
                         max_num_neighbors=self.max_num_neighbors,
                         y_dim=y_dim, block_rows=self.block_rows,
-                        spatial_sort=self.spatial_sort)
+                        spatial_sort=self.spatial_sort,
+                        with_forces=self.ds.dy is not None)
                     break
                 except ValueError as e:
                     if "neighbor capacity" not in str(e):

@@ -10,7 +10,7 @@ Queue 1, item 4).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ class DenseBatch:
         mask: ``[G, M]`` bool real-atom mask.
         graph_mask: ``[G]`` bool real-graph mask.
         y: ``[G, T]`` float32 targets.
+        dy: optional ``[G, M, 3]`` float32 force targets.
     """
 
     z: torch.Tensor
@@ -35,6 +36,7 @@ class DenseBatch:
     mask: torch.Tensor
     graph_mask: torch.Tensor
     y: torch.Tensor
+    dy: Optional[torch.Tensor] = None
 
     @property
     def num_graphs(self) -> int:
@@ -44,15 +46,23 @@ class DenseBatch:
     def max_atoms(self) -> int:
         return self.z.shape[1]
 
+    @property
+    def node_mask(self) -> torch.Tensor:
+        """``mask``, by the name the ELL batch gives it."""
+        return self.mask
+
     def to(self, device) -> "DenseBatch":
-        return DenseBatch(**{f.name: getattr(self, f.name).to(device)
-                             for f in dataclasses.fields(self)})
+        return DenseBatch(**{
+            f.name: (None if getattr(self, f.name) is None
+                     else getattr(self, f.name).to(device))
+            for f in dataclasses.fields(self)})
 
 
 def collate_dense(graphs: Sequence[dict], num_graphs: int, max_atoms: int,
-                  y_dim: int = 1) -> DenseBatch:
-    """Pack molecules (dicts with ``z``, ``pos`` and optionally ``y``)
-    into a dense batch on the host; capacity errors are loud."""
+                  y_dim: int = 1, with_forces: bool = False) -> DenseBatch:
+    """Pack molecules (dicts with ``z``, ``pos`` and optionally ``y`` and,
+    with ``with_forces``, ``dy``) into a dense batch on the host; capacity
+    errors are loud."""
     if len(graphs) > num_graphs:
         raise ValueError(f"{len(graphs)} graphs > capacity {num_graphs}")
     z = np.zeros((num_graphs, max_atoms), np.int32)
@@ -60,6 +70,8 @@ def collate_dense(graphs: Sequence[dict], num_graphs: int, max_atoms: int,
     mask = np.zeros((num_graphs, max_atoms), bool)
     gmask = np.zeros(num_graphs, bool)
     y = np.zeros((num_graphs, y_dim), np.float32)
+    dy = (np.zeros((num_graphs, max_atoms, 3), np.float32) if with_forces
+          else None)
     for g_idx, g in enumerate(graphs):
         gz = np.asarray(g["z"], np.int32)
         m = gz.shape[0]
@@ -71,7 +83,10 @@ def collate_dense(graphs: Sequence[dict], num_graphs: int, max_atoms: int,
         gmask[g_idx] = True
         if g.get("y") is not None:
             y[g_idx] = np.asarray(g["y"], np.float32).reshape(-1)[:y_dim]
+        if with_forces and g.get("dy") is not None:
+            dy[g_idx, :m] = np.asarray(g["dy"], np.float32)
     return DenseBatch(
         z=torch.from_numpy(z), pos=torch.from_numpy(pos),
         mask=torch.from_numpy(mask), graph_mask=torch.from_numpy(gmask),
-        y=torch.from_numpy(y))
+        y=torch.from_numpy(y),
+        dy=torch.from_numpy(dy) if with_forces else None)

@@ -6,8 +6,7 @@ the destination) fill the first slots of row ``r`` of ``nbr``, in the
 edge builder's order, the self-loop last.  The softmax over a node's
 neighbours is a masked softmax over its K slots, and every aggregation a
 sum over them.  Padded slots and padded rows point at their own row, so a
-gather never leaves the table.  Forces (``dy``) are not ported yet
-(ROADMAP.md Queue 1, item 9).
+gather never leaves the table.
 """
 
 from __future__ import annotations
@@ -37,6 +36,11 @@ class ELLBatch:
         nbr_mask: ``[N, K]`` bool, true for real edges.
         node_mask: ``[N]`` bool; graph_mask: ``[G]`` bool.
         y: ``[G, T]`` float32 targets.
+        atom: ``[N]`` int32, each row's atom index within its molecule as
+            the caller gave it (the spatial sort permutes rows); 0 on
+            padded rows.
+        dy: optional ``[N, 3]`` float32 force targets, permuted with the
+            rows.
         gather_window, block_rows: with spatially sorted atoms, the
             neighbour indices of every ``block_rows``-row block lie in a
             window of ``gather_window`` rows; the model then rounds
@@ -54,6 +58,8 @@ class ELLBatch:
     node_mask: torch.Tensor
     graph_mask: torch.Tensor
     y: torch.Tensor
+    atom: torch.Tensor
+    dy: Optional[torch.Tensor] = None
     gather_window: Optional[int] = None
     block_rows: Optional[int] = None
     gather_halo: Optional[int] = None
@@ -72,7 +78,8 @@ class ELLBatch:
 
     def to(self, device) -> "ELLBatch":
         return ELLBatch(**{
-            f.name: (getattr(self, f.name) if f.name in _STATIC
+            f.name: (getattr(self, f.name)
+                     if f.name in _STATIC or getattr(self, f.name) is None
                      else getattr(self, f.name).to(device))
             for f in dataclasses.fields(self)})
 
@@ -81,11 +88,14 @@ def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
                 num_graphs: int, cutoff: float = 5.0,
                 max_num_neighbors: int = 32, y_dim: int = 1,
                 block_rows: Optional[int] = None,
-                spatial_sort: bool = False) -> ELLBatch:
-    """Pack molecules (dicts with ``z``, ``pos`` and optionally ``y``) into
-    one ``ELLBatch`` on the host, self-loops included.  With
-    ``spatial_sort`` each molecule's atoms are put in cell order first;
-    with ``block_rows`` the window fields are measured on the batch.
+                spatial_sort: bool = False,
+                with_forces: bool = False) -> ELLBatch:
+    """Pack molecules (dicts with ``z``, ``pos`` and optionally ``y`` and,
+    with ``with_forces``, ``dy``) into one ``ELLBatch`` on the host,
+    self-loops included.  With ``spatial_sort`` each molecule's atoms (and
+    forces) are put in cell order first, and ``atom`` keeps each row's
+    place in the molecule as given; with ``block_rows`` the window fields
+    are measured on the batch.
     Raises on a node degree above ``max_neighbors`` ("neighbor capacity")
     and on other overflows."""
     if len(graphs) > num_graphs:
@@ -99,11 +109,14 @@ def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
     nbr_mask = np.zeros((num_nodes, max_neighbors), bool)
     graph_mask = np.zeros(num_graphs, bool)
     y = np.zeros((num_graphs, y_dim), np.float32)
+    atom = np.zeros(num_nodes, np.int32)
+    dy = np.zeros((num_nodes, 3), np.float32) if with_forces else None
 
     n_off = 0
     for g_idx, g in enumerate(graphs):
         gz = np.asarray(g["z"], np.int32)
         gpos = np.asarray(g["pos"], np.float32)
+        perm = np.arange(gz.shape[0])
         if spatial_sort:
             perm = spatial_order(gpos, cutoff)
             gz, gpos = gz[perm], gpos[perm]
@@ -124,9 +137,12 @@ def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
         pos[n_off:n_off + m] = gpos
         node_graph[n_off:n_off + m] = g_idx
         node_mask[n_off:n_off + m] = True
+        atom[n_off:n_off + m] = perm
         graph_mask[g_idx] = True
         if g.get("y") is not None:
             y[g_idx] = np.asarray(g["y"], np.float32).reshape(-1)[:y_dim]
+        if with_forces and g.get("dy") is not None:
+            dy[n_off:n_off + m] = np.asarray(g["dy"], np.float32)[perm]
         n_off += m
 
     gather_window = gather_halo = None
@@ -147,6 +163,8 @@ def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
         nbr_mask=torch.from_numpy(nbr_mask),
         node_mask=torch.from_numpy(node_mask),
         graph_mask=torch.from_numpy(graph_mask), y=torch.from_numpy(y),
+        atom=torch.from_numpy(atom),
+        dy=torch.from_numpy(dy) if with_forces else None,
         gather_window=gather_window,
         block_rows=block_rows if gather_window else None,
         gather_halo=gather_halo)

@@ -29,7 +29,6 @@ ROADMAP_ITEMS = {
     4: "Data",
     5: "Edge-update variants",
     6: "Dipole and ESE heads",
-    9: "Forces",
     10: "Edge-list layout",
     11: "ELL layout: the unfused update, large tables",
     13: "CLI, configs and tools",
@@ -112,7 +111,7 @@ class GotenNetConfig:
     merge_proj: bool = True
     scan_layers: bool = False
     # position gradients through the fused message; None follows the
-    # head (GotenModel resolves it from ``derivative``)
+    # head (GotenModel resolves it from ``derivative``), False refuses them
     pos_grads: Optional[bool] = None
 
     def __post_init__(self):
@@ -148,9 +147,6 @@ class GotenNetConfig:
             raise not_ported("trainable_rbf", 3)
         if self.edge_updates is not True:
             raise not_ported(f"edge_updates={self.edge_updates!r}", 5)
-        if self.pos_grads:
-            raise not_ported("pos_grads=True (position gradients through "
-                             "the fused message)", 9)
         if self.scan_layers:
             raise not_ported("scan_layers (layer-stacked parameter trees)",
                              13)

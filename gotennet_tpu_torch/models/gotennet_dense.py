@@ -228,7 +228,8 @@ class GATADense(nn.Module):
             self.W_re.weight.t().contiguous(), self.W_re.bias,
             self.W_rs.weight.t().contiguous(), self.W_rs.bias,
             lmax=cfg.lmax, num_heads=cfg.num_heads, sep_dir=cfg.sep_dir,
-            sep_tensor=cfg.sep_tensor, pair_dtype=pd)
+            sep_tensor=cfg.sep_tensor, pair_dtype=pd,
+            pos_grads=cfg.pos_grads is not False)
         h = h + d_h
         X = X + dX
         if self.last_layer:

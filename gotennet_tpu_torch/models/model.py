@@ -1,11 +1,13 @@
 """Representation + output head (``gotennet_tpu/models/model.py``),
-dense and ELL layouts.
+dense and ELL layouts, with forces by autograd through the positions.
 
 ``GotenModel`` returns ``{'property': [G, n_out], 'contributions',
 'representation': [N, D], 'vector_representation': [N, L, D]}`` like the
-JAX model, with ``N = G*M`` node slots in the dense layout.  It is built on ``cuda`` unless ``device`` says
-otherwise, from a seeded init or, through ``load_state_dict``, from
-weights converted by ``utils.convert.state_dict_from_jax_params``.
+JAX model, with ``N = G*M`` node slots in the dense layout.  It is built on
+``cuda`` unless ``device`` says otherwise, from a seeded init or, through
+``load_state_dict``, from weights converted by
+``utils.convert.state_dict_from_jax_params``.  ``apply_with_forces`` adds
+``forces = -dE/dpos`` for a head with ``derivative``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from gotennet_tpu_torch.models.heads import Atomwise
 from gotennet_tpu_torch.nn.dense import Dense
 from gotennet_tpu_torch.utils.device import resolve_device
 
-__all__ = ["HeadConfig", "GotenModel", "init_parameters_"]
+__all__ = ["HeadConfig", "GotenModel", "init_parameters_",
+           "apply_with_forces"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +87,6 @@ class GotenModel(nn.Module):
                              "ell")
         if head.kind != "atomwise":
             raise not_ported(f"head kind {head.kind!r}", 6)
-        if head.derivative:
-            raise not_ported("forces (derivative=True)", 9)
         if head.aggregation != "sum":
             raise ValueError(f"aggregation {head.aggregation!r}: the port's "
                              "Atomwise head sums per graph")
@@ -125,3 +126,23 @@ class GotenModel(nn.Module):
         out["representation"] = h
         out["vector_representation"] = X
         return out
+
+
+def apply_with_forces(model: GotenModel, batch: DenseBatch | ELLBatch
+                      ) -> Dict[str, torch.Tensor]:
+    """Run the model and, when the head asks for derivatives, add
+    ``forces = -dE/dpos`` (the sign flipped unless ``negative_dr`` is
+    False), the gradient of ``property.sum()`` with respect to
+    ``batch.pos`` alone, zero on padded atoms: ``[G, M, 3]`` on the dense
+    layout, ``[N, 3]`` on the ELL one, as the JAX package's
+    ``apply_with_forces``.  The forces carry no graph: training on them
+    (a gradient of the gradient) is not ported."""
+    if not model.head.derivative:
+        return model(batch)
+    pos = batch.pos.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = model(dataclasses.replace(batch, pos=pos))
+        dy, = torch.autograd.grad(out["property"].sum(), pos)
+    sign = -1.0 if model.head.negative_dr else 1.0
+    out["forces"] = sign * dy * batch.node_mask[..., None].to(dy.dtype)
+    return out

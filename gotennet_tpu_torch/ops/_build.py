@@ -92,7 +92,7 @@ def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
         fn.restype = i32
     elif source == "fused_gata_bwd.cu":
         fn = lib.gotennet_fused_gata_bwd
-        fn.argtypes = [ptr] * 28 + [i32] * 11 + [ptr]
+        fn.argtypes = [ptr] * 30 + [i32] * 11 + [ptr]
         fn.restype = i32
         fn = lib.gotennet_fused_gata_bwd_workspace
         fn.argtypes = [i32] * 7

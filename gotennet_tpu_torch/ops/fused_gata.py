@@ -118,7 +118,8 @@ def fused_gata_backward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
                                   W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, *,
                                   lmax: int, num_heads: int, sep_dir: bool,
                                   sep_tensor: bool,
-                                  pair_dtype: torch.dtype = torch.float32
+                                  pair_dtype: torch.dtype = torch.float32,
+                                  pos_grads: bool = False
                                   ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the backward kernel: the analytic VJP of
     the forward, from its pre-scale softmax ``sm`` ``[G,M,M,H]`` and the
@@ -129,8 +130,12 @@ def fused_gata_backward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
     rounded itself (``r`` below), every sum accumulates in float32, and
     the softmax backward and the silu chain stay in float32.  Returns the
     13 cotangents in input order, all float32.  Those of ``rl`` and
-    ``env_signed`` are zeros: position gradients are not ported
-    (ROADMAP.md Queue 1, item 9).
+    ``env_signed`` (the position gradients) are computed only with
+    ``pos_grads``, and are zeros otherwise, as the JAX package returns them:
+    ``g_rl[i,j,m] = sum_d o[i,j,d] g_dX[i,m,d]`` over the direction block
+    of m's degree (products of rounded factors, unrounded, as the TPU
+    kernel's float32-accumulating matmul forms them), and ``g_env`` the
+    sum over every channel of ``g_o tf x_g[j]``, zero on invalid pairs.
     """
     f32 = torch.float32
 
@@ -153,25 +158,35 @@ def fused_gata_backward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
     # the cotangent of o, block by block; g_X from the tensor blocks
     g_o = torch.empty_like(tf)
     g_X = torch.zeros(X.shape, dtype=f32, device=X.device)
+    g_rl = torch.zeros(rl.shape, dtype=f32, device=rl.device)
     for b, (kind, lo, hi) in enumerate(_block_layout(sep_dir, sep_tensor,
                                                      lmax)):
         cols = slice(b * D, (b + 1) * D)
+        if kind == "ten" or (kind == "dir" and pos_grads):
+            # the forward's o on this block, in the pair type
+            o_c = r(r(r(tf[..., cols] * xg[..., cols]) * envp)
+                    + r(attn_c[..., cols] * vj[..., cols]))
         if kind == "scalar":
             g_o[..., cols] = r(g_dh)[:, :, None, :]
         elif kind == "dir":
             g_o[..., cols] = r(torch.einsum("gijm,gimd->gijd",
                                             r(rl[..., lo:hi]),
                                             gdx[:, :, lo:hi]))
+            if pos_grads:
+                g_rl[..., lo:hi] = torch.einsum("gijd,gimd->gijm", o_c,
+                                                gdx[:, :, lo:hi])
         else:
             acc = torch.zeros_like(tp)
             for m in range(lo, hi):
                 acc = r(acc + r(r(X[:, None, :, m, :])
                                 * gdx[:, :, None, m, :]))
             g_o[..., cols] = acc
-            o_c = r(r(r(tf[..., cols] * xg[..., cols]) * envp)
-                    + r(attn_c[..., cols] * vj[..., cols]))
             for m in range(lo, hi):
                 g_X[:, :, m] = r(o_c * gdx[:, :, None, m, :]).sum(dim=1)
+    g_env = torch.zeros(env_signed.shape, dtype=f32, device=t.device)
+    if pos_grads:
+        g_env = torch.where(env_signed >= 0, r(r(g_o * tf) * xg).sum(dim=-1),
+                            g_env)
 
     g_tf = r(r(g_o * xg) * envp)
     g_xg = r(r(g_o * tf) * envp).sum(dim=1)
@@ -199,9 +214,8 @@ def fused_gata_backward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,
     g_t = g_t + r(g_zre) @ r(W_re).t()
     g_Wre = torch.einsum("gijd,gije->de", tp, r(g_zre))
     g_bre = g_zre.sum(dim=(0, 1, 2))
-    return (g_t, g_q, g_k, g_xg, g_v, torch.zeros_like(rl), g_X,
-            torch.zeros_like(env_signed), g_scale, g_Wre, g_bre, g_Wrs,
-            g_brs)
+    return (g_t, g_q, g_k, g_xg, g_v, g_rl, g_X, g_env, g_scale, g_Wre, g_bre,
+            g_Wrs, g_brs)
 
 
 def _check(cond: bool, msg: str, who: str = "fused_gata_forward") -> None:
@@ -303,16 +317,19 @@ def fused_gata_backward(t, q, k, x_g, v, rl, X, env_signed, scale,
                         W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, *,
                         lmax: int, num_heads: int, sep_dir: bool,
                         sep_tensor: bool,
-                        pair_dtype: torch.dtype = torch.float32
+                        pair_dtype: torch.dtype = torch.float32,
+                        pos_grads: bool = False
                         ) -> Tuple[torch.Tensor, ...]:
     """Fused GATA backward; the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors.  Inputs as ``fused_gata_forward``'s, plus the
     forward's pre-scale softmax ``sm`` and the float32 cotangents
     ``g_dh``, ``g_dX``.  Returns the 13 cotangents as
-    ``fused_gata_backward_reference``.  ``fused_gata_backward.launches``
-    counts kernel launches."""
+    ``fused_gata_backward_reference`` (those of ``rl`` and ``env_signed``
+    only with ``pos_grads``, zeros otherwise).
+    ``fused_gata_backward.launches`` counts kernel launches."""
     kw = dict(lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
-              sep_tensor=sep_tensor, pair_dtype=pair_dtype)
+              sep_tensor=sep_tensor, pair_dtype=pair_dtype,
+              pos_grads=pos_grads)
     args = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
             b_rs, sm, g_dh, g_dX)
     if t.device.type == "cpu":
@@ -331,17 +348,19 @@ _counted_bwd = fused_gata_backward
 
 
 class FusedGATA(torch.autograd.Function):
-    """The fused step through autograd, as ``make_fused_gata(...,
-    pos_grads=False)`` wires it in the JAX package: the forward saves the
-    inputs and the pre-scale softmax, the backward hands them to
-    ``fused_gata_backward``.  Cotangents come back in their inputs' types.
-    A gradient with respect to ``rl`` or ``env_signed`` (forces) raises
-    ``NotImplementedError`` instead of coming back as zeros."""
+    """The fused step through autograd, as ``make_fused_gata`` wires it in
+    the JAX package: the forward saves the inputs and the pre-scale
+    softmax, the backward hands them to ``fused_gata_backward``, with
+    ``pos_grads`` exactly when autograd asks for the cotangent of ``rl`` or
+    ``env_signed`` (forces).  Cotangents come back in their inputs' types.
+    Built with ``pos_grads=False``, a position gradient raises
+    ``ValueError`` (the JAX package returns zeros for it)."""
 
     @staticmethod
     def forward(ctx, t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
                 W_rs, b_rs, lmax, num_heads, sep_dir, sep_tensor,
-                pair_dtype):
+                pair_dtype, pos_grads=True):
+        ctx.pos_grads = pos_grads
         ctx.kw = dict(lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
                       sep_tensor=sep_tensor, pair_dtype=pair_dtype)
         inputs = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
@@ -354,30 +373,34 @@ class FusedGATA(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_dh, g_dX):
         need = ctx.needs_input_grad[:len(ARG_NAMES)]
-        if need[5] or need[7]:
-            from gotennet_tpu_torch.models.gotennet import not_ported
-            raise not_ported("position gradients through the fused message "
-                             "(pos_grads)", 9)
+        pos = need[5] or need[7]
+        if pos and not ctx.pos_grads:
+            raise ValueError(
+                "a position gradient through the fused message, built with "
+                "pos_grads=False: build the model with pos_grads=True (or "
+                "None with a derivative head)")
         *inputs, sm = ctx.saved_tensors
         grads = fused_gata_backward(*inputs, sm, g_dh.float().contiguous(),
-                                    g_dX.float().contiguous(), **ctx.kw)
+                                    g_dX.float().contiguous(), **ctx.kw,
+                                    pos_grads=pos)
         out = tuple(g.to(a.dtype) if n else None
                     for g, a, n in zip(grads, inputs, need))
-        return out + (None,) * 5
+        return out + (None,) * 6
 
 
 def fused_gata(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
                b_rs, *, lmax: int, num_heads: int, sep_dir: bool,
-               sep_tensor: bool, pair_dtype: torch.dtype = torch.float32
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               sep_tensor: bool, pair_dtype: torch.dtype = torch.float32,
+               pos_grads: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(d_h, dX)`` of the fused step.  Through ``FusedGATA`` when
     autograd records and an input needs a gradient; otherwise the forward
-    alone, which keeps no softmax."""
+    alone, which keeps no softmax.  ``pos_grads=False`` refuses position
+    gradients (``FusedGATA``)."""
     args = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
             b_rs)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return FusedGATA.apply(*args, lmax, num_heads, sep_dir, sep_tensor,
-                               pair_dtype)
+                               pair_dtype, pos_grads)
     d_h, dX, _ = fused_gata_forward(
         *args, lmax=lmax, num_heads=num_heads, sep_dir=sep_dir,
         sep_tensor=sep_tensor, pair_dtype=pair_dtype)
@@ -438,7 +461,8 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
                      W_rs, b_rs, sm, g_dh, g_dX, *, lmax, num_heads, sep_dir,
-                     sep_tensor, pair_dtype) -> Tuple[torch.Tensor, ...]:
+                     sep_tensor, pair_dtype, pos_grads
+                     ) -> Tuple[torch.Tensor, ...]:
     from gotennet_tpu_torch.ops._build import load_library
 
     who = "fused_gata_backward"
@@ -453,7 +477,7 @@ def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
                and a.is_contiguous() and tuple(a.shape) == shp,
                f"{name} must be a contiguous float32 tensor of shape {shp} "
                f"on {t.device}", who)
-    outs = backward_outputs(t, scale, C, L)
+    outs = backward_outputs(t, scale, C, L, pos_grads)
     with torch.cuda.device(t.device):
         _call_backward(load_library("fused_gata_bwd.cu"),
                        torch.cuda.current_stream(t.device).cuda_stream,
@@ -461,32 +485,33 @@ def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
                        num_heads=H, sep_dir=sep_dir, sep_tensor=sep_tensor,
                        pair_dtype=pair_dtype)
     _counted_bwd.launches += 1
-    g_t, g_q, g_k, g_xg, g_v, g_X, g_scale, g_Wre, g_bre, g_Wrs, g_brs = outs
-    return (g_t, g_q, g_k, g_xg, g_v, torch.zeros_like(rl), g_X,
-            torch.zeros_like(env_signed), g_scale, g_Wre, g_bre, g_Wrs,
-            g_brs)
+    if not pos_grads:
+        outs[5], outs[7] = torch.zeros_like(rl), torch.zeros_like(env_signed)
+    return tuple(outs)
 
 
-def backward_outputs(t, scale, C: int, L: int):
-    """Empty float32 outputs of the backward kernel, on ``t``'s device:
-    g_t, g_q, g_k, g_xg, g_v, g_X, g_scale, g_Wre, g_bre, g_Wrs, g_brs."""
+def backward_outputs(t, scale, C: int, L: int, pos_grads: bool = False):
+    """Empty float32 outputs of the backward kernel, on ``t``'s device, in
+    input order: g_t, g_q, g_k, g_xg, g_v, g_rl, g_X, g_env, g_scale, g_Wre,
+    g_bre, g_Wrs, g_brs; g_rl and g_env are None without ``pos_grads``."""
     G, M, _, D = t.shape
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=t.device)
 
     return [new(G, M, M, D), new(G, M, D), new(G, M, D), new(G, M, C),
-            new(G, M, C), new(G, M, L, D), new(*scale.shape), new(D, D),
-            new(D), new(D, C), new(C)]
+            new(G, M, C), new(G, M, M, L) if pos_grads else None,
+            new(G, M, L, D), new(G, M, M) if pos_grads else None,
+            new(*scale.shape), new(D, D), new(D), new(D, C), new(C)]
 
 
 def _call_backward(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
                    W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, outs, *, lmax,
                    num_heads, sep_dir, sep_tensor, pair_dtype) -> None:
     """One backward through the C interface on ``stream`` into ``outs``
-    (as ``backward_outputs`` makes them), with a workspace of the size the
-    library asks for; raises on a CUDA error.  Arguments are validated by
-    the caller."""
+    (as ``backward_outputs`` makes them; a None output, g_rl or g_env, is
+    not computed), with a workspace of the size the library asks for;
+    raises on a CUDA error.  Arguments are validated by the caller."""
     bf16 = torch.bfloat16
     G, M, _, D = t.shape
     n_bytes = lib.gotennet_fused_gata_bwd_workspace(
@@ -496,7 +521,8 @@ def _call_backward(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
     ptrs = [a.data_ptr() for a in (t, q, k, x_g, v, rl, X, env_signed, scale,
                                    W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX)]
     err = lib.gotennet_fused_gata_bwd(
-        *ptrs, *(o.data_ptr() for o in outs), work.data_ptr(),
+        *ptrs, *(o.data_ptr() if o is not None else None for o in outs),
+        work.data_ptr(),
         G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
         int(scale.dim() == 4), int(pair_dtype == bf16), int(t.dtype == bf16),
         int(q.dtype == bf16), stream)

@@ -10,16 +10,19 @@ padded to the request's largest molecule.  In the ELL layout
 (``layout="ell"``, ``bench.py``'s ``BENCH_DATASET=large`` mode) every
 chunk is one ``ELLBatch`` with the request's node capacity and neighbour
 slots (probed over the whole request), atoms spatially sorted and
-``block_rows``-row gather windows.
+``block_rows``-row gather windows.  ``predict_with_forces`` also returns
+``forces = -dE/dpos`` for a head with ``derivative`` (``MD22Task``'s), by
+one backward pass through the model with respect to the positions alone.
 
     pred = Predictor(cfg, head, state_dict)        # on cuda
     energies = pred.predict([{"z": z0, "pos": pos0}, ...])   # [n, n_out]
+    energies, forces = pred.predict_with_forces(molecules)   # + [n_i, 3] each
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,13 +30,15 @@ import torch
 from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
                                              MoleculeDataset)
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
+from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
+                                             apply_with_forces)
 
 __all__ = ["Predictor"]
 
 
 class Predictor:
     """One model serving requests; answers come back in request order.
+    The weights ask for no gradient.
 
     Args:
         cfg, head: the model's configuration.
@@ -62,6 +67,7 @@ class Predictor:
         self.model = GotenModel(cfg, head, layout, seed=seed, device=device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        self.model.requires_grad_(False)
         self.device = next(self.model.parameters()).device
         self.cfg = cfg
         self.chunk = chunk
@@ -82,6 +88,12 @@ class Predictor:
         return DenseLoader(ds, batch_size=self.chunk, bucket=self.bucket,
                            bucket_window=math.ceil(len(ds) / self.chunk))
 
+    @staticmethod
+    def _request(molecules: Sequence[dict]) -> MoleculeDataset:
+        return MoleculeDataset(
+            z=[np.asarray(m["z"], np.int32) for m in molecules],
+            pos=[np.asarray(m["pos"], np.float32) for m in molecules])
+
     @torch.inference_mode()
     def predict(self, molecules: Sequence[dict]) -> np.ndarray:
         """``molecules``: dicts with ``z`` ``[n_i]`` and ``pos``
@@ -89,11 +101,42 @@ class Predictor:
         n = len(molecules)
         if n == 0:
             return np.zeros((0, self.n_out), np.float32)
-        ds = MoleculeDataset(
-            z=[np.asarray(m["z"], np.int32) for m in molecules],
-            pos=[np.asarray(m["pos"], np.float32) for m in molecules])
         out = torch.empty(n, self.n_out, device=self.device)
-        for idx, batch in self.loader(ds).batches():
+        for idx, batch in self.loader(self._request(molecules)).batches():
             prop = self.model(batch.to(self.device))["property"]
             out[torch.as_tensor(idx, device=self.device)] = prop[:len(idx)]
         return out.cpu().numpy()
+
+    def predict_with_forces(self, molecules: Sequence[dict]
+                            ) -> Tuple[np.ndarray, List[np.ndarray]]:
+        """Energies and forces: ``([len(molecules), n_out]`` float32, one
+        ``[n_i, 3]`` float32 force array per molecule), in the request's
+        molecule and atom order.  Needs a head with ``derivative``."""
+        if not self.model.head.derivative:
+            raise ValueError("predict_with_forces needs a head with "
+                             "derivative=True (for example "
+                             "MD22Task(...).build_head())")
+        n = len(molecules)
+        if n == 0:
+            return np.zeros((0, self.n_out), np.float32), []
+        energies = torch.empty(n, self.n_out, device=self.device)
+        chunks = []
+        for idx, batch in self.loader(self._request(molecules)).batches():
+            out = apply_with_forces(self.model, batch.to(self.device))
+            energies[torch.as_tensor(idx, device=self.device)] = \
+                out["property"][:len(idx)].detach()
+            chunks.append((idx, batch, out["forces"].detach()))
+        forces = [np.zeros((len(m["z"]), 3), np.float32) for m in molecules]
+        for idx, batch, f in chunks:
+            f = f.cpu().numpy()
+            if self.layout == "dense":
+                for g, i in enumerate(idx):
+                    forces[i] = f[g, :len(forces[i])]
+                continue
+            graph = batch.node_graph.numpy()
+            real = batch.node_mask.numpy()
+            atom = batch.atom.numpy()
+            for g, i in enumerate(idx):
+                rows = real & (graph == g)
+                forces[i][atom[rows]] = f[rows]
+        return energies.cpu().numpy(), forces

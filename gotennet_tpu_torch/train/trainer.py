@@ -9,7 +9,11 @@ hold a real graph, clipped by their global norm, and AdamW steps.
     losses = train_steps(cfg, head, molecules, n_steps=3)   # on cuda
 
 The ``Trainer`` class, checkpoints, the LR schedulers' state, metrics
-and the loss EMA are not ported yet (ROADMAP.md Queue 1, item 1).
+and the loss EMA are not ported yet (ROADMAP.md Queue 1, item 1).  A force
+loss (a head with ``derivative``) has a value here but does not train: it
+needs the gradient of the forces, a gradient of a gradient, which the fused
+kernels' backward does not give (the JAX package trains forces on its
+unfused message, ROADMAP.md Queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
                                              MoleculeDataset)
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
+from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
+                                             apply_with_forces)
 from gotennet_tpu_torch.tasks.base import Task
 from gotennet_tpu_torch.train.optim import clip_by_global_norm, make_optimizer
 
@@ -35,11 +40,12 @@ __all__ = ["make_loss_fn", "make_chunks", "accum_grads", "train_step",
 
 def make_loss_fn(model: GotenModel, task: Task) -> Callable:
     """``loss_fn(batch) -> (total, logs, out)``: the weighted sum of the
-    task's losses on one batch."""
+    task's losses on one batch, the model run through
+    ``apply_with_forces`` (so a force task's loss has its force term)."""
     specs = task.get_losses()
 
-    def loss_fn(batch: DenseBatch):
-        out = model(batch)
+    def loss_fn(batch: DenseBatch | ELLBatch):
+        out = apply_with_forces(model, batch)
         targets = task.get_targets(batch)
         total = torch.zeros((), dtype=torch.float32, device=batch.z.device)
         logs = {}
@@ -52,6 +58,13 @@ def make_loss_fn(model: GotenModel, task: Task) -> Callable:
         return total, logs, out
 
     return loss_fn
+
+
+def _refuse_force_training(head: HeadConfig) -> None:
+    if head.derivative:
+        raise not_ported("training on forces (a head with derivative=True: "
+                         "the gradient of the forces, through the unfused "
+                         "message)", 2)
 
 
 def make_chunks(molecules: Sequence[dict], chunk: int,
@@ -88,7 +101,8 @@ def accum_grads(model: GotenModel, loss_fn: Callable,
     """Gradients of the mean loss over ``chunks`` into ``p.grad``.  Chunks
     without a real graph add zero and are left out of the divisor, as in
     the JAX package's ``_accum_grads``.  Returns the mean loss (a tensor
-    on the model's device)."""
+    on the model's device).  A head with ``derivative`` raises."""
+    _refuse_force_training(model.head)
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         p.grad = None
@@ -133,7 +147,8 @@ def train_steps(cfg: GotenNetConfig, head: HeadConfig,
     (see ``make_chunks``; ``bucket`` applies to the dense layout), with
     AdamW(lr, eps=1e-7, no weight decay) after a global-norm clip at 5.0.
     ``layout`` is "dense" or "ell".  ``device=None`` means ``cuda``.
-    Returns the loss of each step."""
+    Returns the loss of each step.  A head with ``derivative`` raises."""
+    _refuse_force_training(head)
     model = GotenModel(cfg, head, layout, seed=seed, device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict)

@@ -168,6 +168,57 @@ def test_backward_kernel_matches_plain(card, M, D, H, lmax, sep, head_scale,
         assert torch.all(g[0, M - 3:] == 0)
 
 
+# The backward with position cotangents (forces): tolerances as above; two
+# runs give the same bits, padded atoms and invalid pairs exact zeros.
+@pytest.mark.parametrize("M,D,H,lmax,sep,head_scale,pd", [
+    (8, 32, 4, 2, (True, True), False, torch.float32),
+    (24, 64, 8, 3, (False, False), True, torch.bfloat16),
+    (120, 256, 8, 2, (True, True), False, torch.bfloat16),
+])
+def test_backward_kernel_position_cotangents_match_plain(
+        card, M, D, H, lmax, sep, head_scale, pd):
+    G = 2
+    args = inputs(card, G, M, D, H, lmax, *sep, head_scale, pd, seed=2)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=sep[0], sep_tensor=sep[1],
+              pair_dtype=pd, pos_grads=True)
+    _, _, sm = fused_gata_forward(*args, lmax=lmax, num_heads=H,
+                                  sep_dir=sep[0], sep_tensor=sep[1],
+                                  pair_dtype=pd, with_attn=True)
+    L = (lmax + 1) ** 2 - 1
+    g_dh = torch.randn(G, M, D, device=card)
+    g_dX = torch.randn(G, M, L, D, device=card)
+    got = fused_gata_backward(*args, sm, g_dh, g_dX, **kw)
+    again = fused_gata_backward(*args, sm, g_dh, g_dX, **kw)
+    torch.cuda.synchronize()
+    want = fused_gata_backward_reference(*args, sm, g_dh, g_dX, **kw)
+    tol = 1e-2 if pd == torch.bfloat16 else 1e-4
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item()
+        assert err <= tol * max(w.abs().max().item(), 1e-30), (i, err)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert torch.all(got[5][0, M - 3:] == 0)
+    assert torch.all(got[7][args[7] < 0] == 0)
+
+
+def test_predict_with_forces_on_card_matches_cpu(card):
+    """Energies and forces in float32, card against CPU, same seed, on both
+    layouts."""
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, fused_htr=True)
+    head = HeadConfig(mean=0.5, stddev=2.0, derivative=True)
+    mols = synthetic_molecules(5, seed=4, min_atoms=20, max_atoms=40,
+                               box=6.3).graph_dicts(range(5))
+    for layout in ("dense", "ell"):
+        kw = dict(seed=2, chunk=2, layout=layout, block_rows=16)
+        e, f = Predictor(cfg, head, **kw).predict_with_forces(mols)
+        we, wf = Predictor(cfg, head, **kw,
+                           device="cpu").predict_with_forces(mols)
+        np.testing.assert_allclose(e, we, rtol=1e-4, atol=1e-4)
+        scale = max(np.abs(x).max() for x in wf)
+        for got, want in zip(f, wf):
+            assert np.abs(got - want).max() <= 1e-4 * scale, layout
+
+
 def test_train_step_on_card_matches_cpu(card):
     """Two training steps in float32, card against CPU, same seed; each
     step launches both kernels chunks x layers times."""

@@ -73,7 +73,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     (dict(layernorm="pre"), "item 3"), (dict(steerable_norm="pre"), "item 3"),
     (dict(trainable_rbf=True), "item 3"), (dict(edge_updates="gated"),
                                            "item 5"),
-    (dict(edge_updates=False), "item 5"), (dict(pos_grads=True), "item 9"),
+    (dict(edge_updates=False), "item 5"), (dict(aggr="max"), "item 2"),
     (dict(scan_layers=True), "item 13")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
