@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero before the result line:
   5. backward kernel vs plain: the fused-GATA backward kernel against its
      plain PyTorch version at the training shapes (G=16, D=256, H=8, lmax
      2, mult 5), M in {16, 24, 32}, float32 and bf16 pair types, scalar and
-     per-head scale, padded atoms (whose cotangents must be exact zeros);
+     per-head scale, padded atoms (whose cotangents must be exact zeros),
+     the same bits from a second run;
   6. training: ``train_steps`` takes one step of the flagship model on 256
      synthetic QM9-sized molecules in 16-graph accumulation chunks; both
      kernels' launch counters must equal chunks x 4 layers.  The first
@@ -99,7 +100,14 @@ Phases, in order; any failure exits non-zero before the result line:
  20. ELL forces: phase 14's 8 frames of 600-700 atoms, one per chunk,
      through ``predict_with_forces(layout="ell")``: 32 ELL message and 24
      ELL HTR launches each way, energies and forces held against the plain
-     path, timed and profiled.
+     path, timed and profiled;
+ 21. the backward kernels' product alone: ``PRODUCT_SOURCE`` (the product
+     and column sums of ``csrc/bwd_sums.cuh`` behind a plain C interface)
+     at the MD22 chunk's 57,600 pairs and the ELL chunk's 25,344 slots, the
+     six products of a message backward held against torch.matmul of the
+     same bf16-rounded factors (and the column sums against a float64 sum),
+     twice (the same bits), then timed beside torch.matmul of the same six
+     bf16 products (a yardstick only: the port never calls it).
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -153,6 +161,277 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+# The backward kernels' product and column sums (csrc/bwd_sums.cuh) alone,
+# behind a plain C interface, so phase 21 and the host tests can hold them
+# against torch.matmul; a measuring aid, not part of the port.
+PRODUCT_SOURCE = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+constexpr int kThreads = 256;
+}  // namespace
+
+#include "bwd_sums.cuh"
+
+namespace {
+template <typename K, typename A>
+cudaError_t run(K kern, dim3 grid, size_t smem, const A& args,
+                cudaStream_t stream) {
+  kern<<<grid, kThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+}  // namespace
+
+extern "C" long long gotennet_product_part_floats(long long depth, int rows,
+                                                  int cols) {
+  const long long w = (long long)pair_splits(depth, rows, cols) * rows * cols;
+  const long long b = (long long)col_strips(depth, cols) * cols;
+  return w > b ? w : b;
+}
+
+// out [rows, cols] (row stride cols) = A B (+ bias), A(m, k) = a[m * a_sm +
+// k * a_sk], B(k, n) = b[k * b_sk + n * b_sn] (float or bf16 storage; a bf16
+// pair type takes bf16 factors); over_pairs: split over the depth into
+// `part`, as the weight gradients are formed
+extern "C" int gotennet_product(const void* a, long long a_sm, long long a_sk,
+                                int a_bf16, const void* b, long long b_sk,
+                                long long b_sn, int b_bf16, float* out,
+                                const float* bias, int rows, int cols,
+                                int depth, int accumulate, int round_out,
+                                int over_pairs, int pair_bf16, float* part,
+                                void* stream) {
+  Product g{};
+  g.a = a; g.a_sm = a_sm; g.a_sk = a_sk; g.a_bf16 = a_bf16;
+  g.b = b; g.b_sk = b_sk; g.b_sn = b_sn; g.b_bf16 = b_bf16;
+  g.out = out; g.o_sm = cols; g.bias = bias;
+  g.rows = rows; g.cols = cols; g.depth = depth;
+  g.accumulate = accumulate; g.round_out = round_out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (over_pairs) {
+    return (int)(pair_bf16 ? product_over_pairs<true>(g, part, s)
+                           : product_over_pairs<false>(g, part, s));
+  }
+  return (int)(pair_bf16 ? product<true>(g, s) : product<false>(g, s));
+}
+
+extern "C" int gotennet_column_sums(const float* x, int rows, int cols,
+                                    float* part, float* out, void* stream) {
+  return (int)column_sums(x, rows, cols, part, out,
+                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* gotennet_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+"""
+# the one kernel-launch line of PRODUCT_SOURCE (a host build replaces it)
+PRODUCT_LAUNCH = "kern<<<grid, kThreads, smem, stream>>>(args);"
+
+
+def declare_products(lib):
+    """Argument and result types of PRODUCT_SOURCE's C interface."""
+    import ctypes
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gotennet_product_part_floats.argtypes = [i64, i32, i32]
+    lib.gotennet_product_part_floats.restype = i64
+    lib.gotennet_product.argtypes = ([ptr, i64, i64, i32, ptr, i64, i64, i32,
+                                      ptr, ptr] + [i32] * 7 + [ptr, ptr])
+    lib.gotennet_product.restype = i32
+    lib.gotennet_column_sums.argtypes = [ptr, i32, i32, ptr, ptr, ptr]
+    lib.gotennet_column_sums.restype = i32
+    lib.gotennet_cuda_error_string.argtypes = [i32]
+    lib.gotennet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_products():
+    """PRODUCT_SOURCE built with nvcc beside the kernels (``build/``), as
+    the kernels are built; the loaded library."""
+    import ctypes
+    from gotennet_tpu_torch.ops import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "product_check.cu"
+    src.write_text(PRODUCT_SOURCE)
+    lib = _build.BUILD_DIR / "libproduct_check.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
+                    "-o", str(lib), str(src)], check=True,
+                   capture_output=True, timeout=600)
+    return declare_products(ctypes.CDLL(str(lib)))
+
+
+def _raise_on(lib, err, what) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.gotennet_cuda_error_string(err).decode()})")
+
+
+def run_product(lib, A, B, out, *, bias=None, accumulate=False,
+                round_out=False, over_pairs=False, bf16=True, stream=None):
+    """out [rows, cols] (=, or += with ``accumulate``) = A B (+ bias) through
+    PRODUCT_SOURCE: A a [rows, depth] view, B a [depth, cols] view, each
+    row-major or column-major (a transposed view reads its tensor across the
+    leading axis); with ``bf16`` both factors are rounded to bf16 first (as
+    the backward kernels keep bf16 copies of their factors), with their
+    layouts kept."""
+    bf = torch.bfloat16
+    if bf16:
+        A, B = (x if x.dtype == bf else (x.to(bf) if x.is_contiguous()
+                                         else x.t().to(bf).t())
+                for x in (A, B))
+    rows, depth = A.shape
+    cols = B.shape[1]
+    part = torch.empty(max(1, lib.gotennet_product_part_floats(depth, rows,
+                                                               cols)),
+                       dtype=torch.float32, device=out.device)
+    err = lib.gotennet_product(
+        A.data_ptr(), A.stride(0), A.stride(1), int(A.dtype == bf),
+        B.data_ptr(), B.stride(0), B.stride(1), int(B.dtype == bf),
+        out.data_ptr(),
+        bias.data_ptr() if bias is not None else None, rows, cols, depth,
+        int(accumulate), int(round_out), int(over_pairs), int(bf16),
+        part.data_ptr(), stream)
+    _raise_on(lib, err, "product")
+
+
+def run_column_sums(lib, x, out, stream=None):
+    """out [cols] = the sum over the rows of x [rows, cols] through
+    PRODUCT_SOURCE's column sums."""
+    rows, cols = x.shape
+    part = torch.empty(max(1, lib.gotennet_product_part_floats(rows, 1,
+                                                               cols)),
+                       dtype=torch.float32, device=x.device)
+    _raise_on(lib, lib.gotennet_column_sums(x.data_ptr(), rows, cols,
+                                            part.data_ptr(), out.data_ptr(),
+                                            stream), "column sums")
+
+
+def backward_products(P, seed, device="cuda"):
+    """The six pair products of a message backward at P pairs (flagship D
+    and C = 5 D) on seeded factors: a list of (name, steps) where each step
+    (A, B, bias, round_out, accumulate, over_pairs) adds into one output,
+    as fused_gata_bwd.cu and fused_ell_bwd.cu chain them; and the bias
+    gradients' column-sum inputs."""
+    gen = torch.Generator().manual_seed(seed)
+    C = (1 + 2 * LMAX) * D
+
+    def rand(*s):
+        return (torch.randn(s, generator=gen) * 0.3).to(device)
+
+    t, g_tf, g_z = rand(P, D), rand(P, C), rand(P, D)
+    W_rs, W_re, b_rs, b_re = rand(D, C), rand(D, D), rand(C), rand(D)
+    prods = [("t W_rs + b_rs", [(t, W_rs, b_rs, True, False, False)]),
+             ("t W_re + b_re", [(t, W_re, b_re, False, False, False)]),
+             ("g_tf W_rs^T + g_zre W_re^T",
+              [(g_tf, W_rs.t(), None, False, False, False),
+               (g_z, W_re.t(), None, False, True, False)]),
+             ("t^T g_tf", [(t.t(), g_tf, None, False, False, True)]),
+             ("t^T g_zre", [(t.t(), g_z, None, False, False, True)])]
+    return prods, (g_tf, g_z)
+
+
+def hold_products(lib, P, seed) -> list:
+    """The product and the column sums of PRODUCT_SOURCE against
+    torch.matmul (float32, no TF32) of the same bf16-rounded factors at P
+    pairs, each run twice (the same bits); returns (name, max abs err, rel
+    err) of each.  Exact products, float32 sums in another order -> 1e-5 of
+    the scale; a rounded output may land on the neighbouring bf16 value ->
+    one ulp of it more."""
+    stream = torch.cuda.current_stream().cuda_stream
+    prods, sums = backward_products(P, seed)
+    rows = []
+    for name, steps in prods:
+        runs, want = [], None
+        for _ in range(2):
+            out = torch.empty(steps[0][0].shape[0], steps[0][1].shape[1],
+                              device="cuda")
+            for A, B, bias, round_out, accumulate, over_pairs in steps:
+                run_product(lib, A, B, out, bias=bias, round_out=round_out,
+                            accumulate=accumulate, over_pairs=over_pairs,
+                            stream=stream)
+            runs.append(out)
+        slack = 0.0
+        for A, B, bias, round_out, _, _ in steps:
+            w = (A.to(torch.bfloat16).float() @ B.to(torch.bfloat16).float())
+            if bias is not None:
+                w = w + bias
+            if round_out:
+                w = w.to(torch.bfloat16).float()
+                slack = torch.ldexp(torch.ones_like(w),
+                                    torch.frexp(w).exponent - 8)
+            want = w if want is None else want + w
+        torch.cuda.synchronize()
+        err = (runs[0] - want).abs()
+        scale = float(want.abs().max())
+        if not bool((err <= 1e-5 * scale + slack).all()):
+            raise AssertionError(f"product {name} at P={P} disagrees with "
+                                 f"torch.matmul (max abs err "
+                                 f"{float(err.max()):.3e})")
+        if not same_bits(runs[0:1], runs[1:2]):
+            raise AssertionError(f"product {name} differs between runs")
+        rows.append((name, float(err.max()), float(err.max()) / scale))
+    for name, x in zip(("column sums of g_tf", "column sums of g_zre"), sums):
+        got = [torch.empty(x.shape[1], device="cuda") for _ in range(2)]
+        for out in got:
+            run_column_sums(lib, x, out, stream)
+        want = x.double().sum(dim=0)
+        err = float((got[0].double() - want).abs().max())
+        rel = err / float(want.abs().max())
+        if rel > 1e-5 or not same_bits(got[0:1], got[1:2]):
+            raise AssertionError(f"{name} at P={P}: rel err {rel:.3e} or "
+                                 "not the same bits twice")
+        rows.append((name, err, rel))
+    return rows
+
+
+def products_phase(card) -> None:
+    """Phase 21: the backward kernels' product alone (PRODUCT_SOURCE) at
+    the MD22 chunk's pairs (P = 4 x 120 x 120) and the ELL chunk's slots
+    (P = 704 x 36), held against torch.matmul; then the time of each of the six
+    products through PRODUCT_SOURCE (from bf16 factors, as the backward
+    kernels keep them) and of torch.matmul of the same six bf16 products (a
+    yardstick for the products only: the port never calls it), each the
+    mean of 10 runs between CUDA events after a warm-up."""
+    lib = build_products()
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    for what, P in (("M=120", MD22_CHUNK * 120 * 120), ("ELL", ELL_N * ELL_K)):
+        for name, err, rel in hold_products(lib, P, seed=900):
+            log(f"[products] {what} P={P} {name}: max abs err {err:.3e} "
+                f"(rel {rel:.3e}; tol 1e-5 rel + one bf16 ulp where rounded)")
+        prods, _ = backward_products(P, seed=901)
+        total = total_lib = flops = 0.0
+        for name, steps in prods:
+            steps = [(A.to(bf) if A.is_contiguous() else A.t().to(bf).t(),
+                      B.to(bf) if B.is_contiguous() else B.t().to(bf).t(),
+                      *rest) for A, B, *rest in steps]
+            out = torch.empty(steps[0][0].shape[0], steps[0][1].shape[1],
+                              device="cuda")
+
+            def ours():
+                for A, B, bias, ro, acc, op in steps:
+                    run_product(lib, A, B, out, bias=bias, round_out=ro,
+                                accumulate=acc, over_pairs=op, stream=stream)
+
+            def library():
+                for A, B, *_ in steps:
+                    torch.matmul(A, B)
+
+            f = sum(2.0 * A.shape[0] * A.shape[1] * B.shape[1]
+                    for A, B, *_ in steps)
+            ms, lib_ms = (time_calls(lambda _, fn=fn: fn(), [None], 10)
+                          for fn in (ours, library))
+            total, total_lib, flops = total + ms, total_lib + lib_ms, flops + f
+            log(f"[products] {what} {name}: {ms:.4f} ms "
+                f"({f / ms / 1e9:.1f} TFLOP/s); torch.matmul {lib_ms:.4f} ms "
+                f"({f / lib_ms / 1e9:.1f} TFLOP/s) | {card}")
+        log(f"[products] {what} P={P}: the six products {total:.4f} ms "
+            f"({flops / total / 1e9:.1f} TFLOP/s, mma.sync bf16, partial sums "
+            f"and bias included); torch.matmul of the same six bf16 products "
+            f"(yardstick, not on the port's path) {total_lib:.4f} ms "
+            f"({flops / total_lib / 1e9:.1f} TFLOP/s) | {card}")
 
 
 def rel_err(got, want) -> tuple:
@@ -351,10 +630,10 @@ def count_pairs(chunks, cfg) -> tuple:
     return real, sum(b.num_graphs * b.max_atoms ** 2 for b in chunks)
 
 
-def profile(run, wall_ms, what, card) -> None:
-    """``run()`` once under ``torch.profiler``: the device time of its
-    kernels and copies, as a share of ``wall_ms`` (its time without the
-    profiler), and the device ops that took the most of it."""
+def device_ops(run) -> list:
+    """The device-side events of one ``run()`` under ``torch.profiler``
+    (kernels and copies: an aten op's row would repeat its kernels' time),
+    the most device time first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
@@ -363,10 +642,16 @@ def profile(run, wall_ms, what, card) -> None:
                               ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    # device-side events only: an aten op's row repeats its kernels' time
-    ops = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.self_device_time_total, reverse=True)
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+
+
+def profile(run, wall_ms, what, card) -> None:
+    """``run()`` once under ``torch.profiler``: the device time of its
+    kernels and copies, as a share of ``wall_ms`` (its time without the
+    profiler), and the device ops that took the most of it."""
+    ops = device_ops(run)
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     if busy_ms == 0.0:
         log("[profile] device time not measured: the profiler saw no device "
@@ -379,6 +664,24 @@ def profile(run, wall_ms, what, card) -> None:
     for e in ops[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d} x  {e.key[:80]}")
+
+
+@torch.inference_mode()
+def pass_split(kernel, captured, what, card) -> None:
+    """The kernel's launches on a path's captured inputs once under
+    ``torch.profiler``: device ms per launch of each of its passes (the CUDA
+    kernels one launch runs), largest first."""
+    for args, kwargs in captured[:2]:
+        kernel(*args, **kwargs)
+    ops = device_ops(lambda: [kernel(*a, **kw) for a, kw in captured])
+    n = len(captured)
+    total = sum(e.self_device_time_total for e in ops) / 1e3 / n
+    log(f"[passes] {what}: {total:.4f} ms of device time a launch, over {n} "
+        f"launches | {card}")
+    for e in ops[:14]:
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        log(f"[passes]   {e.self_device_time_total / 1e3 / n:8.4f} ms "
+            f"{e.count / n:5.1f} x  {name[:90]}")
 
 
 def capture(module, name, run) -> list:
@@ -470,10 +773,10 @@ def check_gata_forward(M, pd, head_scale, G) -> None:
 
 def check_gata_backward(M, pd, head_scale, G, pos_grads=False) -> None:
     """The GATA backward kernel against its plain version on one input;
-    padded atoms' cotangents must be exact zeros.  With ``pos_grads`` the
-    position cotangents g_rl and g_env are compared too (exact zeros at
-    padded atoms and invalid pairs), and a second run must give the same
-    bits."""
+    padded atoms' cotangents must be exact zeros, and a second run must give
+    the same bits.  With ``pos_grads`` the position cotangents g_rl and
+    g_env are compared too (exact zeros at padded atoms and invalid
+    pairs)."""
     from gotennet_tpu_torch.ops import fused_gata
     kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True,
               pair_dtype=pd)
@@ -510,7 +813,7 @@ def check_gata_backward(M, pd, head_scale, G, pos_grads=False) -> None:
         pad += [got[5][0, M - 3:], got[5][0, :, M - 3:], got[7][args[7] < 0]]
     if not all(bool(torch.all(a == 0)) for a in pad):
         raise AssertionError("padded atoms got a cotangent")
-    if pos_grads and not same_bits(
+    if not same_bits(
             got, fused_gata.fused_gata_backward(*args, sm, g_dh, g_dX, **kw)):
         raise AssertionError("GATA backward differs between runs")
 
@@ -823,11 +1126,13 @@ def md22_train_phase(cfg, head, card) -> dict:
 
     # both backward kernels on a step's inputs; the GATA one logged only (its
     # JSON record is the QM9 step's, phase 6)
-    kernel_record({"name": "fused_gata_bwd"},
-                  capture(fused_gata, "fused_gata_backward",
-                          lambda: accum_grads(model, loss_fn, chunks)),
+    captured = capture(fused_gata, "fused_gata_backward",
+                       lambda: accum_grads(model, loss_fn, chunks))
+    kernel_record({"name": "fused_gata_bwd"}, captured,
                   fused_gata.fused_gata_backward,
                   fused_gata.fused_gata_backward_reference, bwd_bound_ms, card)
+    pass_split(fused_gata.fused_gata_backward, captured,
+               "fused_gata_bwd at M = 120 (MD22 step)", card)
     record = kernel_record(
         {"name": "fused_htr_bwd", "route": "cuda",
          "source": "gotennet_tpu_torch/csrc/fused_htr_bwd.cu",
@@ -1181,15 +1486,15 @@ def ell_train_phase(cfg, head, card) -> list:
             ("fused_htr_ell_bwd", fused_htr, counters[3], launches[3],
              fused_htr.fused_htr_ell_backward_reference, htr_ell_bwd_bound_ms,
              "gotennet_tpu/ops/pallas/fused_htr.py:383")):
+        captured = capture(module, kernel.__name__,
+                           lambda: accum_grads(model, loss_fn, chunks))
         record = kernel_record(
             {"name": name, "route": "cuda",
              "source": f"gotennet_tpu_torch/csrc/{name}.cu",
-             "replaces": replaces},
-            capture(module, kernel.__name__,
-                    lambda: accum_grads(model, loss_fn, chunks)),
-            kernel, plain, bound, card)
+             "replaces": replaces}, captured, kernel, plain, bound, card)
         record["launches"] = n_launches
         records.append(record)
+        pass_split(kernel, captured, f"{name} (ELL step)", card)
     return records
 
 
@@ -1311,15 +1616,17 @@ def md22_force_phase(cfg, card) -> dict:
         f"padded pairs {padded}; {real_edges / (req_ms / 1e3):.1f} real "
         f"edges/s | {card}")
     finite_difference_check(cfg, mols[0])
+    captured = capture(fused_gata, "fused_gata_backward",
+                       lambda: pred.predict_with_forces(mols))
     record = kernel_record(
         {"name": "fused_gata_bwd_pos_grads", "route": "cuda",
          "source": "gotennet_tpu_torch/csrc/fused_gata_bwd.cu",
          "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:350"},
-        capture(fused_gata, "fused_gata_backward",
-                lambda: pred.predict_with_forces(mols)),
-        counters[1], fused_gata.fused_gata_backward_reference, bwd_bound_ms,
-        card)
+        captured, counters[1], fused_gata.fused_gata_backward_reference,
+        bwd_bound_ms, card)
     record["launches"] = launches[1]
+    pass_split(counters[1], captured,
+               "fused_gata_bwd with pos_grads (MD22 force request)", card)
     return record
 
 
@@ -1514,6 +1821,8 @@ def main() -> int:
     phase_done("19 (MD22 forces)")
     ell_force_phase(md22_cfg, card)
     phase_done("20 (ELL forces)")
+    products_phase(card)
+    phase_done("21 (the backward product alone)")
     log(json.dumps({"kernels": [record, bwd_record, htr_record,
                                 htr_bwd_record, ell_records[0],
                                 ell_bwd_records[0], ell_records[1],

@@ -13,34 +13,44 @@
 // 6 * D * (mult*D + D) FLOP per valid slot: ~32 GFLOP for one 600-700-atom
 // frame (N = 704 rows, K = 36 slots, ~13,400 valid, D = 256, mult = 5), about
 // 0.03 ms at the bf16 tensor-core peak, against ~95 MB of inputs and outputs
-// (about 0.03 ms at 3.35 TB/s).  The two bounds are close.
+// (about 0.03 ms at 3.35 TB/s).  The two bounds are close.  The kernel runs
+// ~60x above both.  On an H100 the slot and table passes (2 and 6), which
+// recompute g_o per (slot, channel), take about 60 % of its time, and the
+// six products about 30 %; the products run over every slot, padded ones
+// included (60 GFLOP) (PERF.md §5-6 have the split and the times).
 //
-// Design (right first; tensor cores, fusion and overlap are later work).  The
-// TPU kernel sums the weight gradients and the table gradients (g_k, g_xg,
-// g_v, g_X: sums over every slot that reads a table row) in place over its
-// sequential grid, the latter by a transposed one-hot matmul.  Hopper's blocks
-// run in parallel in no order, so here the work is cut into passes, each of
-// whose outputs is owned by one thread or one block, and no sum uses atomics:
-// every result is the same from run to run.  A table row's owner walks the
-// slots that read it through the transposed slot list (`starts`, `order`: a
-// stable sort of the flat nbr, built once per batch by the caller) and
-// recomputes each slot's terms, as fused_htr_bwd.cu's pass B does; no
-// per-slot table terms go to device memory (they would take ~0.5 GB).
+// Design.  The TPU kernel sums the weight gradients and the table gradients
+// (g_k, g_xg, g_v, g_X: sums over every slot that reads a table row) in place
+// over its sequential grid, the latter by a transposed one-hot matmul.
+// Hopper's blocks run in parallel in no order, so here the work is cut into
+// passes, each of whose outputs is owned by one thread, one warp or one
+// block, and no sum uses atomics: every result is the same from run to run.
+// A table row's owner walks the slots that read it through the transposed
+// slot list (`starts`, `order`: a stable sort of the flat nbr, built once per
+// batch by the caller) and recomputes each slot's terms, as fused_htr_bwd.cu's
+// pass B does; no per-slot table terms go to device memory (they would take
+// ~0.5 GB).
 //  1. two products recompute t_filter = t W_rs + b_rs and z_re = t W_re +
-//     b_re over all slots into workspace (a tiled FP32-FMA product);
-//  2. per slot, a warp per slot: g_tf per channel, and the sums over channels
-//     g_attn (per head), g_env and g_rl (each lane sums its channels, then one
-//     thread adds the 32 lanes in order);
-//  3. per destination row: the softmax backward over its K slots, and g_scale;
-//  4. per (slot, channel of D): g_zre through the silu;
+//     b_re over all slots into workspace (bwd_sums.cuh's `recompute`);
+//  2. per slot, a warp per slot: g_tf per channel (and, for a bf16 pair
+//     type, its bf16 copy for the products), and the sums over channels
+//     g_attn (per head), g_env and g_rl (each lane sums its channels, then
+//     the 32 lanes are added in order);
+//  3. a block per destination row: g_scale, and the softmax backward over its
+//     K slots with a warp per head, the lanes splitting the slots;
+//  4. per (slot, channel of D): g_zre through the silu (and its bf16 copy);
 //  5. per (row, channel of D): g_q (sum over the row's slots); per (table row,
 //     channel of D): g_k (sum over the slots that read it);
 //  6. per (table row, channel): g_xg and g_v, and g_X from the tensor blocks,
 //     sums over the slots that read the row;
-//  7. g_t = g_tf W_rs^T + g_zre W_re^T, one product each;
-//  8. the weight gradients t^T g_tf and t^T g_zre, and the bias gradients
-//     (column sums), as sums over all slots: split over blocks into partials,
-//     then one pass adds the partials in a fixed order.
+//  7. g_t = g_tf W_rs^T + g_zre W_re^T;
+//  8. the weight gradients t^T g_tf and t^T g_zre, split over the slots into
+//     partials added in a fixed order, and the bias gradients as column sums
+//     in strips, then a warp per column (7 and 8: bwd_sums.cuh's
+//     `grad_products`).
+// The six products run on the tensor cores for a bf16 pair type
+// (mma.sync.m16n8k16, bf16 factors, float32 sums: bwd_sums.cuh), on bf16
+// copies of their factors, and as float32 FMAs for a float32 pair type.
 // Padded slots (env < 0) have softmax 0 and envelope 0, so every term they
 // add is an exact zero.  An index outside [0, N) is clamped so no read leaves
 // the table.
@@ -57,21 +67,6 @@ constexpr int kThreads = 256;
 constexpr int kSlotsPerBlock = 16;             // slots per block of pass 2
 constexpr int kMaxH = 16;                      // heads pass 2 sums in registers
 constexpr int kMaxL = 24;                      // SH components (lmax <= 4)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// round to the pair type (round to nearest even), keep computing in float32
-template <bool kBF>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (kBF) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
 
 __device__ __forceinline__ float sigmoid(float z) {
   return 1.f / (1.f + expf(-z));
@@ -106,8 +101,10 @@ struct Params {
   const int* order;    // [NR * K] flat slot indices, sorted (stably) by nbr
   float *gt, *gq, *gk, *gxg, *gv, *grl, *gX, *genv, *gscale, *gwre, *gbre,
       *gwrs, *gbrs;
-  // workspace: tf, gtf [P, C]; zre, gz [P, D]; ga [P, H]; part (partials)
-  float *tf, *gtf, *zre, *gz, *ga, *part;
+  // workspace: tf, gtf [P, C]; zre, gz [P, D]; ga [P, H]; gtf_b, gz_b the
+  // bf16 copies of gtf, gz (bf16 pair type)
+  float *tf, *gtf, *zre, *gz, *ga;
+  __nv_bfloat16 *gtf_b, *gz_b;
   long long P;         // slots, NR * K
   int NR, N, K, D, H, L, C, lmax, sep_dir, sep_tensor, scale_heads;
 };
@@ -187,7 +184,9 @@ __global__ void __launch_bounds__(kThreads) slot_kernel(const Params p) {
         const float tf = p.tf[slot * C + c];
         const float xv = rnd<kBF>(to_f(xg[j * C + c]));
         const float vv = rnd<kBF>(to_f(v[j * C + c]));
-        p.gtf[slot * C + c] = rnd<kBF>(rnd<kBF>(go * xv) * envp);
+        const float gtf = rnd<kBF>(rnd<kBF>(go * xv) * envp);
+        p.gtf[slot * C + c] = gtf;
+        if constexpr (kBF) p.gtf_b[slot * C + c] = __float2bfloat16(gtf);
         acc[0] += rnd<kBF>(rnd<kBF>(go * tf) * xv);
         acc[1 + h] += rnd<kBF>(go * vv);
         if (blk.kind == 1) {
@@ -217,33 +216,42 @@ __global__ void __launch_bounds__(kThreads) slot_kernel(const Params p) {
   }
 }
 
-// pass 3, one thread per destination row r: g_scale, then the softmax
+// pass 3, a block per destination row r: g_scale, then the softmax
 // backward g_logits = sm * (g_sm - sum_s sm * g_sm), g_sm = g_attn * scale,
-// written over g_attn
+// written over g_attn.  A scalar scale's g_scale is a thread per slot (its
+// heads in order); the softmax a warp per head, the lanes splitting the row's
+// K slots and their 32 sums added in order (store_lanes, lane_total).
 __global__ void __launch_bounds__(kThreads) softmax_bwd_kernel(const Params p) {
-  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= p.NR) return;
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);   // [warps][1][kLanePad]
+  const long long r = blockIdx.x;
   const int K = p.K, H = p.H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (!p.scale_heads) {
-    for (int s = 0; s < K; ++s) {
+    for (int s = threadIdx.x; s < K; s += kThreads) {
       const long long slot = r * K + s;
       float acc = 0.f;
       for (int h = 0; h < H; ++h) acc += p.sm[slot * H + h] * p.ga[slot * H + h];
       p.gscale[slot] = acc;
     }
   }
-  for (int h = 0; h < H; ++h) {
+  for (int h0 = 0; h0 < H; h0 += kThreads / 32) {
+    const int h = h0 + warp;
     float acc = 0.f;
-    for (int s = 0; s < K; ++s) {
+    for (int s = lane; h < H && s < K; s += 32) {
       const long long slot = r * K + s;
       acc += p.sm[slot * H + h] * (p.ga[slot * H + h] * scale_at(p, slot, h));
     }
-    for (int s = 0; s < K; ++s) {
+    store_lanes(red, warp, 1, lane, &acc);
+    __syncthreads();
+    const float total = lane_total(red, warp, 1, 0);
+    for (int s = lane; h < H && s < K; s += 32) {
       const long long slot = r * K + s;
       const float sm = p.sm[slot * H + h], ga = p.ga[slot * H + h];
       if (p.scale_heads) p.gscale[slot * H + h] = sm * ga;
-      p.ga[slot * H + h] = sm * (ga * scale_at(p, slot, h) - acc);
+      p.ga[slot * H + h] = sm * (ga * scale_at(p, slot, h) - total);
     }
+    __syncthreads();   // red again for the next heads
   }
 }
 
@@ -260,7 +268,9 @@ __global__ void __launch_bounds__(kThreads) grad_zre_kernel(const Params p) {
   const float qv = rnd<kBF>(to_f(static_cast<const NT*>(p.q)[i * p.D + d]));
   const float kv = rnd<kBF>(to_f(static_cast<const NT*>(p.k)[j * p.D + d]));
   const float g_ta = rnd<kBF>(rnd<kBF>(gp * qv) * kv);
-  p.gz[e] = g_ta * (sg + z * sg * (1.f - sg));
+  const float val = g_ta * (sg + z * sg * (1.f - sg));
+  p.gz[e] = val;
+  if constexpr (kBF) p.gz_b[e] = __float2bfloat16(val);
 }
 
 // pass 5: blockIdx.y picks the side.  0: one thread per (row r, d), g_q
@@ -335,37 +345,29 @@ cudaError_t run(K kern, dim3 grid, size_t smem, const A& args,
   return cudaGetLastError();
 }
 
-// workspace layout, in floats
+// workspace layout, in floats (each part 16-byte aligned)
 struct Layout {
-  size_t tf, gtf, zre, gz, ga, part, total;
+  size_t tf, gtf, zre, gz, ga, part, bf, total;
 };
 
 Layout layout(long long P, int D, int H, int C) {
-  const int S = splits_for(P);
   Layout w;
   w.tf = 0;
   w.gtf = w.tf + (size_t)P * C;
   w.zre = w.gtf + (size_t)P * C;
   w.gz = w.zre + (size_t)P * D;
   w.ga = w.gz + (size_t)P * D;
-  w.part = w.ga + (size_t)P * H;
-  w.total = w.part + (size_t)S * D * C;   // D*C >= D*D and >= C partials
+  w.part = up4(w.ga + (size_t)P * H);
+  w.bf = up4(w.part + part_floats(P, D, C));
+  w.total = w.bf + msg_bf16_floats(P, D, C);
   return w;
 }
 
 template <bool kBF, typename NT>
-cudaError_t backward(const Params& p, int t_bf16, cudaStream_t s) {
-  const int P = (int)p.P, D = p.D, C = p.C;
+cudaError_t backward(const Params& p, const MsgProducts& m, cudaStream_t s) {
+  const int D = p.D, C = p.C;
   // 1. t_filter (rounded, as the forward uses it) and z_re
-  Product g{};
-  g.a = p.t; g.a_sm = D; g.a_sk = 1; g.a_bf16 = t_bf16;
-  g.b = p.wrs; g.b_sk = C; g.b_sn = 1;
-  g.out = p.tf; g.o_sm = C; g.bias = p.brs;
-  g.rows = P; g.cols = C; g.depth = D; g.round_out = 1;
-  CHECK(product<kBF>(g, s));
-  g.b = p.wre; g.b_sk = D;
-  g.out = p.zre; g.o_sm = D; g.bias = p.bre; g.cols = D; g.round_out = 0;
-  CHECK(product<kBF>(g, s));
+  CHECK(recompute<kBF>(m, s));
   // 2. g_tf, g_attn, g_env, g_rl per slot
   auto slot_kern = slot_kernel<kBF, NT>;
   const size_t slot_smem =
@@ -376,33 +378,15 @@ cudaError_t backward(const Params& p, int t_bf16, cudaStream_t s) {
   CHECK(run(slot_kern, dim3((unsigned)((p.P + kSlotsPerBlock - 1) / kSlotsPerBlock)),
             slot_smem, p, s));
   // 3.-6. softmax backward, g_zre, g_q and g_k, the table gradients
-  CHECK(run(softmax_bwd_kernel, dim3(blocks_for(p.NR)), 0, p, s));
+  CHECK(run(softmax_bwd_kernel, dim3((unsigned)p.NR),
+            (size_t)(kThreads / 32) * kLanePad * sizeof(float), p, s));
   CHECK(run(grad_zre_kernel<kBF, NT>, dim3(blocks_for(p.P * D)), 0, p, s));
   CHECK(run(grad_qk_kernel<kBF, NT>, dim3(blocks_for((long long)p.N * D), 2),
             0, p, s));
   CHECK(run(grad_tables_kernel<kBF, NT>, dim3(blocks_for((long long)p.N * C)),
             0, p, s));
-  // 7. g_t = g_tf W_rs^T + g_zre W_re^T
-  Product gt{};
-  gt.a = p.gtf; gt.a_sm = C; gt.a_sk = 1;
-  gt.b = p.wrs; gt.b_sk = 1; gt.b_sn = C;
-  gt.out = p.gt; gt.o_sm = D;
-  gt.rows = P; gt.cols = D; gt.depth = C;
-  CHECK(product<kBF>(gt, s));
-  gt.a = p.gz; gt.a_sm = D; gt.b = p.wre; gt.b_sn = D; gt.depth = D;
-  gt.accumulate = 1;
-  CHECK(product<kBF>(gt, s));
-  // 8. weight and bias gradients, sums over all slots
-  Product gw{};
-  gw.a = p.t; gw.a_sm = 1; gw.a_sk = D; gw.a_bf16 = t_bf16;
-  gw.b = p.gtf; gw.b_sk = C; gw.b_sn = 1;
-  gw.out = p.gwrs; gw.rows = D; gw.cols = C; gw.depth = P;
-  CHECK(product_over_pairs<kBF>(gw, p.part, s));
-  gw.b = p.gz; gw.b_sk = D; gw.out = p.gwre; gw.cols = D;
-  CHECK(product_over_pairs<kBF>(gw, p.part, s));
-  CHECK(column_sums(p.gtf, P, C, p.part, p.gbrs, s));
-  CHECK(column_sums(p.gz, P, D, p.part, p.gbre, s));
-  return cudaSuccess;
+  // 7.-8. g_t, the weight and bias gradients
+  return grad_products<kBF>(m, s);
 }
 
 int channels(int D, int lmax, int sep_dir, int sep_tensor) {
@@ -451,15 +435,24 @@ extern "C" int gotennet_fused_ell_bwd(
     return (int)cudaErrorInvalidValue;
   const Layout w = layout(p.P, D, H, p.C);
   p.tf = work + w.tf; p.gtf = work + w.gtf; p.zre = work + w.zre;
-  p.gz = work + w.gz; p.ga = work + w.ga; p.part = work + w.part;
+  p.gz = work + w.gz; p.ga = work + w.ga;
+  MsgProducts m{};
+  m.t = t; m.t_bf16 = t_bf16;
+  m.wrs = wrs; m.brs = brs; m.wre = wre; m.bre = bre;
+  m.tf = p.tf; m.zre = p.zre; m.gtf = p.gtf; m.gz = p.gz;
+  m.gt = gt; m.gwrs = gwrs; m.gbrs = gbrs; m.gwre = gwre; m.gbre = gbre;
+  m.part = work + w.part;
+  m.P = p.P; m.D = D; m.C = p.C;
+  carve_bf16(m, work + w.bf);
+  p.gtf_b = m.gtf_b; p.gz_b = m.gz_b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (pair_bf16) {
-    err = node_bf16 ? backward<true, __nv_bfloat16>(p, t_bf16, s)
-                    : backward<true, float>(p, t_bf16, s);
+    err = node_bf16 ? backward<true, __nv_bfloat16>(p, m, s)
+                    : backward<true, float>(p, m, s);
   } else {
-    err = node_bf16 ? backward<false, __nv_bfloat16>(p, t_bf16, s)
-                    : backward<false, float>(p, t_bf16, s);
+    err = node_bf16 ? backward<false, __nv_bfloat16>(p, m, s)
+                    : backward<false, float>(p, m, s);
   }
   return (int)err;
 }

@@ -10,33 +10,44 @@
 //
 // What bounds it on an H100: six pair projections (t W_rs and t W_re
 // recomputed, g_tf W_rs^T, g_zre W_re^T, t^T g_tf, t^T g_zre),
-// 6 * D * (mult*D + D) FLOP per valid pair: ~25 GFLOP for a 16-graph chunk
-// at M = 32 and QM9 density (D = 256, mult = 5), a few tens of microseconds
-// on the tensor cores, against ~20 MB of inputs and outputs (~6 us).  So the
-// operations bound it.
+// 6 * D * (mult*D + D) FLOP per pair: 136 GFLOP for a 4-frame MD22 chunk
+// (M = 120, D = 256, mult = 5) over every pair, ~25 GFLOP for a 16-graph
+// QM9 chunk at M = 32; over the valid pairs alone (invalid ones add exact
+// zeros) the operations still bound it, at a few tens of microseconds on the
+// tensor cores, against ~20-60 MB of inputs and outputs.  The kernel runs
+// ~100x above that bound.  On an H100 at M = 120 passes 7, 3 and 2, each of
+// which recomputes g_o per (pair, channel), take about 70 % of its time, and
+// the six products about 20 %; the products run over every pair, padded
+// ones included (PERF.md §5-6 have the split and the times).
 //
-// Design (right first; tensor cores, fusion and overlap are later work).  The
-// TPU kernel sums weight gradients and j-indexed gradients in place over its
-// sequential grid.  Hopper's blocks run in parallel in no order, so here the
-// work is cut into passes, each of whose outputs is owned by one thread or one
-// block, and no sum uses atomics: every result is the same from run to run.
-//  1. two projections recompute t_filter = t W_rs + b_rs and z_re = t W_re +
-//     b_re over all pairs into workspace (a tiled FP32-FMA product);
-//  2. per (pair, channel): the cotangent of the spatial filter, g_tf;
+// Design.  The TPU kernel sums weight gradients and j-indexed gradients in
+// place over its sequential grid.  Hopper's blocks run in parallel in no
+// order, so here the work is cut into passes, each of whose outputs is owned
+// by one thread, one warp or one block, and no sum uses atomics: every
+// result is the same from run to run.
+//  1. two products recompute t_filter = t W_rs + b_rs and z_re = t W_re +
+//     b_re over all pairs into workspace (bwd_sums.cuh's `recompute`);
+//  2. per (pair, channel): the cotangent of the spatial filter, g_tf (and,
+//     for a bf16 pair type, its bf16 copy for the products);
 //  3. per (pair, head): the attention cotangent, a sum over the head's
 //     channels (each channel's g_o recomputed);
-//  4. per destination row: the softmax backward over j, and g_scale;
-//  5. per (pair, channel of D): g_zre through the silu;
+//  4. a block per destination row: g_scale, and the softmax backward over j
+//     with a warp per head, the lanes splitting the row's pairs;
+//  5. per (pair, channel of D): g_zre through the silu (and its bf16 copy);
 //  6. per (node, channel of D): g_q (sum over j) and g_k (sum over i);
 //  7. per (node, channel): g_xg and g_v (sums over i), and g_X from the
 //     tensor blocks (sums over i);
-//  8. g_t = g_tf W_rs^T + g_zre W_re^T, one product each;
-//  9. the weight gradients t^T g_tf and t^T g_zre, and the bias gradients
-//     (column sums), as sums over all pairs of the chunk: split over blocks
-//     into partials, then one pass adds the partials in a fixed order;
+//  8. g_t = g_tf W_rs^T + g_zre W_re^T;
+//  9. the weight gradients t^T g_tf and t^T g_zre, split over the pairs into
+//     partials added in a fixed order, and the bias gradients as column sums
+//     in strips, then a warp per column (8 and 9: bwd_sums.cuh's
+//     `grad_products`);
 // 10. with position gradients only, a warp per pair: g_env and g_rl, sums
-//     over the pair's channels (each lane sums its channels, then one thread
-//     adds the 32 lanes in order), as the ELL backward's slot pass sums them.
+//     over the pair's channels (each lane sums its channels, then the 32
+//     lanes are added in order), as the ELL backward's slot pass sums them.
+// The six products run on the tensor cores for a bf16 pair type
+// (mma.sync.m16n8k16, bf16 factors, float32 sums: bwd_sums.cuh), on bf16
+// copies of their factors, and as float32 FMAs for a float32 pair type.
 // Padded atoms and invalid pairs (env < 0) have softmax 0 and envelope 0, so
 // every term they touch is an exact zero (o too, so g_rl is zero there; g_env
 // is set to zero on invalid pairs).
@@ -52,21 +63,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPairsPerBlock = 16;             // pairs per block of pass 10
 constexpr int kMaxL = 24;                      // SH components (lmax <= 4)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// round to the pair type (round to nearest even), keep computing in float32
-template <bool kBF>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (kBF) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
 
 __device__ __forceinline__ float sigmoid(float z) {
   return 1.f / (1.f + expf(-z));
@@ -98,8 +94,10 @@ struct Params {
   const float* gdx;    // [G, M, L, D]
   float *gt, *gq, *gk, *gxg, *gv, *grl, *gX, *genv, *gscale, *gwre, *gbre,
       *gwrs, *gbrs;                     // grl, genv: null without pos_grads
-  // workspace: tf, gtf [P, C]; zre, gz [P, D]; ga [P, H]; part (partials)
-  float *tf, *gtf, *zre, *gz, *ga, *part;
+  // workspace: tf, gtf [P, C]; zre, gz [P, D]; ga [P, H]; gtf_b, gz_b the
+  // bf16 copies of gtf, gz (bf16 pair type)
+  float *tf, *gtf, *zre, *gz, *ga;
+  __nv_bfloat16 *gtf_b, *gz_b;
   int G, M, D, H, L, C, lmax, sep_dir, sep_tensor, scale_heads;
 };
 
@@ -160,7 +158,9 @@ __global__ void __launch_bounds__(kThreads) grad_tf_kernel(const Params p) {
   const float envp = rnd<kBF>(fmaxf(p.env[pair], 0.f));
   const float go = grad_o<kBF>(p, gi, gj, pair, c);
   const float xv = rnd<kBF>(to_f(static_cast<const NT*>(p.xg)[gj * p.C + c]));
-  p.gtf[e] = rnd<kBF>(rnd<kBF>(go * xv) * envp);
+  const float val = rnd<kBF>(rnd<kBF>(go * xv) * envp);
+  p.gtf[e] = val;
+  if constexpr (kBF) p.gtf_b[e] = __float2bfloat16(val);
 }
 
 // pass 3: g_attn[pair, h] = sum over the head's channels of g_o * v[j]
@@ -181,33 +181,42 @@ __global__ void __launch_bounds__(kThreads) grad_attn_kernel(const Params p) {
   p.ga[e] = s;
 }
 
-// pass 4, one thread per destination row (g, i): g_scale, then the softmax
+// pass 4, a block per destination row (g, i): g_scale, then the softmax
 // backward g_logits = sm * (g_sm - sum_j sm * g_sm), g_sm = g_attn * scale,
-// written over g_attn
+// written over g_attn.  A scalar scale's g_scale is a thread per pair (its
+// heads in order); the softmax a warp per head, the lanes splitting the row's
+// pairs and their 32 sums added in order (store_lanes, lane_total).
 __global__ void __launch_bounds__(kThreads) softmax_bwd_kernel(const Params p) {
-  const size_t gi = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (gi >= (size_t)p.G * p.M) return;
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);   // [warps][1][kLanePad]
+  const size_t gi = blockIdx.x;
   const int M = p.M, H = p.H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (!p.scale_heads) {
-    for (int j = 0; j < M; ++j) {
+    for (int j = threadIdx.x; j < M; j += kThreads) {
       const size_t pair = gi * M + j;
       float s = 0.f;
       for (int h = 0; h < H; ++h) s += p.sm[pair * H + h] * p.ga[pair * H + h];
       p.gscale[pair] = s;
     }
   }
-  for (int h = 0; h < H; ++h) {
+  for (int h0 = 0; h0 < H; h0 += kThreads / 32) {
+    const int h = h0 + warp;
     float s = 0.f;
-    for (int j = 0; j < M; ++j) {
+    for (int j = lane; h < H && j < M; j += 32) {
       const size_t pair = gi * M + j;
       s += p.sm[pair * H + h] * (p.ga[pair * H + h] * scale_at(p, pair, h));
     }
-    for (int j = 0; j < M; ++j) {
+    store_lanes(red, warp, 1, lane, &s);
+    __syncthreads();
+    const float total = lane_total(red, warp, 1, 0);
+    for (int j = lane; h < H && j < M; j += 32) {
       const size_t pair = gi * M + j;
       const float sm = p.sm[pair * H + h], ga = p.ga[pair * H + h];
       if (p.scale_heads) p.gscale[pair * H + h] = sm * ga;
-      p.ga[pair * H + h] = sm * (ga * scale_at(p, pair, h) - s);
+      p.ga[pair * H + h] = sm * (ga * scale_at(p, pair, h) - total);
     }
+    __syncthreads();   // red again for the next heads
   }
 }
 
@@ -225,7 +234,9 @@ __global__ void __launch_bounds__(kThreads) grad_zre_kernel(const Params p) {
   const float qv = rnd<kBF>(to_f(static_cast<const NT*>(p.q)[gi * p.D + d]));
   const float kv = rnd<kBF>(to_f(static_cast<const NT*>(p.k)[gj * p.D + d]));
   const float g_ta = rnd<kBF>(rnd<kBF>(gp * qv) * kv);
-  p.gz[e] = g_ta * (sg + z * sg * (1.f - sg));
+  const float val = g_ta * (sg + z * sg * (1.f - sg));
+  p.gz[e] = val;
+  if constexpr (kBF) p.gz_b[e] = __float2bfloat16(val);
 }
 
 // pass 6, one thread per (g, n, d): g_q[g,n,d] sums over j, g_k[g,n,d] over i
@@ -360,68 +371,43 @@ cudaError_t run(K kern, dim3 grid, size_t smem, const A& args,
   return cudaGetLastError();
 }
 
-// workspace layout, in floats
+// workspace layout, in floats (each part 16-byte aligned)
 struct Layout {
-  size_t tf, gtf, zre, gz, ga, part, total;
+  size_t tf, gtf, zre, gz, ga, part, bf, total;
 };
 
 Layout layout(int G, int M, int D, int H, int C) {
   const size_t P = (size_t)G * M * M;
-  const int S = splits_for((int)P);
   Layout w;
   w.tf = 0;
   w.gtf = w.tf + P * C;
   w.zre = w.gtf + P * C;
   w.gz = w.zre + P * D;
   w.ga = w.gz + P * D;
-  w.part = w.ga + P * H;
-  w.total = w.part + (size_t)S * D * C;   // D*C >= D*D and >= C partials
+  w.part = up4(w.ga + P * H);
+  w.bf = up4(w.part + part_floats((long long)P, D, C));
+  w.total = w.bf + msg_bf16_floats((long long)P, D, C);
   return w;
 }
 
 template <bool kBF, typename NT>
-cudaError_t backward(const Params& p, int t_bf16, cudaStream_t s) {
+cudaError_t backward(const Params& p, const MsgProducts& m, cudaStream_t s) {
   const int P = p.G * p.M * p.M, D = p.D, C = p.C;
   // 1. t_filter (rounded, as the forward uses it) and z_re
-  Product g{};
-  g.a = p.t; g.a_sm = D; g.a_sk = 1; g.a_bf16 = t_bf16;
-  g.b = p.wrs; g.b_sk = C; g.b_sn = 1;
-  g.out = p.tf; g.o_sm = C; g.bias = p.brs;
-  g.rows = P; g.cols = C; g.depth = D; g.round_out = 1;
-  CHECK(product<kBF>(g, s));
-  g.b = p.wre; g.b_sk = D;
-  g.out = p.zre; g.o_sm = D; g.bias = p.bre; g.cols = D; g.round_out = 0;
-  CHECK(product<kBF>(g, s));
+  CHECK(recompute<kBF>(m, s));
   // 2-7. the elementwise passes
   const size_t PC = (size_t)P * C, PH = (size_t)P * p.H, PD = (size_t)P * D;
   CHECK(run(grad_tf_kernel<kBF, NT>, dim3(blocks_for(PC)), 0, p, s));
   CHECK(run(grad_attn_kernel<kBF, NT>, dim3(blocks_for(PH)), 0, p, s));
-  CHECK(run(softmax_bwd_kernel, dim3(blocks_for((size_t)p.G * p.M)), 0, p, s));
+  CHECK(run(softmax_bwd_kernel, dim3((unsigned)(p.G * p.M)),
+            (size_t)(kThreads / 32) * kLanePad * sizeof(float), p, s));
   CHECK(run(grad_zre_kernel<kBF, NT>, dim3(blocks_for(PD)), 0, p, s));
   CHECK(run(grad_qk_kernel<kBF, NT>, dim3(blocks_for((size_t)p.G * p.M * D)),
             0, p, s));
   CHECK(run(grad_nodes_kernel<kBF, NT>, dim3(blocks_for((size_t)p.G * p.M * C)),
             0, p, s));
-  // 8. g_t = g_tf W_rs^T + g_zre W_re^T
-  Product gt{};
-  gt.a = p.gtf; gt.a_sm = C; gt.a_sk = 1;
-  gt.b = p.wrs; gt.b_sk = 1; gt.b_sn = C;
-  gt.out = p.gt; gt.o_sm = D;
-  gt.rows = P; gt.cols = D; gt.depth = C;
-  CHECK(product<kBF>(gt, s));
-  gt.a = p.gz; gt.a_sm = D; gt.b = p.wre; gt.b_sn = D; gt.depth = D;
-  gt.accumulate = 1;
-  CHECK(product<kBF>(gt, s));
-  // 9. weight and bias gradients, sums over all pairs
-  Product gw{};
-  gw.a = p.t; gw.a_sm = 1; gw.a_sk = D; gw.a_bf16 = t_bf16;
-  gw.b = p.gtf; gw.b_sk = C; gw.b_sn = 1;
-  gw.out = p.gwrs; gw.rows = D; gw.cols = C; gw.depth = P;
-  CHECK(product_over_pairs<kBF>(gw, p.part, s));
-  gw.b = p.gz; gw.b_sk = D; gw.out = p.gwre; gw.cols = D;
-  CHECK(product_over_pairs<kBF>(gw, p.part, s));
-  CHECK(column_sums(p.gtf, P, C, p.part, p.gbrs, s));
-  CHECK(column_sums(p.gz, P, D, p.part, p.gbre, s));
+  // 8.-9. g_t, the weight and bias gradients
+  CHECK(grad_products<kBF>(m, s));
   if (p.grl == nullptr) return cudaSuccess;
   // 10. g_env and g_rl, position gradients only
   auto pos_kern = pos_kernel<kBF, NT>;
@@ -478,15 +464,24 @@ extern "C" int gotennet_fused_gata_bwd(
     return (int)cudaErrorInvalidValue;
   const Layout w = layout(G, M, D, H, p.C);
   p.tf = work + w.tf; p.gtf = work + w.gtf; p.zre = work + w.zre;
-  p.gz = work + w.gz; p.ga = work + w.ga; p.part = work + w.part;
+  p.gz = work + w.gz; p.ga = work + w.ga;
+  MsgProducts m{};
+  m.t = t; m.t_bf16 = t_bf16;
+  m.wrs = wrs; m.brs = brs; m.wre = wre; m.bre = bre;
+  m.tf = p.tf; m.zre = p.zre; m.gtf = p.gtf; m.gz = p.gz;
+  m.gt = gt; m.gwrs = gwrs; m.gbrs = gbrs; m.gwre = gwre; m.gbre = gbre;
+  m.part = work + w.part;
+  m.P = (long long)G * M * M; m.D = D; m.C = p.C;
+  carve_bf16(m, work + w.bf);
+  p.gtf_b = m.gtf_b; p.gz_b = m.gz_b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (pair_bf16) {
-    err = node_bf16 ? backward<true, __nv_bfloat16>(p, t_bf16, s)
-                    : backward<true, float>(p, t_bf16, s);
+    err = node_bf16 ? backward<true, __nv_bfloat16>(p, m, s)
+                    : backward<true, float>(p, m, s);
   } else {
-    err = node_bf16 ? backward<false, __nv_bfloat16>(p, t_bf16, s)
-                    : backward<false, float>(p, t_bf16, s);
+    err = node_bf16 ? backward<false, __nv_bfloat16>(p, m, s)
+                    : backward<false, float>(p, m, s);
   }
   return (int)err;
 }

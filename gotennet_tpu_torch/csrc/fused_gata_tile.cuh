@@ -1,8 +1,8 @@
 // Device code shared by the fused GATA message kernels on the dense
-// (fused_gata_fwd.cu) and the ELL layout (fused_ell_fwd.cu): the pair
-// type's rounding and the product of a block's pair rows (at most kMaxPairs)
-// with a 32-column slice of W_re or W_rs, on the tensor cores for a bf16
-// pair type and as float32 FMAs otherwise.
+// (fused_gata_fwd.cu) and the ELL layout (fused_ell_fwd.cu): the product of
+// a block's pair rows (at most kMaxPairs) with a 32-column slice of W_re or
+// W_rs, on the tensor cores for a bf16 pair type (pair_type.cuh's mma
+// helper) and as float32 FMAs otherwise.
 
 #pragma once
 
@@ -11,6 +11,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "pair_type.cuh"
 
 namespace {
 
@@ -22,21 +24,6 @@ constexpr int kRowsPerThread = kMaxPairs / 32;
 constexpr int kPadBF = 8;           // bf16 row padding: conflict-free fragments
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// round to the pair type (round to nearest even), keep computing in float32
-template <bool kBF>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (kBF) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
 
 // the pair type's shared-memory element for the t rows
 template <bool kBF> struct PairT { using type = float; };
@@ -92,41 +79,6 @@ __device__ void product_tile_f32(const float* __restrict__ As, int lda,
     }
   }
   __syncthreads();
-}
-
-// acc += A[16 x 16] @ B[16 x 8] for this lane's four accumulator slots
-// (mma.sync m16n8k16 layout: lane = 4 g + t holds rows g and g + 8, columns
-// 2t and 2t + 1).  A is row-major (k contiguous, row stride lda); B is kept
-// transposed, B[n * ldb + k], so each fragment register is one 32-bit load.
-__device__ __forceinline__ void mma_16816(const __nv_bfloat16* A, int lda,
-                                          const __nv_bfloat16* B, int ldb,
-                                          float* acc) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#if defined(__CUDA_ARCH__)
-  auto ld = [](const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  };
-  const uint32_t a0 = ld(A + g * lda + 2 * t);
-  const uint32_t a1 = ld(A + (g + 8) * lda + 2 * t);
-  const uint32_t a2 = ld(A + g * lda + 2 * t + 8);
-  const uint32_t a3 = ld(A + (g + 8) * lda + 2 * t + 8);
-  const uint32_t b0 = ld(B + g * ldb + 2 * t);
-  const uint32_t b1 = ld(B + g * ldb + 2 * t + 8);
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-#else
-  // the same four sums, one slot at a time (a build for the host)
-  for (int s = 0; s < 4; ++s) {
-    const int row = g + (s >= 2 ? 8 : 0), col = 2 * t + (s & 1);
-    for (int k = 0; k < 16; ++k) {
-      acc[s] += __bfloat162float(A[row * lda + k]) *
-                __bfloat162float(B[col * ldb + k]);
-    }
-  }
-#endif
 }
 
 // Cs[TB][kNT+1] = As[TB][0:K] @ bf16(W[0:K, col0:col0+kNT]) on the tensor

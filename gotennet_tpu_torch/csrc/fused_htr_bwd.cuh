@@ -21,7 +21,8 @@
 //     it; each recomputes pq, pk and 2 - r2 of the pairs it visits;
 //  C. per pair, a warp per pair: g_rl, sums over channels (each lane sums its
 //     channels, then one thread per component adds the 32 lanes in order);
-//  D. g_W_g = t^T g_z and g_b_g, sums over all pairs (bwd_sums.cuh).
+//  D. g_W_g = t^T g_z and g_b_g, sums over all pairs (bwd_sums.cuh: on the
+//     tensor cores, through bf16 copies of t and g_z, for a bf16 pair type).
 // A pair whose cotangent g is zero adds exact zeros to every output.
 //
 // Included after fused_htr_tile.cuh and bwd_sums.cuh; the including source
@@ -45,8 +46,10 @@ struct Params {
   const int* starts;   // ELL: [n_ek + 1]  row n's slots: order[starts[n]:starts[n+1]]
   const int* order;    // ELL: [P]  flat slot indices, sorted (stably) by nbr
   float *gt, *geq, *gek, *grl, *gwg, *gbg;
-  // workspace: gz, gw [P, D] (cotangents of z and w); part (partials)
+  // workspace: gz, gw [P, D] (cotangents of z and w); part (partials);
+  // bf16 copies of t and g_z for the weight gradient (bf16 pair type)
   float *gz, *gw, *part;
+  __nv_bfloat16 *tb, *gz_b;
   long long P;         // pairs
   int R;               // pairs per EQ row: M (dense) or K (ELL)
   int n_eq, n_ek;      // rows of EQ and of EK
@@ -115,6 +118,7 @@ __global__ void __launch_bounds__(kThreads) pair_bwd_kernel(const Params p) {
       const float g_z = g * gwv * (sg + z * sg * (1.f - sg));
       p.gw[pair * D + cc] = g_w;
       p.gz[pair * D + cc] = g_z;
+      if constexpr (kBF) p.gz_b[pair * D + cc] = __float2bfloat16(g_z);
       store(&Gs[row * lda + cc], rnd<kBF>(g_z));
     }
     __syncthreads();
@@ -247,15 +251,16 @@ __global__ void __launch_bounds__(kThreads) grad_rl_kernel(const Params p) {
 // ---- host side ----------------------------------------------------------------
 // workspace layout, in floats
 struct Layout {
-  size_t gz, gw, part, total;
+  size_t gz, gw, part, bf, total;
 };
 
 Layout layout(long long P, int D) {
   Layout w;
   w.gz = 0;
   w.gw = w.gz + (size_t)P * D;
-  w.part = w.gw + (size_t)P * D;
-  w.total = w.part + (size_t)splits_for(P) * D * D;
+  w.part = up4(w.gw + (size_t)P * D);
+  w.bf = up4(w.part + part_floats(P, D, D));
+  w.total = w.bf + up8((size_t)P * D);   // two bf16 [P, D] copies
   return w;
 }
 
@@ -315,9 +320,19 @@ cudaError_t backward(const Params& p, int t_bf16, cudaStream_t s) {
   CHECK(run(rl_kern, dim3((unsigned)((p.P + p.rl_pairs - 1) / p.rl_pairs)),
             rl_smem, p, s));
   // D. g_W_g = rnd(t)^T rnd(g_z) and g_b_g = sum of g_z, over all pairs
+  // (bf16 pair type: through the bf16 copies of t and g_z)
   Product gw{};
   gw.a = p.t; gw.a_sm = 1; gw.a_sk = D; gw.a_bf16 = t_bf16;
   gw.b = p.gz; gw.b_sk = D; gw.b_sn = 1;
+  if constexpr (kBF) {
+    if (!t_bf16) {
+      CHECK(to_bf16_copy(static_cast<const float*>(p.t), p.P * D, p.tb, s));
+      gw.a = p.tb;
+    }
+    gw.a_bf16 = 1;
+    gw.b = p.gz_b;
+    gw.b_bf16 = 1;
+  }
   gw.out = p.gwg; gw.rows = D; gw.cols = D; gw.depth = (int)p.P;
   CHECK(product_over_pairs<kBF>(gw, p.part, s));
   return column_sums(p.gz, (int)p.P, D, p.part, p.gbg, s);
@@ -337,6 +352,8 @@ int launch_backward(Params& p, float* work, int pair_bf16, int t_bf16,
   p.rl_pairs = rl_pairs_for(p.L, p.sep_htr ? p.lmax : 1);
   const Layout w = layout(p.P, p.D);
   p.gz = work + w.gz; p.gw = work + w.gw; p.part = work + w.part;
+  p.tb = reinterpret_cast<__nv_bfloat16*>(work + w.bf);
+  p.gz_b = p.tb + up8((size_t)p.P * p.D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   using BF = __nv_bfloat16;

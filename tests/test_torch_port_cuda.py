@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gotennet_tpu_torch.data.dataset import synthetic_molecules
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import HeadConfig
@@ -540,3 +541,26 @@ def test_ell_train_step_on_card_matches_cpu(card):
     want = train_steps(cfg, head, mols, 2, chunk=1, seed=1, layout="ell",
                        device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def product_lib():
+    """chip_smoke.PRODUCT_SOURCE (the backward kernels' product and column
+    sums of csrc/bwd_sums.cuh alone) built with nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run with -m cuda on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return chip_smoke.build_products()
+
+
+@pytest.mark.parametrize("P", [4 * 120 * 120, 704 * 36],
+                         ids=["md22_M120", "ell"])
+def test_backward_products_match_matmul(product_lib, P):
+    """The six products of a message backward (t W_rs, t W_re, g_tf W_rs^T
+    + g_zre W_re^T, t^T g_tf and t^T g_zre over the pairs) and the two
+    column sums at the MD22 chunk's and the ELL chunk's pair counts, on the
+    tensor cores, against torch.matmul of the same bf16-rounded factors (1e-5
+    of the scale, one bf16 ulp more where the output is rounded), each run
+    twice with the same bits (chip_smoke.hold_products raises otherwise)."""
+    rows = chip_smoke.hold_products(product_lib, P, seed=3)
+    assert len(rows) == 7 and all(rel <= 1e-5 for _, _, rel in rows[5:])

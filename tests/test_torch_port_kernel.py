@@ -118,7 +118,7 @@ _CUDA_RUNTIME_H = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__
 struct dim3 { unsigned x, y, z;
