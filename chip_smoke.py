@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero before the result line:
   2. kernel vs plain: the fused-GATA forward kernel against its plain
      PyTorch version at the flagship shapes (G=8, D=256, H=8, lmax 2,
      mult 5), M in {16, 24, 32}, float32 and bf16 pair types, padded
-     atoms, scalar and per-head scale;
+     atoms, scalar and per-head scale, the same bits from a second run;
   3. serving: the flagship QM9 model (256 channels, 4 interactions, lmax
      2, 64 RBFs, 8 heads, bf16 pair/node types, merge_proj, Atomwise U0
      head) from a seeded init answers three requests of 1, 37 and 256
@@ -40,9 +40,11 @@ Phases, in order; any failure exits non-zero before the result line:
      120}, float32 and bf16 pair types, bf16 EQ/EK, the flagship grammar and
      the sigmoid-gated variant (every pair compared, padded ones included);
   8. HTR backward kernel vs plain: the same grid, all six cotangents, with
-     exact zeros where the cotangent of out is zero (padded atoms);
+     exact zeros where the cotangent of out is zero (padded atoms), the
+     same bits from a second run;
   9. GATA kernels at M = 112 and 120: forward and backward against their
-     plain versions at the MD22 chunk's shapes (G=4);
+     plain versions at the MD22 chunk's shapes (G=4), each run twice (the
+     same bits);
  10. MD22 serving: the flagship model with ``fused_htr=True`` answers 32
      synthetic MD22-sized frames (110-120 atoms at condensed-phase density)
      through ``Predictor`` in unbucketed 4-frame chunks (M = 120); the launch
@@ -54,7 +56,8 @@ Phases, in order; any failure exits non-zero before the result line:
      (4-frame chunks, unbucketed): 32 GATA and 24 HTR launches each way; the
      first step's gradients are held against the same step through both
      backward plain versions; three steps are timed after two warm-up steps,
-     profiled, and the HTR backward kernel timed on a step's inputs;
+     profiled, and the HTR backward kernel timed on a step's inputs and
+     split per pass (``[passes]``);
  12. ELL message kernel vs plain: the fused ELL forward against its plain
      PyTorch version at N = 704 rows, K = 36 slots, D = 256, H = 8, lmax 2,
      float32 and bf16 pair types, scalar and per-head scale, a third of the
@@ -96,7 +99,7 @@ Phases, in order; any failure exits non-zero before the result line:
      four plain versions; a finite-difference check of the forces on one
      frame with float32 pair and node types; the request timed (CUDA events)
      and profiled, and the GATA backward timed on the request's own inputs
-     beside its bound and plain version;
+     beside its bound and plain version; both backwards split per pass;
  20. ELL forces: phase 14's 8 frames of 600-700 atoms, one per chunk,
      through ``predict_with_forces(layout="ell")``: 32 ELL message and 24
      ELL HTR launches each way, energies and forces held against the plain
@@ -107,7 +110,11 @@ Phases, in order; any failure exits non-zero before the result line:
      six products of a message backward held against torch.matmul of the
      same bf16-rounded factors (and the column sums against a float64 sum),
      twice (the same bits), then timed beside torch.matmul of the same six
-     bf16 products (a yardstick only: the port never calls it).
+     bf16 products (a yardstick only: the port never calls it); and the
+     yardsticks of the GATA forward and the HTR backward: torch.matmul of
+     their products from bf16 factors (t W_re and t W_rs at 57,600 pairs
+     and at each QM9 request launch's pairs; t W_g, g_z W_g^T and t^T g_z at
+     57,600 pairs), each logged beside the kernel's own ms a launch.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -149,6 +156,9 @@ MD22_SIZES = dict(min_atoms=110, max_atoms=120, box=6.3)
 # frame per chunk on the ELL layout (N = 704 rows, K = 36 slots)
 LARGE_FRAMES, ELL_N, ELL_K = 8, 704, 36
 LARGE_SIZES = dict(min_atoms=600, max_atoms=700, box=6.3)
+# ms a launch of the kernels that phase 21's yardsticks are logged beside,
+# by "kernel, path" (filled by the phases that time them)
+KERNEL_MS = {}
 
 
 def log(msg: str) -> None:
@@ -432,6 +442,55 @@ def products_phase(card) -> None:
             f"and bias included); torch.matmul of the same six bf16 products "
             f"(yardstick, not on the port's path) {total_lib:.4f} ms "
             f"({flops / total_lib / 1e9:.1f} TFLOP/s) | {card}")
+
+
+def matmul_ms(shapes) -> float:
+    """ms of torch.matmul of seeded bf16 factors, one call per (rows,
+    depth, cols) in ``shapes`` (a transposed first factor as (depth, rows)
+    with a negative rows), the mean of 10 passes between CUDA events."""
+    gen = torch.Generator().manual_seed(902)
+    pairs = []
+    for rows, depth, cols in shapes:
+        if rows < 0:   # the weight gradient's t^T: a [P, D] tensor read across P
+            a = torch.randn(depth, -rows, generator=gen).t()
+        else:
+            a = torch.randn(rows, depth, generator=gen)
+        pairs.append((a.to("cuda", torch.bfloat16), torch.randn(
+            depth, cols, generator=gen).to("cuda", torch.bfloat16)))
+    return time_calls(lambda _: [torch.matmul(a, b) for a, b in pairs],
+                      [None], 10)
+
+
+def yardsticks(card, qm9_shapes) -> None:
+    """Phase 21, second half: torch.matmul of the redesigned kernels'
+    products from bf16 factors, logged beside each kernel's own ms a launch
+    (yardsticks only: the port never calls them).  Row 1's two projections
+    t W_re and t W_rs at the MD22 chunk's 57,600 pairs and at the pairs of
+    each launch of the 256-molecule QM9 request (``qm9_shapes``, the shapes
+    of t); row 4's three products t W_g, g_z W_g^T and t^T g_z at 57,600
+    pairs."""
+    C = (1 + 2 * LMAX) * D
+    P = MD22_CHUNK * 120 * 120
+    rows = [("fused_gata_fwd, MD22 request", f"t W_re + t W_rs at P={P}",
+             matmul_ms([(P, D, D), (P, D, C)]))]
+    by_pairs = {}
+    for shape in qm9_shapes:
+        n = shape[0] * shape[1] * shape[2]
+        by_pairs[n] = by_pairs.get(n, 0) + 1
+    total = sum(matmul_ms([(n, D, D), (n, D, C)]) * k
+                for n, k in by_pairs.items())
+    rows.append(("fused_gata_fwd, QM9 request",
+                 f"t W_re + t W_rs, mean over the {len(qm9_shapes)} launches "
+                 f"(P {sorted(by_pairs)})", total / max(len(qm9_shapes), 1)))
+    rows.append(("fused_htr_bwd, MD22 step",
+                 f"t W_g + g_z W_g^T + t^T g_z at P={P}",
+                 matmul_ms([(P, D, D), (P, D, D), (-D, P, D)])))
+    for kernel, what, ms in rows:
+        own = KERNEL_MS.get(kernel)
+        log(f"[yardstick] {kernel}: torch.matmul of {what} from bf16 factors "
+            f"{ms:.4f} ms (not on the port's path); the kernel "
+            + (f"{own:.4f} ms a launch" if own is not None else "not timed")
+            + f" | {card}")
 
 
 def rel_err(got, want) -> tuple:
@@ -769,6 +828,8 @@ def check_gata_forward(M, pd, head_scale, G) -> None:
     if not (torch.all(sm[0, M - 3:] == 0)
             and torch.all(got[0][0, M - 3:] == 0)):
         raise AssertionError("padded atoms got weight")
+    if not same_bits(got, fused_gata.fused_gata_forward(*args, **kw)):
+        raise AssertionError("GATA forward differs between runs")
 
 
 def check_gata_backward(M, pd, head_scale, G, pos_grads=False) -> None:
@@ -898,6 +959,8 @@ def check_htr_backward() -> None:
         pad += [a[0, :, M - 3:] for a in (g_t, g_rl)]
         if not all(bool(torch.all(a == 0)) for a in pad):
             raise AssertionError("a zero cotangent gave a non-zero one")
+        if not same_bits(got, fused_htr.fused_htr_backward(*args, g, **kw)):
+            raise AssertionError("HTR backward differs between runs")
 
 
 def train_phase(cfg, head, card) -> dict:
@@ -1038,11 +1101,11 @@ def md22_serve_phase(cfg, head, card) -> dict:
             f"{MD22_FRAMES}-frame MD22 request", card)
     # the GATA forward at M = 120, logged only: its JSON record is the QM9
     # request's (phase 4)
-    kernel_record({"name": "fused_gata_fwd"},
-                  capture(fused_gata, "fused_gata_forward",
-                          lambda: pred.predict(mols)),
-                  gata, fused_gata.fused_gata_forward_reference, fwd_bound_ms,
-                  card)
+    KERNEL_MS["fused_gata_fwd, MD22 request"] = kernel_record(
+        {"name": "fused_gata_fwd"},
+        capture(fused_gata, "fused_gata_forward", lambda: pred.predict(mols)),
+        gata, fused_gata.fused_gata_forward_reference, fwd_bound_ms,
+        card)["ms"]
     record = kernel_record(
         {"name": "fused_htr_fwd", "route": "cuda",
          "source": "gotennet_tpu_torch/csrc/fused_htr_fwd.cu",
@@ -1133,15 +1196,18 @@ def md22_train_phase(cfg, head, card) -> dict:
                   fused_gata.fused_gata_backward_reference, bwd_bound_ms, card)
     pass_split(fused_gata.fused_gata_backward, captured,
                "fused_gata_bwd at M = 120 (MD22 step)", card)
+    captured = capture(fused_htr, "fused_htr_backward",
+                       lambda: accum_grads(model, loss_fn, chunks))
     record = kernel_record(
         {"name": "fused_htr_bwd", "route": "cuda",
          "source": "gotennet_tpu_torch/csrc/fused_htr_bwd.cu",
          "replaces": "gotennet_tpu/ops/pallas/fused_htr.py:115"},
-        capture(fused_htr, "fused_htr_backward",
-                lambda: accum_grads(model, loss_fn, chunks)),
-        fused_htr.fused_htr_backward, fused_htr.fused_htr_backward_reference,
-        htr_bwd_bound_ms, card)
+        captured, fused_htr.fused_htr_backward,
+        fused_htr.fused_htr_backward_reference, htr_bwd_bound_ms, card)
     record["launches"] = launches[3]
+    KERNEL_MS["fused_htr_bwd, MD22 step"] = record["ms"]
+    pass_split(fused_htr.fused_htr_backward, captured,
+               "fused_htr_bwd at M = 120 (MD22 step)", card)
     return record
 
 
@@ -1627,6 +1693,10 @@ def md22_force_phase(cfg, card) -> dict:
     record["launches"] = launches[1]
     pass_split(counters[1], captured,
                "fused_gata_bwd with pos_grads (MD22 force request)", card)
+    pass_split(counters[3],
+               capture(fused_htr, "fused_htr_backward",
+                       lambda: pred.predict_with_forces(mols)),
+               "fused_htr_bwd at M = 120 (MD22 force request)", card)
     return record
 
 
@@ -1754,13 +1824,16 @@ def main() -> int:
     profile(lambda: pred.predict(big), req_ms, f"{len(big)}-molecule request",
             card)
     # the kernel on the inputs the 256-molecule request gave it
+    captured = capture(fused_gata, "fused_gata_forward",
+                       lambda: pred.predict(big))
     record = kernel_record(
         {"name": "fused_gata_fwd", "route": "cuda",
          "source": "gotennet_tpu_torch/csrc/fused_gata_fwd.cu",
          "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:108"},
-        capture(fused_gata, "fused_gata_forward", lambda: pred.predict(big)),
-        kernel, plain, fwd_bound_ms, card)
+        captured, kernel, plain, fwd_bound_ms, card)
     record["launches"] = launches
+    KERNEL_MS["fused_gata_fwd, QM9 request"] = record["ms"]
+    qm9_shapes = [tuple(c[0][0].shape) for c in captured]
     phase_done("4 (QM9 timing)")
 
     # ---- 5. backward kernel vs plain at the training shapes --------------
@@ -1822,7 +1895,8 @@ def main() -> int:
     ell_force_phase(md22_cfg, card)
     phase_done("20 (ELL forces)")
     products_phase(card)
-    phase_done("21 (the backward product alone)")
+    yardsticks(card, qm9_shapes)
+    phase_done("21 (the backward product alone; the yardsticks)")
     log(json.dumps({"kernels": [record, bwd_record, htr_record,
                                 htr_bwd_record, ell_records[0],
                                 ell_bwd_records[0], ell_records[1],

@@ -7,8 +7,9 @@ its CUDA sources, on one NVIDIA GPU, inside one process.
 OTHER_CSRC is the ``csrc/`` directory of another version of
 ``gotennet_tpu_torch`` (for instance the parent commit, unpacked with
 ``git archive`` under ``build/``).  Its sources must keep this version's C
-entry points: only the kernels change, the Python wrappers stay this
-tree's.  Both versions are built with nvcc into ``build/`` (the library
+entry points (a GATA forward without the workspace argument is called
+through ``OldForward``): only the kernels change, the Python wrappers stay
+this tree's.  Both versions are built with nvcc into ``build/`` (the library
 names carry the sources' hash).  The main paths run once with this tree's
 kernels while their kernel calls are recorded: the 256-molecule QM9 request
 and the QM9 training step (M 16/24/32), the 32-frame MD22 request and step
@@ -16,8 +17,9 @@ and the QM9 training step (M 16/24/32), the 32-frame MD22 request and step
 every kernel is timed on each path's recorded inputs (CUDA events, mean ms
 per launch, grouped by the shape of t) with the other version's libraries
 and this tree's, in turns: other, this, this, other; and the device-busy
-time of the MD22 step, the MD22 force request and the ELL step
-(``torch.profiler``) is read with each, in the same turns.  Every line
+time of the 256-molecule QM9 request, the 32-frame MD22 request, the MD22
+step, the MD22 force request and the ELL step (``torch.profiler``) is read
+with each, in the same turns.  Every line
 carries the card's name and power limit.  No result is checked here:
 ``chip_smoke.py`` holds each kernel against its plain version.
 """
@@ -50,9 +52,35 @@ def libraries(csrc=None) -> dict:
     libs = {}
     for src, path in zip(_build.SOURCES, paths):
         lib = ctypes.CDLL(str(path))
+        if (src == "fused_gata_fwd.cu"
+                and not hasattr(lib, "gotennet_fused_gata_fwd_workspace")):
+            libs[src] = OldForward(lib)
+            continue
         _build._declare(lib, src)
         libs[src] = lib
     return libs
+
+
+class OldForward:
+    """A GATA forward library from before its C entry point took a
+    workspace (the bf16 weights): this tree's wrapper calls it through the
+    new signature, and the workspace argument is dropped."""
+
+    def __init__(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.gotennet_fused_gata_fwd.argtypes = [ptr] * 16 + [i32] * 11 + [ptr]
+        lib.gotennet_fused_gata_fwd.restype = i32
+        lib.gotennet_cuda_error_string.argtypes = [i32]
+        lib.gotennet_cuda_error_string.restype = ctypes.c_char_p
+        self.lib = lib
+        self.gotennet_cuda_error_string = lib.gotennet_cuda_error_string
+
+    @staticmethod
+    def gotennet_fused_gata_fwd_workspace(*_):
+        return 0
+
+    def gotennet_fused_gata_fwd(self, *args):
+        return self.lib.gotennet_fused_gata_fwd(*args[:16], *args[17:])
 
 
 def busy_ms(run) -> float:
@@ -135,15 +163,18 @@ def main(argv) -> int:
 
     qm9 = synthetic_molecules(cs.TRAIN_MOLS, seed=1, min_atoms=12,
                               max_atoms=29).graph_dicts(range(cs.TRAIN_MOLS))
-    pred = Predictor(cfg, head, seed=0, chunk=cs.CHUNK)
-    record("QM9 request", lambda: pred.predict(qm9))
+    qm9_pred = Predictor(cfg, head, seed=0, chunk=cs.CHUNK)
+    record("QM9 request", lambda: qm9_pred.predict(qm9))
+    busy.append(("QM9 request", lambda: qm9_pred.predict(qm9)))
     grads, _ = step_of(GotenModel(cfg, head, seed=0),
                        make_chunks(qm9, cs.TRAIN_CHUNK, "cuda"))
     record("QM9 step", grads)
 
     md22 = cs.md22_frames()
-    pred = Predictor(big_cfg, head, seed=0, chunk=cs.MD22_CHUNK, bucket=False)
-    record("MD22 request", lambda: pred.predict(md22))
+    md22_pred = Predictor(big_cfg, head, seed=0, chunk=cs.MD22_CHUNK,
+                          bucket=False)
+    record("MD22 request", lambda: md22_pred.predict(md22))
+    busy.append(("MD22 request", lambda: md22_pred.predict(md22)))
     grads, step = step_of(GotenModel(big_cfg, head, seed=0),
                           cs.md22_chunks(md22))
     record("MD22 step", grads)

@@ -178,37 +178,6 @@ __global__ void __launch_bounds__(kThreads) fma_product_kernel(const Product g) 
   }
 }
 
-// bf16 pair type: 16 bytes from global to shared memory without passing
-// through registers (cp.async), zero-filled past `bytes`; the host build
-// copies at once
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(bytes));
-#else
-  unsigned char* d = static_cast<unsigned char*>(dst);
-  for (int i = 0; i < 16; ++i) {
-    d[i] = i < bytes ? static_cast<const unsigned char*>(src)[i] : 0;
-  }
-#endif
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-#endif
-}
-
 // Stage the kTM-row x kTK-deep tile X(r, k) = x[r * s_r + k * s_k] (bf16),
 // rows [r0, r0 + kTM) and depths [k0, k0 + kTK), into shared memory in the
 // orientation it has in memory: depth contiguous, [kTM][kLdK], or rows

@@ -1,8 +1,20 @@
 // Device code shared by the fused GATA message kernels on the dense
-// (fused_gata_fwd.cu) and the ELL layout (fused_ell_fwd.cu): the product of
-// a block's pair rows (at most kMaxPairs) with a 32-column slice of W_re or
-// W_rs, on the tensor cores for a bf16 pair type (pair_type.cuh's mma
-// helper) and as float32 FMAs otherwise.
+// (fused_gata_fwd.cu) and the ELL layout (fused_ell_fwd.cu).
+//
+// The dense forward's weight path (since its Hopper redesign): W_re and
+// W_rs are rounded to bf16 once a launch, by weights_bf16_kernel, into one
+// [D + C, D] matrix whose rows are the output columns (depth contiguous),
+// the orientation mma.sync's B fragments want (and X, which every pair
+// reads rounded, by round_bf16_kernel).  A block then stages
+// kFN-column x kFK-deep tiles of it with 16-byte cp.async (stage_w_tile)
+// into a ring of kFStages shared-memory stages, so the next tiles load while
+// the current one multiplies and the slice's epilogue runs.
+//
+// The ELL forward keeps the earlier path: the product of a block's pair rows
+// (at most kMaxPairs) with a 32-column slice of W_re or W_rs, each slice
+// read from the float32 weights, rounded and transposed by the block itself
+// (product_tile_bf16), or as float32 FMAs (product_tile_f32, which the dense
+// forward also takes for a float32 pair type).
 
 #pragma once
 
@@ -24,6 +36,12 @@ constexpr int kRowsPerThread = kMaxPairs / 32;
 constexpr int kPadBF = 8;           // bf16 row padding: conflict-free fragments
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// the dense forward's bf16 weight tiles
+constexpr int kFN = 128;            // output columns per slice (tile rows)
+constexpr int kFK = 64;             // depth per stage
+constexpr int kFStages = 3;         // stages of the ring
+constexpr int kFLd = kFK + 8;       // bf16 row stride of a stage
 
 // the pair type's shared-memory element for the t rows
 template <bool kBF> struct PairT { using type = float; };
@@ -144,6 +162,68 @@ __device__ __forceinline__ void product_tile(const void* As, int lda, int TB,
   } else {
     product_tile_f32(static_cast<const float*>(As), lda, TB, W, ldw, col0, K,
                      static_cast<float*>(Wbuf), Cs);
+  }
+}
+
+// ---- the dense forward's bf16 weights -----------------------------------
+// wt[n][k] = bf16(W[k][n]) of the [D, D + C] matrix W_re | W_rs (round to
+// nearest even), a 32 x 32 tile a block, transposed through shared memory
+struct WPrep {
+  const float* wre;    // [D, D]
+  const float* wrs;    // [D, C]
+  __nv_bfloat16* wt;   // [D + C, D]
+  int D, C;
+};
+
+__global__ void __launch_bounds__(kThreads) weights_bf16_kernel(const WPrep w) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);   // [32][33]
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int N = w.D + w.C;
+  for (int r = ty; r < 32; r += kThreads / 32) {
+    const int k = k0 + r, n = n0 + tx;
+    float v = 0.f;
+    if (k < w.D && n < N) {
+      v = n < w.D ? w.wre[(size_t)k * w.D + n]
+                  : w.wrs[(size_t)k * w.C + n - w.D];
+    }
+    tile[r * 33 + tx] = v;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += kThreads / 32) {
+    const int n = n0 + r, k = k0 + tx;
+    if (n < N && k < w.D) {
+      w.wt[(size_t)n * w.D + k] = __float2bfloat16(tile[tx * 33 + r]);
+    }
+  }
+}
+
+// y[e] = bf16(x[e]) (round to nearest even), four values a thread (n a
+// multiple of 4, both 16-byte aligned): the dense forward's copy of X
+struct RoundBF16 {
+  const float* x;
+  __nv_bfloat16* y;
+  long long n;
+};
+
+__global__ void __launch_bounds__(kThreads) round_bf16_kernel(const RoundBF16 r) {
+  const long long e = 4 * ((long long)blockIdx.x * kThreads + threadIdx.x);
+  if (e < r.n) store4_bf16(r.y + e, load4(r.x + e));
+}
+
+// One stage of the ring: rows [n0, n0 + kFN) and depths [k0, k0 + kFK) of
+// wt ([*, K], depth contiguous) into s ([kFN][kFLd]), as 1,024 cp.async of
+// 8 values, four a thread; zero at rows >= n_hi and depths >= K.
+__device__ __forceinline__ void stage_w_tile(__nv_bfloat16* s,
+                                             const __nv_bfloat16* wt, int K,
+                                             int n0, int n_hi, int k0) {
+  for (int c = threadIdx.x; c < kFN * kFK / 8; c += kThreads) {
+    const int r = c / (kFK / 8), k = 8 * (c % (kFK / 8));
+    int n = n0 + r < n_hi ? K - (k0 + k) : 0;
+    n = n < 0 ? 0 : (n > 8 ? 8 : n);
+    cp_async16(s + r * kFLd + k,
+               n > 0 ? wt + (size_t)(n0 + r) * K + k0 + k : wt, 2 * n);
   }
 }
 

@@ -11,17 +11,27 @@
 // D = 256 reads t and g and writes g_t, all float32 over every pair
 // (~177 MB, ~53 us at 3.35 TB/s); its three projections (t W_g recomputed,
 // g_z W_g^T, t^T g_z) are 6 * D^2 * pairs = 22.6 GFLOP, ~23 us at the bf16
-// tensor-core peak.
+// tensor-core peak.  The first version lost most of its time in three
+// elementwise passes that talked through device memory, each recomputing the
+// update's per-(pair, channel) terms (PERF.md §5 has the split).
 //
-// Design (right first; fusion of the weight gradient and overlap are later
-// work).  The TPU kernel sums W_g's and b_g's gradients over its whole
+// Design.  The TPU kernel sums W_g's and b_g's gradients over its whole
 // sequential grid and g_EK over each graph's i-tiles, in place.  Hopper's
 // blocks run in parallel in no order, so here every sum has one owner and no
-// sum uses atomics: every result is the same from run to run.  The passes are
-// those of fused_htr_bwd.cuh, which the ELL backward shares, with pair
-// (g, i, j) reading EQ row g*M + i and EK row g*M + j.  A pair whose
-// cotangent g is zero (a padded atom's row or column, where the message's
-// backward leaves zeros) adds exact zeros to every output.
+// sum uses atomics: every result is the same from run to run.  With a bf16
+// pair type and rows of at most 128 pairs, one pass per EQ row does what
+// the TPU kernel does per i-tile: z = t W_g on the tensor cores (W_g
+// rounded to bf16 once a launch, streamed through a ring of cp.async
+// stages), g_w and g_z, and from the terms of each pair once, g_EQ (a sum
+// over the row's own pairs) and g_rl (a sum over the pair's channels); only
+// the sums that cross rows run apart: g_EK (over i, from the rounded g_w
+// and g_pk the row pass writes), g_t's product, g_W_g (partials over pairs,
+// added in order) and g_b_g (the rows' sums, added in order).  A float32 pair type,
+// or rows longer than 128 pairs, take the passes the ELL backward shares
+// (fused_htr_bwd.cuh), with pair (g, i, j) reading EQ row g*M + i and EK
+// row g*M + j.  A pair whose cotangent g is zero (a padded atom's row or
+// column, where the message's backward leaves zeros) adds exact zeros to
+// every output.
 
 #include "fused_htr_tile.cuh"
 #include "bwd_sums.cuh"
@@ -41,7 +51,7 @@ cudaError_t run(K kern, dim3 grid, size_t smem, const A& args,
 
 // Workspace bytes the backward needs for these shapes.
 extern "C" long long gotennet_fused_htr_bwd_workspace(int G, int M, int D) {
-  return (long long)(layout((long long)G * M * M, D).total * sizeof(float));
+  return (long long)(layout((long long)G * M * M, D, G * M).total * sizeof(float));
 }
 
 // Launches on `stream` and allocates nothing (`work` holds at least

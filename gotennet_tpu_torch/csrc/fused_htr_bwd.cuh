@@ -10,7 +10,20 @@
 //    by the caller), in the list's order.  An index outside the table is
 //    clamped so no read leaves it.
 // Every sum has one owner and no sum uses atomics, so every result is the
-// same from run to run:
+// same from run to run.
+//
+// Dense, bf16 pair type, R <= kRT (the MD22 path): the row pass
+// (row_bwd_kernel), one block per EQ row, forms z, g_w, g_z, g_EQ and g_rl
+// from one evaluation of each pair's terms, and writes the rounded g_w and
+// g_pk, the bf16 g_z and the row's sums of g_z; then g_EK (col_bwd_kernel,
+// a sum over other blocks' rows from those rounded terms), g_t = g + g_z
+// W_g^T and g_W_g = t^T g_z (bwd_sums.cuh's products) and g_b_g (the rows'
+// sums in order).  On an H100 the row pass is bounded by its per-(pair,
+// channel) arithmetic and its one sweep of t and g (PERF.md §5 has the
+// split).
+//
+// Every other case (ELL, a float32 pair type, longer dense rows) takes four
+// passes:
 //  A. per block of kRows consecutive pairs: z = t W_g on the tensor cores
 //     (bf16 pair type) or as float32 FMAs, then per (pair, channel) g_w (the
 //     cotangent of w) and g_z (of z), both to workspace; the block keeps its
@@ -50,12 +63,18 @@ struct Params {
   // bf16 copies of t and g_z for the weight gradient (bf16 pair type)
   float *gz, *gw, *part;
   __nv_bfloat16 *tb, *gz_b;
+  __nv_bfloat16* wg_b;   // the row pass: bf16 copy of W_g
+  __nv_bfloat16 *gw_b, *gpk_b;   // the row pass: rnd(g_w) [P, D], rnd(g_pk) [P, nb, D]
+  float* bpart;          // the row pass: [n_eq][D] sums of g_z over a row
   long long P;         // pairs
   int R;               // pairs per EQ row: M (dense) or K (ELL)
   int n_eq, n_ek;      // rows of EQ and of EK
   int D, L, lmax, sep_htr, rej, gate;
+  int t_f32;           // the row pass: write the bf16 copy of t (t is float)
   // pass A's shared-memory carve-up, in bytes from the base
   int off_a, off_g, off_c, off_rl, smem;
+  // the row pass's
+  int roff_a, roff_c, roff_eq, roff_rl, roff_red, roff_grl, roff_geq, rsmem;
   int rl_pairs;        // pairs per block of pass C (a multiple of 8)
 };
 
@@ -248,20 +267,497 @@ __global__ void __launch_bounds__(kThreads) grad_rl_kernel(const Params p) {
   }
 }
 
+// ---- the row pass (dense layout, bf16 pair type, M <= kRT, lmax <= 2) ------
+// One block per EQ row i, its R = M pairs in one tile: z = t W_g on the
+// tensor cores, kRN columns at a time, W_g's bf16 copy streamed through
+// kRStages kRK-deep stages (cp.async, fragments by ldmatrix.trans).  Then,
+// in rounds of kRRows pairs a warp with each lane on two neighbouring
+// channels, every load of a round issued before its arithmetic (the EK
+// values of the pair's L components in registers): g_w and g_z, the terms
+// S, pq, pk of each degree block once, and from them g_EQ's terms (summed
+// over the row's pairs: a warp's pairs of a round in registers, the rounds
+// in order, then the 8 warps in order) and g_rl's (summed over channels:
+// the 32 lanes in order, then the slices in order).  Writes the rounded
+// g_w and g_pk (for g_EK), the bf16 g_z (for the g_t and g_W_g products),
+// g_t = g (the g_t product adds to it), the bf16 copy of a float32 t, and
+// the row's sums of g_z (for g_b_g).
+constexpr int kRT = 128;         // pair rows of the tile
+constexpr int kRN = 64;          // z columns per slice: two a lane
+constexpr int kRK = 64;          // depth per stage of W_g
+constexpr int kRStages = 3;      // stages in flight
+constexpr int kRLd = kRN + 8;    // bf16 row stride of a stage, [kRK][kRLd]
+constexpr int kRLdc = kRN + 4;   // float32 row stride of the z tile
+constexpr int kRWarps = kThreads / 32;
+constexpr int kRRows = 2;        // pairs a warp takes per round
+constexpr int kRMaxL = 8;        // SH components kept in registers (lmax 2)
+
+// one degree block's terms (as block_terms) at a lane's two channels, from
+// the rounded EQ (e) and EK (k) values of components [lo, hi) in registers
+// and the pair's rl (x) and rounded rl (xr); each rounding covers both
+// channels (one packed conversion)
+__device__ __forceinline__ void reg_terms(const float (&e)[2][kRMaxL],
+                                          const float (&k)[2][kRMaxL],
+                                          const float* x, const float* xr,
+                                          int lo, int hi, int rej,
+                                          Terms (&t)[2]) {
+  float S[2] = {0.f, 0.f}, pq[2] = {0.f, 0.f}, pk[2] = {0.f, 0.f}, r2 = 0.f;
+#pragma unroll
+  for (int m = 0; m < kRMaxL; ++m) {
+    if (m >= lo && m < hi) {
+      float s0 = e[0][m] * k[0][m], s1 = e[1][m] * k[1][m];
+      rnd2<true>(s0, s1);
+      S[0] += s0;
+      S[1] += s1;
+      rnd2<true>(S[0], S[1]);
+      if (rej) {
+        float a0 = e[0][m] * xr[m], a1 = e[1][m] * xr[m];
+        float b0 = k[0][m] * xr[m], b1 = k[1][m] * xr[m];
+        rnd2<true>(a0, a1);
+        rnd2<true>(b0, b1);
+        pq[0] += a0;
+        pq[1] += a1;
+        pk[0] += b0;
+        pk[1] += b1;
+        rnd2<true>(pq[0], pq[1]);
+        rnd2<true>(pk[0], pk[1]);
+        r2 += x[m] * x[m];
+      }
+    }
+  }
+  for (int c = 0; c < 2; ++c) t[c] = Terms{S[c], pq[c], pk[c], 2.f - r2};
+}
+
+template <typename TT, typename NT>
+__global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const long long i = blockIdx.x;   // EQ row: pairs i R .. i R + R - 1
+  const int R = p.R, D = p.D, L = p.L, nb = n_blocks(p), nq = L + nb;
+  const long long p0 = i * R, j_first = i / R * R;   // EK row of j = 0
+  const int lda = D + kPadBF;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  using BF = __nv_bfloat16;
+  BF* ring = reinterpret_cast<BF*>(base);                  // [kRStages][kRK][kRLd]
+  BF* As = reinterpret_cast<BF*>(base + p.roff_a);         // [kRT][lda] rnd(t)
+  float* Cs = reinterpret_cast<float*>(base + p.roff_c);   // [kRT][kRLdc] z, g_z
+  float* eqs = reinterpret_cast<float*>(base + p.roff_eq); // [L][D] EQ row i
+  float* rls = reinterpret_cast<float*>(base + p.roff_rl); // [kRT][L]
+  float* red = reinterpret_cast<float*>(base + p.roff_red);  // [8][kRRows][nq][33]
+  float* grl = reinterpret_cast<float*>(base + p.roff_grl);  // [kRT][nq]
+  float* geq = reinterpret_cast<float*>(base + p.roff_geq);  // [8][L][kRN]
+  const TT* __restrict__ t = static_cast<const TT*>(p.t);
+  const NT* __restrict__ ek = static_cast<const NT*>(p.ek);
+
+  // the stream of W_g tiles: tile u is depth stage u % nk of slice u / nk
+  const int nsl = (D + kRN - 1) / kRN, nk = (D + kRK - 1) / kRK;
+  const int n_tiles = nsl * nk;
+  auto load_tile = [&](int u) {
+    const int n0 = u / nk * kRN, k0 = u % nk * kRK;
+    BF* s = ring + (u % kRStages) * kRK * kRLd;
+    for (int c = tid; c < kRK * kRN / 8; c += kThreads) {
+      const int r = c / (kRN / 8), n = 8 * (c % (kRN / 8));
+      int b = k0 + r < D ? D - (n0 + n) : 0;
+      b = b < 0 ? 0 : (b > 8 ? 8 : b);
+      cp_async16(s + r * kRLd + n,
+                 b > 0 ? p.wg_b + (size_t)(k0 + r) * D + n0 + n : p.wg_b,
+                 2 * b);
+    }
+  };
+  for (int u = 0; u < kRStages - 1; ++u) {
+    if (u < n_tiles) load_tile(u);
+    cp_async_commit();
+  }
+
+  // the row's t (rounded; rows past R zero), four values a step; EQ row i;
+  // rl
+#pragma unroll 4
+  for (int e = tid; e < kRT * D / 4; e += kThreads) {
+    const int row = e / (D / 4), c = 4 * (e % (D / 4));
+    float4 val = {0.f, 0.f, 0.f, 0.f};
+    if (row < R) {
+      val = load4(t + (p0 + row) * D + c);
+      if (p.t_f32) store4_bf16(p.tb + (p0 + row) * D + c, val);
+    }
+    store4_bf16(As + row * lda + c, val);
+  }
+  for (int e = tid; e < L * D; e += kThreads) {
+    eqs[e] = to_f(static_cast<const NT*>(p.eq)[i * L * D + e]);
+  }
+  for (int e = tid; e < R * L; e += kThreads) rls[e] = p.rl[p0 * L + e];
+  for (int e = tid; e < R * nq; e += kThreads) grl[e] = 0.f;
+
+  // degree blocks: [0, hi0) and, with separate degrees at lmax 2, [3, L)
+  const int hi0 = p.sep_htr ? min(3, L) : L;
+  const bool two = nb == 2;
+  const int wm = warp / 2, wn = warp % 2, gq = lane / 4, tq = lane % 4;
+  int tile = 0;
+  for (int sl = 0; sl < nsl; ++sl) {
+    // z tile = rnd(t) rnd(W_g)[:, n0 : n0 + kRN]; a warp owns 32 x 32
+    float acc[2][4][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
+      }
+    }
+    for (int kt = 0; kt < nk; ++kt, ++tile) {
+      cp_async_wait<kRStages - 2>();
+      __syncthreads();   // tile is in; every warp is done with tile - 1
+      if (tile + kRStages - 1 < n_tiles) load_tile(tile + kRStages - 1);
+      cp_async_commit();
+      const BF* Ws = ring + (tile % kRStages) * kRK * kRLd;
+      const int k_hi = min(kRK, D - kt * kRK);   // a multiple of 16
+      for (int kk = 0; kk < k_hi; kk += 16) {
+        mma_16816_tile<2, 4, false, true, true>(
+            As + wm * 32 * lda + kt * kRK + kk, lda, Ws + kk * kRLd + wn * 32,
+            kRLd, acc);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          Cs[(wm * 32 + 16 * a + gq + (r >= 2 ? 8 : 0)) * kRLdc + wn * 32 +
+             8 * b + 2 * tq + (r & 1)] = acc[a][b][r];
+        }
+      }
+    }
+    for (int e = tid; e < kRWarps * L * kRN; e += kThreads) geq[e] = 0.f;
+    __syncthreads();
+
+    const int n0 = sl * kRN, w = min(kRN, D - n0);
+    const int cl = 2 * lane, c = n0 + cl;   // this lane's two channels
+    const bool on = cl < w;
+    // the row's EQ values at these channels, rounded, and b_g
+    float e2[2][kRMaxL];
+#pragma unroll
+    for (int m = 0; m < kRMaxL; ++m) {
+      const bool in = on && m < L;
+      e2[0][m] = in ? rnd<true>(eqs[m * D + c]) : 0.f;
+      e2[1][m] = in ? rnd<true>(eqs[m * D + c + 1]) : 0.f;
+    }
+    const float2 bgc = on ? load2(p.bg + c) : float2{0.f, 0.f};
+    // rounds of kRRows pairs a warp, the warps apart from each other; lane
+    // l's g_rl partials meet in the warp's part of `red`, then lanes
+    // 0..nq-1 add the 32 lanes of each pair in order
+    float* rw = red + warp * kRRows * nq * 33;
+    for (int r0 = 0; r0 < R; r0 += kRWarps * kRRows) {
+      // every load of the round first
+      float2 zz[kRRows], gg[kRRows], kk[kRRows][kRMaxL];
+#pragma unroll
+      for (int u = 0; u < kRRows; ++u) {
+        const int row = r0 + warp * kRRows + u;
+        const bool in = on && row < R;
+        const long long pair = p0 + row;
+        zz[u] = in ? float2{Cs[row * kRLdc + cl], Cs[row * kRLdc + cl + 1]}
+                   : float2{0.f, 0.f};
+        gg[u] = in ? load2(p.g + pair * D + c) : float2{0.f, 0.f};
+        const NT* ekj = ek + (j_first + (in ? row : 0)) * L * D + c;
+#pragma unroll
+        for (int m = 0; m < kRMaxL; ++m) {
+          kk[u][m] = in && m < L ? load2(ekj + m * D) : float2{0.f, 0.f};
+        }
+      }
+      float geq_acc[kRMaxL][2];
+#pragma unroll
+      for (int m = 0; m < kRMaxL; ++m) geq_acc[m][0] = geq_acc[m][1] = 0.f;
+#pragma unroll
+      for (int u = 0; u < kRRows; ++u) {
+        const int row = r0 + warp * kRRows + u;
+        const bool in = on && row < R;
+        const long long pair = p0 + row;
+        const float* rlp = rls + (in ? row : 0) * L;
+        float x[kRMaxL], xr[kRMaxL], k[2][kRMaxL];
+#pragma unroll
+        for (int m = 0; m < kRMaxL; m += 2) {
+          x[m] = m < L ? rlp[m] : 0.f;
+          x[m + 1] = m + 1 < L ? rlp[m + 1] : 0.f;
+          xr[m] = x[m];
+          xr[m + 1] = x[m + 1];
+          rnd2<true>(xr[m], xr[m + 1]);
+        }
+#pragma unroll
+        for (int m = 0; m < kRMaxL; ++m) {
+          k[0][m] = kk[u][m].x;
+          k[1][m] = kk[u][m].y;
+          rnd2<true>(k[0][m], k[1][m]);
+        }
+        // the terms of each degree block, both channels at once
+        Terms tm[2][2];   // [block][channel]
+        reg_terms(e2, k, x, xr, 0, hi0, p.rej, tm[0]);
+        if (two) {
+          reg_terms(e2, k, x, xr, 3, L, p.rej, tm[1]);
+        } else {
+          tm[1][0] = tm[1][1] = Terms{0.f, 0.f, 0.f, 0.f};
+        }
+        float rq[2][2];   // rnd(pq pk) [block][channel]
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          rq[b][0] = tm[b][0].pq * tm[b][0].pk;
+          rq[b][1] = tm[b][1].pq * tm[b][1].pk;
+          rnd2<true>(rq[b][0], rq[b][1]);
+        }
+        float g_w[2], g_z[2], gwp[2];
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch) {
+          float wv = 0.f;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            if (b == 0 || two) {
+              wv = p.rej ? wv + tm[b][ch].S - rq[b][ch] * tm[b][ch].a
+                         : wv + tm[b][ch].S;
+            }
+          }
+          const float zv = (ch ? zz[u].y : zz[u].x) + (ch ? bgc.y : bgc.x);
+          const float g = ch ? gg[u].y : gg[u].x;
+          const float sg = sigmoid(zv);
+          const float gwv = gate_fwd(wv, p.gate);
+          g_w[ch] = g * (zv * sg) * gate_grad(wv, gwv, p.gate);
+          g_z[ch] = g * gwv * (sg + zv * sg * (1.f - sg));
+          gwp[ch] = g_w[ch];
+        }
+        rnd2<true>(gwp[0], gwp[1]);
+        float grl_acc[kRMaxL + 2], gpk_out[2][2];
+#pragma unroll
+        for (int q = 0; q < kRMaxL + 2; ++q) grl_acc[q] = 0.f;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          gpk_out[b][0] = gpk_out[b][1] = 0.f;
+          if (b == 1 && !two) continue;
+          const int lo = b ? 3 : 0, hi = b ? L : hi0;
+          float gpq[2], gpk[2], gp[2];
+#pragma unroll
+          for (int ch = 0; ch < 2; ++ch) {
+            gpq[ch] = -(g_w[ch] * tm[b][ch].pk) * tm[b][ch].a;
+            gpk[ch] = -(g_w[ch] * tm[b][ch].pq) * tm[b][ch].a;
+            gp[ch] = gpq[ch];
+            gpk_out[b][ch] = gpk[ch];
+          }
+          rnd2<true>(gp[0], gp[1]);
+          if (p.rej) {
+            grl_acc[kRMaxL + b] += g_w[0] * rq[b][0];
+            grl_acc[kRMaxL + b] += g_w[1] * rq[b][1];
+          }
+#pragma unroll
+          for (int m = 0; m < kRMaxL; ++m) {
+            if (m < lo || m >= hi) continue;
+            float v0 = gwp[0] * k[0][m], v1 = gwp[1] * k[1][m];
+            rnd2<true>(v0, v1);
+            if (p.rej) {
+              float q0 = gp[0] * xr[m], q1 = gp[1] * xr[m];
+              rnd2<true>(q0, q1);
+              v0 += q0;
+              v1 += q1;
+              rnd2<true>(v0, v1);
+              grl_acc[m] += gpq[0] * e2[0][m] + gpk[0] * k[0][m];
+              grl_acc[m] += gpq[1] * e2[1][m] + gpk[1] * k[1][m];
+            }
+            geq_acc[m][0] += v0;
+            geq_acc[m][1] += v1;
+          }
+        }
+        if (in) {
+          store2_bf16(p.gw_b + pair * D + c, g_w[0], g_w[1]);
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            if (b == 0 || two) {
+              store2_bf16(p.gpk_b + (pair * nb + b) * D + c, gpk_out[b][0],
+                          gpk_out[b][1]);
+            }
+          }
+          *reinterpret_cast<float2*>(p.gt + pair * D + c) = gg[u];
+          store2_bf16(p.gz_b + pair * D + c, g_z[0], g_z[1]);
+          Cs[row * kRLdc + cl] = g_z[0];
+          Cs[row * kRLdc + cl + 1] = g_z[1];
+        }
+        float* ru = rw + u * nq * 33;
+#pragma unroll
+        for (int m = 0; m < kRMaxL; ++m) {
+          if (m < L) ru[m * 33 + lane] = grl_acc[m];
+        }
+        ru[L * 33 + lane] = grl_acc[kRMaxL];
+        if (two) ru[(L + 1) * 33 + lane] = grl_acc[kRMaxL + 1];
+      }
+      if (on) {
+#pragma unroll
+        for (int m = 0; m < kRMaxL; ++m) {
+          if (m < L) {
+            float* gm = geq + (warp * L + m) * kRN + cl;
+            gm[0] += geq_acc[m][0];
+            gm[1] += geq_acc[m][1];
+          }
+        }
+      }
+      __syncwarp();
+      for (int u = 0; u < kRRows; ++u) {
+        const int row = r0 + warp * kRRows + u;
+        if (row < R && lane < nq) {
+          const float* ru = rw + (u * nq + lane) * 33;
+          float sum = 0.f;
+          for (int l = 0; l < 32; ++l) sum += ru[l];
+          grl[row * nq + lane] += sum;
+        }
+      }
+      __syncwarp();   // the warp's part of `red` is written again next round
+    }
+    __syncthreads();
+    // g_EQ[i, :, n0 + c]: the 8 warps' partials in order; the row's sums
+    // of g_z, its pairs in order
+    for (int e = tid; e < L * w; e += kThreads) {
+      const int m = e / w, ce = e % w;
+      float sum = 0.f;
+      for (int wp = 0; wp < kRWarps; ++wp) sum += geq[(wp * L + m) * kRN + ce];
+      p.geq[(i * L + m) * D + n0 + ce] = sum;
+    }
+    for (int ce = tid; ce < w; ce += kThreads) {
+      float sum = 0.f;
+      for (int row = 0; row < R; ++row) sum += Cs[row * kRLdc + ce];
+      p.bpart[i * D + n0 + ce] = sum;
+    }
+    __syncthreads();   // Cs and geq are reused by the next slice
+  }
+  for (int e = tid; e < R * L; e += kThreads) {
+    const int row = e / L, m = e % L;
+    int b = 0;
+    while (m >= block_hi(p, b)) ++b;
+    p.grl[(p0 + row) * L + m] =
+        p.rej ? grl[row * nq + m] + 2.f * rls[row * L + m] * grl[row * nq + L + b]
+              : 0.f;
+  }
+  cp_async_wait<0>();
+}
+
+// ---- g_EK after the row pass: a thread per (EK row n, channel c) -----------
+// g_EK[n, m, c] = sum over i of rnd(rnd(g_w) rnd(EQ[i, m, c])) (+ rnd(g_pk)
+// rnd(rl[m]), rounded, with the rejection terms) over the pairs (i, n) of
+// n's graph in order of i, from the rounded g_w and g_pk the row pass wrote
+// (each pair's terms are formed once, there); two pairs' loads in flight
+template <typename NT>
+__global__ void __launch_bounds__(kThreads) col_bwd_kernel(const Params p) {
+  const int R = p.R, D = p.D, L = p.L, nb = n_blocks(p);
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (long long)p.n_ek * D) return;
+  const int c = (int)(e % D);
+  const long long n = e / D, first = n / R * R, at = n % R;
+  const NT* eq = static_cast<const NT*>(p.eq);
+  const int hi0 = p.sep_htr ? min(3, L) : L;
+  float acc[kRMaxL];
+#pragma unroll
+  for (int m = 0; m < kRMaxL; ++m) acc[m] = 0.f;
+  auto add = [&](long long i) {
+    const long long pair = (first + i) * R + at;
+    const float gwp = to_f(p.gw_b[pair * D + c]);
+    const float gp0 = p.rej ? to_f(p.gpk_b[pair * nb * D + c]) : 0.f;
+    const float gp1 = p.rej && nb == 2 ? to_f(p.gpk_b[(pair * nb + 1) * D + c]) : 0.f;
+    const NT* eqi = eq + (first + i) * L * D + c;
+    const float* rlp = p.rl + pair * L;
+    float x[kRMaxL];
+#pragma unroll
+    for (int m = 0; m < kRMaxL; ++m) x[m] = m < L ? to_f(eqi[m * D]) : 0.f;
+#pragma unroll
+    for (int m = 0; m < kRMaxL; ++m) {
+      if (m < L) {
+        float v = rnd<true>(gwp * rnd<true>(x[m]));
+        if (p.rej) {
+          const float gp = m < hi0 ? gp0 : gp1;
+          v = rnd<true>(v + rnd<true>(gp * rnd<true>(rlp[m])));
+        }
+        acc[m] += v;
+      }
+    }
+  };
+  int i = 0;
+  for (; i + 1 < R; i += 2) {
+    add(i);
+    add(i + 1);
+  }
+  if (i < R) add(i);
+#pragma unroll
+  for (int m = 0; m < kRMaxL; ++m) {
+    if (m < L) p.gek[(n * L + m) * D + c] = acc[m];
+  }
+}
+
 // ---- host side ----------------------------------------------------------------
 // workspace layout, in floats
 struct Layout {
-  size_t gz, gw, part, bf, total;
+  size_t gz, gw, part, bf, wg, bpart, total;
 };
 
-Layout layout(long long P, int D) {
+Layout layout(long long P, int D, int n_eq) {
   Layout w;
   w.gz = 0;
   w.gw = w.gz + (size_t)P * D;
   w.part = up4(w.gw + (size_t)P * D);
   w.bf = up4(w.part + part_floats(P, D, D));
-  w.total = w.bf + up8((size_t)P * D);   // two bf16 [P, D] copies
+  w.wg = w.bf + up8((size_t)P * D);      // two bf16 [P, D] copies
+  w.bpart = w.wg + up8((size_t)D * D) / 2;   // bf16 W_g
+  w.total = w.bpart + (size_t)n_eq * D;
   return w;
+}
+
+// the row pass's shared arrays, byte offsets; returns the total
+size_t row_smem_layout(Params& p) {
+  auto up16 = [](size_t x) { return (x + 15) / 16 * 16; };
+  const size_t nq = (size_t)p.L + (p.sep_htr ? p.lmax : 1);
+  size_t off = up16((size_t)kRStages * kRK * kRLd * 2);
+  p.roff_a = (int)off;
+  off = up16(off + (size_t)kRT * (p.D + kPadBF) * 2);
+  p.roff_c = (int)off;
+  off += (size_t)kRT * kRLdc * sizeof(float);
+  p.roff_eq = (int)off;
+  off += (size_t)p.L * p.D * sizeof(float);
+  p.roff_rl = (int)off;
+  off += (size_t)kRT * p.L * sizeof(float);
+  p.roff_red = (int)off;
+  off += (size_t)kRWarps * kRRows * nq * 33 * sizeof(float);
+  p.roff_grl = (int)off;
+  off += (size_t)kRT * nq * sizeof(float);
+  p.roff_geq = (int)off;
+  off += (size_t)kRWarps * p.L * kRN * sizeof(float);
+  p.rsmem = (int)off;
+  return off;
+}
+
+// Dense, bf16 pair type, whole EQ rows in one tile: the row pass, then g_EK,
+// g_t, g_W_g and g_b_g; returns the first CUDA error.
+template <typename TT, typename NT>
+cudaError_t row_backward(Params p, int t_bf16, cudaStream_t s) {
+  const int D = p.D;
+  // the row path needs no float32 g_z or g_w: their room holds the bf16
+  // rnd(g_w) [P, D] and rnd(g_pk) [P, nb <= 2, D]
+  p.gw_b = reinterpret_cast<__nv_bfloat16*>(p.gz);
+  p.gpk_b = reinterpret_cast<__nv_bfloat16*>(p.gw);
+  CHECK(to_bf16_copy(p.wg, (long long)D * D, p.wg_b, s));
+  p.t_f32 = !t_bf16;
+  auto kern = row_bwd_kernel<TT, NT>;
+  CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.rsmem));
+  CHECK(run(kern, dim3((unsigned)p.n_eq), p.rsmem, p, s));
+  // g_EK from the rounded g_w and g_pk
+  CHECK(run(col_bwd_kernel<NT>, dim3(blocks_for((long long)p.n_ek * D)), 0, p,
+            s));
+  // g_t = g + rnd(g_z) rnd(W_g)^T (the row pass wrote g into g_t)
+  Product gt{};
+  gt.a = p.gz_b; gt.a_sm = D; gt.a_sk = 1; gt.a_bf16 = 1;
+  gt.b = p.wg_b; gt.b_sk = 1; gt.b_sn = D; gt.b_bf16 = 1;
+  gt.out = p.gt; gt.o_sm = D;
+  gt.rows = (int)p.P; gt.cols = D; gt.depth = D; gt.accumulate = 1;
+  CHECK(product<true>(gt, s));
+  // g_W_g = rnd(t)^T rnd(g_z), through the bf16 copies
+  Product gw{};
+  gw.a = t_bf16 ? p.t : p.tb; gw.a_sm = 1; gw.a_sk = D; gw.a_bf16 = 1;
+  gw.b = p.gz_b; gw.b_sk = D; gw.b_sn = 1; gw.b_bf16 = 1;
+  gw.out = p.gwg; gw.rows = D; gw.cols = D; gw.depth = (int)p.P;
+  CHECK(product_over_pairs<true>(gw, p.part, s));
+  // g_b_g: the rows' sums of g_z, in order
+  constexpr int kWarps = kThreads / 32;
+  return run(strip_sum_kernel, dim3((unsigned)((D + kWarps - 1) / kWarps)),
+             (size_t)kWarps * kLanePad * sizeof(float),
+             PartSum{p.bpart, p.gbg, D, p.n_eq}, s);
 }
 
 // pass A's shared arrays, byte offsets; returns the total
@@ -297,8 +793,13 @@ size_t rl_smem_bytes(const Params& p) {
 }
 
 template <bool kEll, bool kBF, typename TT, typename NT>
-cudaError_t backward(const Params& p, int t_bf16, cudaStream_t s) {
+cudaError_t backward(Params p, int t_bf16, cudaStream_t s) {
   const int D = p.D;
+  if constexpr (!kEll && kBF) {
+    if (p.R <= kRT && p.lmax <= 2 && row_smem_layout(p) <= kMaxSmem) {
+      return row_backward<TT, NT>(p, t_bf16, s);
+    }
+  }
   // A. g_w, g_z, g_t
   auto pair_kern = pair_bwd_kernel<kEll, kBF, TT, NT>;
   CHECK(cudaFuncSetAttribute(pair_kern,
@@ -350,10 +851,12 @@ int launch_backward(Params& p, float* work, int pair_bf16, int t_bf16,
     return (int)cudaErrorInvalidValue;
   if (smem_layout(p, pair_bf16 != 0) > kMaxSmem) return (int)cudaErrorInvalidValue;
   p.rl_pairs = rl_pairs_for(p.L, p.sep_htr ? p.lmax : 1);
-  const Layout w = layout(p.P, p.D);
+  const Layout w = layout(p.P, p.D, p.n_eq);
   p.gz = work + w.gz; p.gw = work + w.gw; p.part = work + w.part;
   p.tb = reinterpret_cast<__nv_bfloat16*>(work + w.bf);
   p.gz_b = p.tb + up8((size_t)p.P * p.D);
+  p.wg_b = reinterpret_cast<__nv_bfloat16*>(work + w.wg);
+  p.bpart = work + w.bpart;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   using BF = __nv_bfloat16;

@@ -44,7 +44,7 @@ cudaError_t run(K kern, dim3 grid, size_t smem, const A& args,
 // Workspace bytes the backward needs for these shapes.
 extern "C" long long gotennet_fused_htr_ell_bwd_workspace(int NR, int K,
                                                           int D) {
-  return (long long)(layout((long long)NR * K, D).total * sizeof(float));
+  return (long long)(layout((long long)NR * K, D, NR).total * sizeof(float));
 }
 
 // Launches on `stream` and allocates nothing (`work` holds at least

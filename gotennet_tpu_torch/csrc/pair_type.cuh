@@ -1,6 +1,7 @@
-// Device code shared by every kernel of the port: the pair type's rounding
-// and the one tensor-core product helper, `mma.sync.m16n8k16` with bf16
-// factors and float32 sums.  A build for the host (no __CUDA_ARCH__) forms
+// Device code shared by every kernel of the port: the pair type's rounding,
+// the one tensor-core product helper, `mma.sync.m16n8k16` with bf16
+// factors and float32 sums, and the 16-byte cp.async that stages its
+// factors.  A build for the host (no __CUDA_ARCH__) forms
 // the same sums of exact bf16 products one accumulator slot at a time, in k
 // order, so the host tests run the same code.
 
@@ -18,6 +19,55 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// 2 or 4 consecutive values as float32, from float32 or bf16 storage
+// aligned to their size (8 or 16 bytes as float32, 4 or 8 as bf16): one
+// vector load on the card; and 2 or 4 float32 values rounded to bf16 (round
+// to nearest even) in one store
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return *reinterpret_cast<const float2*>(p);
+  } else {
+#if defined(__CUDA_ARCH__)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+#else
+    return float2{to_f(p[0]), to_f(p[1])};
+#endif
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    const float2 a = load2(p), b = load2(p + 2);
+    return float4{a.x, a.y, b.x, b.y};
+  }
+}
+
+__device__ __forceinline__ void store2_bf16(__nv_bfloat16* p, float a,
+                                            float b) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+#else
+  p[0] = __float2bfloat16(a);
+  p[1] = __float2bfloat16(b);
+#endif
+}
+
+__device__ __forceinline__ void store4_bf16(__nv_bfloat16* p, float4 v) {
+#if defined(__CUDA_ARCH__)
+  uint2 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v.x, v.y);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = u;
+#else
+  store2_bf16(p, v.x, v.y);
+  store2_bf16(p + 2, v.z, v.w);
+#endif
+}
+
 // round to the pair type (round to nearest even), keep computing in float32
 template <bool kBF>
 __device__ __forceinline__ float rnd(float x) {
@@ -25,6 +75,22 @@ __device__ __forceinline__ float rnd(float x) {
     return __bfloat162float(__float2bfloat16(x));
   } else {
     return x;
+  }
+}
+
+
+// rnd of two values at once: one packed conversion on the card
+template <bool kBF>
+__device__ __forceinline__ void rnd2(float& a, float& b) {
+  if constexpr (kBF) {
+#if defined(__CUDA_ARCH__)
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    a = __low2float(h);
+    b = __high2float(h);
+#else
+    a = rnd<true>(a);
+    b = rnd<true>(b);
+#endif
   }
 }
 
@@ -133,6 +199,36 @@ __device__ __forceinline__ void mma_16816_tile(const __nv_bfloat16* A,
       }
     }
   }
+#endif
+}
+
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async), zero-filled past `bytes`; the host build copies at once
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(bytes));
+#else
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  for (int i = 0; i < 16; ++i) {
+    d[i] = i < bytes ? static_cast<const unsigned char*>(src)[i] : 0;
+  }
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 #endif
 }
 

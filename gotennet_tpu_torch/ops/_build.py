@@ -88,8 +88,11 @@ def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if source == "fused_gata_fwd.cu":
         fn = lib.gotennet_fused_gata_fwd
-        fn.argtypes = [ptr] * 16 + [i32] * 11 + [ptr]
+        fn.argtypes = [ptr] * 17 + [i32] * 11 + [ptr]
         fn.restype = i32
+        fn = lib.gotennet_fused_gata_fwd_workspace
+        fn.argtypes = [i32] * 7
+        fn.restype = i64
     elif source == "fused_gata_bwd.cu":
         fn = lib.gotennet_fused_gata_bwd
         fn.argtypes = [ptr] * 30 + [i32] * 11 + [ptr]

@@ -436,20 +436,33 @@ def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
 def _call_kernel(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
                  W_re, b_re, W_rs, b_rs, d_h, dX, sm, *, lmax, num_heads,
                  sep_dir, sep_tensor, pair_dtype) -> None:
-    """One launch through the C interface on ``stream``; raises on the
-    launch's CUDA error.  Arguments are validated by the caller."""
+    """One forward through the C interface on ``stream``, with a workspace
+    of the size the library asks for (the bf16 weights); raises on a CUDA
+    error.  Arguments are validated by the caller."""
     bf16 = torch.bfloat16
     G, M, _, D = t.shape
+    t, q, k, x_g, v, X, b_re, b_rs = (aligned(a) for a in (
+        t, q, k, x_g, v, X, b_re, b_rs))
+    n_bytes = lib.gotennet_fused_gata_fwd_workspace(
+        G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=t.device)
     err = lib.gotennet_fused_gata_fwd(
         t.data_ptr(), q.data_ptr(), k.data_ptr(), x_g.data_ptr(),
         v.data_ptr(), rl.data_ptr(), X.data_ptr(), env_signed.data_ptr(),
         scale.data_ptr(), W_re.data_ptr(), b_re.data_ptr(), W_rs.data_ptr(),
         b_rs.data_ptr(), d_h.data_ptr(), dX.data_ptr(),
-        sm.data_ptr() if sm is not None else None,
+        sm.data_ptr() if sm is not None else None, work.data_ptr(),
         G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
         int(scale.dim() == 4), int(pair_dtype == bf16), int(t.dtype == bf16),
         int(q.dtype == bf16), stream)
     _raise_on(lib, err, "fused_gata_fwd")
+
+
+def aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a``, or a copy of it when its data do not start on a 16-byte
+    boundary (a view with an offset): the kernels load 16 bytes at a time."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _raise_on(lib, err: int, name: str) -> None:

@@ -49,7 +49,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from gotennet_tpu_torch.ops.fused_ell import Slots, _checked_slots
-from gotennet_tpu_torch.ops.fused_gata import _check, _check_shapes, _raise_on
+from gotennet_tpu_torch.ops.fused_gata import (_check, _check_shapes, _raise_on,
+                                              aligned)
 from gotennet_tpu_torch.ops.spherical import degree_slices
 
 __all__ = ["fused_htr", "FusedHTR", "fused_htr_forward",
@@ -405,6 +406,7 @@ def _call_backward(lib, stream, t, EQ, EK, rl, W_g, b_g, g, outs,
     library asks for; raises on a CUDA error.  Arguments are validated by
     the caller."""
     G, M, _, D = t.shape
+    t, EQ, EK, b_g, g = (aligned(a) for a in (t, EQ, EK, b_g, g))
     n_bytes = lib.gotennet_fused_htr_bwd_workspace(G, M, D)
     work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
                        device=t.device)

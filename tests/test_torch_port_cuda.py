@@ -294,6 +294,48 @@ def test_htr_kernels_match_plain(card, M, D, lmax, variant, pd, td, nd):
     assert torch.all(g_EQ[0, M - 3:] == 0) and torch.all(g_EK[0, M - 3:] == 0)
 
 
+# The two kernels redesigned for the tensor cores at the MD22 chunk's shape
+# (G = 4, M = 120, flagship widths), against their plain versions at the
+# tolerances above and run twice: the same bits (every sum has one owner).
+@pytest.mark.parametrize("head_scale", [False, True])
+def test_gata_forward_at_md22_reruns_bit_identical(card, head_scale):
+    M = 120
+    args = inputs(card, 4, M, 256, 8, 2, True, True, head_scale,
+                  torch.bfloat16, seed=7)
+    kw = dict(lmax=2, num_heads=8, sep_dir=True, sep_tensor=True,
+              pair_dtype=torch.bfloat16, with_attn=True)
+    got = fused_gata_forward(*args, **kw)
+    again = fused_gata_forward(*args, **kw)
+    torch.cuda.synchronize()
+    want = fused_gata_forward_reference(*args, **kw)
+    for g, w, name in zip(got, want, ("d_h", "dX", "sm")):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-2 * w.abs().max().item(), (name, err)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.all(got[2][0, M - 3:] == 0) and torch.all(got[0][0, M - 3:] == 0)
+
+
+@pytest.mark.parametrize("gate,td", [("", torch.float32),
+                                     ("gated", torch.bfloat16)])
+def test_htr_backward_at_md22_reruns_bit_identical(card, gate, td):
+    M = 120
+    args, g = htr_inputs(card, 4, M, 256, 2, td, torch.bfloat16, seed=5)
+    kw = dict(lmax=2, sep_htr=True, rej=True, gate=gate,
+              pair_dtype=torch.bfloat16)
+    got = fused_htr_backward(*args, g, **kw)
+    again = fused_htr_backward(*args, g, **kw)
+    torch.cuda.synchronize()
+    want = fused_htr_backward_reference(*args, g, **kw)
+    for i, (a, w) in enumerate(zip(got, want)):
+        err = (a - w).abs().max().item()
+        assert err <= 1e-2 * max(w.abs().max().item(), 1e-30), (i, err)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    g_t, g_EQ, g_EK, g_rl = got[:4]
+    for a in (g_t, g_rl):
+        assert torch.all(a[0, M - 3:] == 0) and torch.all(a[0, :, M - 3:] == 0)
+    assert torch.all(g_EQ[0, M - 3:] == 0) and torch.all(g_EK[0, M - 3:] == 0)
+
+
 def test_htr_kernel_checks_arguments(card):
     args, _ = htr_inputs(card, 1, 8, 32, 2, torch.float32, torch.float32)
     kw = dict(lmax=2, sep_htr=True, rej=True, gate="")

@@ -237,3 +237,41 @@ def test_cuda_backward_on_host_matches_plain(host_bwd, case):
     for name, got, w in zip(NAMES, outs, want):
         _assert_close(got.numpy(), w.numpy(), tol, name)
     assert_padded_zeros(outs, case["M"])
+
+
+# The backward's block shapes, each held against the plain version and run
+# twice (the same bytes: every sum has one owner): the row pass with one
+# 120-pair row a block, with a last round of warps that finds fewer pairs
+# than warps, with a float32 t (it writes t's bf16 copy itself), and at
+# lmax 1 without the rejection terms; rows longer than its 128-pair tile
+# and the float32 pair type take the passes the ELL backward shares.
+@pytest.mark.parametrize("case", [
+    dict(G=1, M=120, D=32, lmax=2, v=FLAGSHIP, pd=torch.bfloat16,
+         t=torch.bfloat16, node=torch.bfloat16),
+    dict(G=2, M=13, D=64, lmax=2, v=dict(sep_htr=True, rej=True,
+                                         gate="gated"),
+         pd=torch.bfloat16, t=torch.float32, node=torch.float32),
+    dict(G=1, M=136, D=32, lmax=1, v=FLAGSHIP, pd=torch.bfloat16,
+         t=torch.float32, node=torch.bfloat16),
+    dict(G=2, M=10, D=32, lmax=2, v=FLAGSHIP, pd=torch.float32,
+         t=torch.float32, node=torch.bfloat16),
+    dict(G=1, M=16, D=32, lmax=1, v=dict(sep_htr=True, rej=False,
+                                         gate="act"),
+         pd=torch.bfloat16, t=torch.float32, node=torch.bfloat16),
+], ids=["md22-row", "ragged-round", "long-row", "f32", "lmax1-norej"])
+def test_cuda_backward_on_host_block_shapes_rerun(host_bwd, case):
+    args, g, kw = _host_case(case)
+    want = fused_htr_backward_reference(*args, g, **kw)
+    L = args[3].shape[-1]
+    runs = []
+    for _ in range(2):
+        outs = fused_htr.backward_outputs(args[0], L)
+        for o in outs:
+            o.fill_(math.nan)
+        fused_htr._call_backward(host_bwd, None, *args, g, outs, **kw)
+        runs.append(outs)
+    tol = 1e-2 if case["pd"] == torch.bfloat16 else 1e-5
+    for name, g1, g2, w in zip(NAMES, *runs, want):
+        _assert_close(g1.numpy(), w.numpy(), tol, name)
+        assert g1.numpy().tobytes() == g2.numpy().tobytes(), name
+    assert_padded_zeros(runs[0], case["M"])

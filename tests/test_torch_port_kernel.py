@@ -128,6 +128,10 @@ inline thread_local uint3_ threadIdx;
 inline thread_local uint3_ blockIdx;
 inline std::barrier<>* g_bar;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+// the kernels call it in code every warp of the block runs alike, so the
+// block's barrier stands in for the warp's
+inline void __syncwarp(unsigned = 0xffffffffu) { g_bar->arrive_and_wait(); }
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 namespace { float4 smem4[16384]; }
 typedef int cudaError_t;
@@ -177,7 +181,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
   unsigned u; std::memcpy(&u, &f, 4); u += 0x7FFFu + ((u >> 16) & 1u);
   return {(unsigned short)(u >> 16)}; }
 """
-_LAUNCH = "kern<<<grid, kThreads, p.smem, stream>>>(p);"
+_LAUNCH = "kern<<<grid, kThreads, smem, stream>>>(args);"
 
 
 def build_on_host(directory, source, launch):
@@ -250,3 +254,43 @@ def test_cuda_source_on_host_matches_plain(host_build, case):
     for got, want, name in ((d_h, w_dh, "d_h"), (dX, w_dx, "dX"),
                             (sm, w_sm, "sm")):
         _assert_close(got.numpy(), want.numpy(), 1e-5, name)
+
+
+# The block shapes of the tensor-core path, each held against the plain
+# version and run twice (the same bytes: every sum has one owner):
+# several destination rows a block with the columns split over blocks
+# (blockIdx.z), a ragged last slab with slices that do not fill 128
+# columns and a head that spans two slices, one 120-pair row a block, and
+# the float32 pair type's 32-column path.  Float32: 1e-5 of the scale, as
+# above.  bf16: the softmax's sums run in another order than the plain
+# version's, and an attention weight or a pair term that lands next to a
+# rounding boundary can round to the neighbouring bf16 value (2^-8 of one
+# term of a sum over up to 120 pairs) -> 1e-3 of the scale.
+@pytest.mark.parametrize("case", [
+    dict(G=1, M=16, D=256, H=8, lmax=2, pd=torch.bfloat16, t=torch.float32),
+    dict(G=2, M=20, D=160, H=4, lmax=2, pd=torch.bfloat16, t=torch.bfloat16),
+    dict(G=1, M=120, D=32, H=4, lmax=2, pd=torch.bfloat16, t=torch.float32),
+    dict(G=2, M=12, D=64, H=4, lmax=2, pd=torch.float32, t=torch.float32),
+], ids=["qm9-slab-split", "ragged-slab", "md22-row", "f32"])
+def test_cuda_source_on_host_block_shapes_rerun(host_build, case):
+    G, M, D, H, lmax = (case[k] for k in ("G", "M", "D", "H", "lmax"))
+    a = [torch.from_numpy(x) for x in kernel_inputs(
+        5, G, M, D, H, lmax, True, True, True)]
+    a[0] = a[0].to(case["t"])
+    for i in (1, 2, 3, 4):
+        a[i] = a[i].to(torch.bfloat16)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=True, sep_tensor=True,
+              pair_dtype=case["pd"])
+    want = fused_gata_forward_reference(*a, **kw, with_attn=True)
+    L = (lmax + 1) ** 2 - 1
+    runs = []
+    for _ in range(2):
+        got = (torch.full((G, M, D), math.nan),
+               torch.full((G, M, L, D), math.nan),
+               torch.full((G, M, M, H), math.nan))
+        fused_gata._call_kernel(host_build, None, *a, *got, **kw)
+        runs.append(got)
+    tol = 1e-3 if case["pd"] == torch.bfloat16 else 1e-5
+    for name, g1, g2, w in zip(("d_h", "dX", "sm"), *runs, want):
+        _assert_close(g1.numpy(), w.numpy(), tol, name)
+        assert g1.numpy().tobytes() == g2.numpy().tobytes(), name
