@@ -62,7 +62,7 @@ Phases, in order; any failure exits non-zero before the result line:
      PyTorch version at N = 704 rows, K = 36 slots, D = 256, H = 8, lmax 2,
      float32 and bf16 pair types, scalar and per-head scale, a third of the
      slots and the last 8 rows padded, and a case with fewer rows than
-     table rows;
+     table rows; the same bits from a second run;
  13. ELL HTR kernel vs plain: the same shapes, the flagship grammar and the
      sigmoid-gated variant, float32 and bf16 (every slot compared);
  14. ELL serving: the flagship model with ``fused_htr=True`` answers 8
@@ -73,7 +73,8 @@ Phases, in order; any failure exits non-zero before the result line:
      layers of the message and x 3 of the HTR update; the answers are held
      against the same model run through both plain versions; the request is
      timed (CUDA events) and profiled, and both kernels timed on the inputs
-     the request gave them;
+     the request gave them, the message split per launch (``[passes]``: the
+     bf16 weights and tables, then the message kernel);
  15. ELL message backward kernel vs plain: at phase 12's shapes and cases,
      all 13 cotangents, exact zeros for g_t, g_rl, g_env and g_scale at
      padded slots, and the same bits from a second run;
@@ -85,7 +86,8 @@ Phases, in order; any failure exits non-zero before the result line:
      both backward plain versions; three steps are timed after two warm-up
      steps (CUDA events), with real edges per second, the device's busy share
      of a step (``torch.profiler``) and both backward kernels timed on the
-     inputs a step gave them, beside their plain versions and bounds;
+     inputs a step gave them, beside their plain versions and bounds, and
+     both split per pass (``[passes]``);
  18. GATA backward with position cotangents vs plain: ``pos_grads=True``
      (g_rl and g_env, the half forces need) at M 16/24/32 (G=16) and
      112/120 (G=4), float32 and bf16, scalar and per-head scale: all 13
@@ -103,7 +105,7 @@ Phases, in order; any failure exits non-zero before the result line:
  20. ELL forces: phase 14's 8 frames of 600-700 atoms, one per chunk,
      through ``predict_with_forces(layout="ell")``: 32 ELL message and 24
      ELL HTR launches each way, energies and forces held against the plain
-     path, timed and profiled;
+     path, timed and profiled, the ELL HTR backward split per pass;
  21. the backward kernels' product alone: ``PRODUCT_SOURCE`` (the product
      and column sums of ``csrc/bwd_sums.cuh`` behind a plain C interface)
      at the MD22 chunk's 57,600 pairs and the ELL chunk's 25,344 slots, the
@@ -111,10 +113,11 @@ Phases, in order; any failure exits non-zero before the result line:
      same bf16-rounded factors (and the column sums against a float64 sum),
      twice (the same bits), then timed beside torch.matmul of the same six
      bf16 products (a yardstick only: the port never calls it); and the
-     yardsticks of the GATA forward and the HTR backward: torch.matmul of
-     their products from bf16 factors (t W_re and t W_rs at 57,600 pairs
-     and at each QM9 request launch's pairs; t W_g, g_z W_g^T and t^T g_z at
-     57,600 pairs), each logged beside the kernel's own ms a launch.
+     yardsticks of every kernel's products: torch.matmul from bf16 factors
+     of the message forwards' t W_re and t W_rs (57,600 pairs, each QM9
+     request launch's pairs, 25,344 ELL slots), the HTR backwards' t W_g,
+     g_z W_g^T and t^T g_z and the HTR forwards' t W_g (57,600 pairs and
+     25,344 slots), each logged beside the kernel's own ms a launch.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -462,15 +465,18 @@ def matmul_ms(shapes) -> float:
 
 
 def yardsticks(card, qm9_shapes) -> None:
-    """Phase 21, second half: torch.matmul of the redesigned kernels'
-    products from bf16 factors, logged beside each kernel's own ms a launch
-    (yardsticks only: the port never calls them).  Row 1's two projections
-    t W_re and t W_rs at the MD22 chunk's 57,600 pairs and at the pairs of
-    each launch of the 256-molecule QM9 request (``qm9_shapes``, the shapes
-    of t); row 4's three products t W_g, g_z W_g^T and t^T g_z at 57,600
-    pairs."""
+    """Phase 21, second half: torch.matmul of each kernel's products from
+    bf16 factors, logged beside the kernel's own ms a launch (yardsticks
+    only: the port never calls them).  The message forwards' two
+    projections t W_re and t W_rs (row 1 at the MD22 chunk's 57,600 pairs
+    and at the pairs of each launch of the 256-molecule QM9 request,
+    ``qm9_shapes``, the shapes of t; row 5 at the ELL chunk's 25,344
+    slots); the HTR backwards' three products t W_g, g_z W_g^T and t^T g_z
+    (row 4 at 57,600 pairs, row 8 at 25,344 slots); the HTR forwards' t W_g
+    (row 3 at 57,600 pairs, row 7 at 25,344 slots)."""
     C = (1 + 2 * LMAX) * D
     P = MD22_CHUNK * 120 * 120
+    S = ELL_N * ELL_K
     rows = [("fused_gata_fwd, MD22 request", f"t W_re + t W_rs at P={P}",
              matmul_ms([(P, D, D), (P, D, C)]))]
     by_pairs = {}
@@ -482,9 +488,15 @@ def yardsticks(card, qm9_shapes) -> None:
     rows.append(("fused_gata_fwd, QM9 request",
                  f"t W_re + t W_rs, mean over the {len(qm9_shapes)} launches "
                  f"(P {sorted(by_pairs)})", total / max(len(qm9_shapes), 1)))
-    rows.append(("fused_htr_bwd, MD22 step",
-                 f"t W_g + g_z W_g^T + t^T g_z at P={P}",
-                 matmul_ms([(P, D, D), (P, D, D), (-D, P, D)])))
+    rows.append(("fused_ell_fwd, ELL request", f"t W_re + t W_rs at P={S}",
+                 matmul_ms([(S, D, D), (S, D, C)])))
+    for kernel, n in (("fused_htr_bwd, MD22 step", P),
+                      ("fused_htr_ell_bwd, ELL step", S)):
+        rows.append((kernel, f"t W_g + g_z W_g^T + t^T g_z at P={n}",
+                     matmul_ms([(n, D, D), (n, D, D), (-D, n, D)])))
+    for kernel, n in (("fused_htr_fwd, MD22 request", P),
+                      ("fused_htr_ell_fwd, ELL request", S)):
+        rows.append((kernel, f"t W_g at P={n}", matmul_ms([(n, D, D)])))
     for kernel, what, ms in rows:
         own = KERNEL_MS.get(kernel)
         log(f"[yardstick] {kernel}: torch.matmul of {what} from bf16 factors "
@@ -1113,6 +1125,7 @@ def md22_serve_phase(cfg, head, card) -> dict:
         capture(fused_htr, "fused_htr_forward", lambda: pred.predict(mols)),
         htr, fused_htr.fused_htr_forward_reference, htr_fwd_bound_ms, card)
     record["launches"] = launches[1]
+    KERNEL_MS["fused_htr_fwd, MD22 request"] = record["ms"]
     return record
 
 
@@ -1238,7 +1251,7 @@ def ell_message_inputs(NR, N, head_scale, seed) -> list:
 
 def check_ell_message() -> None:
     """Phase 12: the ELL message kernel against its plain version; padded
-    rows get exact zeros."""
+    rows get exact zeros, and a rerun gives the same bits."""
     from gotennet_tpu_torch.ops import fused_ell
     cases = [(ELL_N, ELL_N, pd, hs) for pd in (torch.float32, torch.bfloat16)
              for hs in (False, True)]
@@ -1248,7 +1261,10 @@ def check_ell_message() -> None:
         kw = dict(lmax=LMAX, num_heads=H, sep_dir=True, sep_tensor=True,
                   pair_dtype=pd, with_attn=True)
         got = fused_ell.fused_ell_forward(*args, **kw)
+        again = fused_ell.fused_ell_forward(*args, **kw)
         torch.cuda.synchronize()
+        if not same_bits(got, again):
+            raise AssertionError("ELL message differs between runs")
         want = fused_ell.fused_ell_forward_reference(*args, **kw)
         tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
         errs = [rel_err(g, w) for g, w in zip(got, want)]
@@ -1366,14 +1382,16 @@ def ell_serve_phase(cfg, head, card) -> list:
             ("fused_htr_ell_fwd", fused_htr, "fused_htr_ell_forward", htr,
              fused_htr.fused_htr_ell_forward_reference, htr_ell_fwd_bound_ms,
              "gotennet_tpu/ops/pallas/fused_htr.py:339")):
+        captured = capture(module, fn_name, lambda: pred.predict(mols))
         record = kernel_record(
             {"name": name, "route": "cuda",
              "source": f"gotennet_tpu_torch/csrc/{name}.cu",
-             "replaces": replaces},
-            capture(module, fn_name, lambda: pred.predict(mols)), kernel,
-            plain, bound, card)
+             "replaces": replaces}, captured, kernel, plain, bound, card)
         record["launches"] = launches[len(records)]
+        KERNEL_MS[f"{name}, ELL request"] = record["ms"]
         records.append(record)
+        if kernel is msg:
+            pass_split(kernel, captured, f"{name} (ELL request)", card)
     return records
 
 
@@ -1559,6 +1577,7 @@ def ell_train_phase(cfg, head, card) -> list:
              "source": f"gotennet_tpu_torch/csrc/{name}.cu",
              "replaces": replaces}, captured, kernel, plain, bound, card)
         record["launches"] = n_launches
+        KERNEL_MS[f"{name}, ELL step"] = record["ms"]
         records.append(record)
         pass_split(kernel, captured, f"{name} (ELL step)", card)
     return records
@@ -1726,6 +1745,10 @@ def ell_force_phase(cfg, card) -> None:
                      for _, b in pred.loader(ds).batches())
     log(f"[ell-forces] real edges {real_edges} (self-loops included); "
         f"{real_edges / (req_ms / 1e3):.1f} real edges/s | {card}")
+    pass_split(counters[3],
+               capture(fused_htr, "fused_htr_ell_backward",
+                       lambda: pred.predict_with_forces(mols)),
+               "fused_htr_ell_bwd (ELL force request)", card)
 
 
 def main() -> int:

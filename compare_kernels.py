@@ -2,26 +2,29 @@
 """Time every kernel of the port's main paths against another version of
 its CUDA sources, on one NVIDIA GPU, inside one process.
 
-    python3 compare_kernels.py OTHER_CSRC     # from the repository root
+    python3 compare_kernels.py OTHER_CSRC [--ell]   # from the repository root
 
 OTHER_CSRC is the ``csrc/`` directory of another version of
 ``gotennet_tpu_torch`` (for instance the parent commit, unpacked with
 ``git archive`` under ``build/``).  Its sources must keep this version's C
-entry points (a GATA forward without the workspace argument is called
-through ``OldForward``): only the kernels change, the Python wrappers stay
-this tree's.  Both versions are built with nvcc into ``build/`` (the library
-names carry the sources' hash).  The main paths run once with this tree's
-kernels while their kernel calls are recorded: the 256-molecule QM9 request
-and the QM9 training step (M 16/24/32), the 32-frame MD22 request and step
-(M = 120), the MD22 force request, the 8-frame ELL request and step.  Then
-every kernel is timed on each path's recorded inputs (CUDA events, mean ms
-per launch, grouped by the shape of t) with the other version's libraries
-and this tree's, in turns: other, this, this, other; and the device-busy
-time of the 256-molecule QM9 request, the 32-frame MD22 request, the MD22
-step, the MD22 force request and the ELL step (``torch.profiler``) is read
-with each, in the same turns.  Every line
-carries the card's name and power limit.  No result is checked here:
-``chip_smoke.py`` holds each kernel against its plain version.
+entry points (a GATA or ELL forward without the workspace argument is
+called through ``OldForward``): only the kernels change, the Python
+wrappers stay this tree's.  Both versions are built with nvcc into
+``build/`` (the library names carry the sources' hash).  The main paths run
+once with this tree's kernels while their kernel calls are recorded: the
+256-molecule QM9 request and the QM9 training step (M 16/24/32), the
+32-frame MD22 request and step (M = 120), the MD22 force request, the
+8-frame ELL request and step.  Then every kernel is timed on each path's
+recorded inputs (CUDA events, mean ms per launch, grouped by the shape of
+t) with the other version's libraries and this tree's, in turns: other,
+this, this, other; and the device-busy time of the 256-molecule QM9
+request, the 32-frame MD22 request, the MD22 step, the MD22 force request,
+the 8-frame ELL request, the ELL step and the ELL force request
+(``torch.profiler``) is read with each, in the same turns.  Every line
+carries the card's name and power limit.  With ``--ell`` only the ELL
+paths run (the request, the step and the force request: rows 5-8).  No
+result is checked here: ``chip_smoke.py`` holds each kernel against its
+plain version.
 """
 
 from __future__ import annotations
@@ -52,35 +55,37 @@ def libraries(csrc=None) -> dict:
     libs = {}
     for src, path in zip(_build.SOURCES, paths):
         lib = ctypes.CDLL(str(path))
-        if (src == "fused_gata_fwd.cu"
-                and not hasattr(lib, "gotennet_fused_gata_fwd_workspace")):
-            libs[src] = OldForward(lib)
+        old = OLD_FORWARDS.get(src)
+        if old and not hasattr(lib, f"{old[0]}_workspace"):
+            libs[src] = OldForward(lib, *old)
             continue
         _build._declare(lib, src)
         libs[src] = lib
     return libs
 
 
-class OldForward:
-    """A GATA forward library from before its C entry point took a
-    workspace (the bf16 weights): this tree's wrapper calls it through the
-    new signature, and the workspace argument is dropped."""
+# A forward library from before its C entry point took a workspace (the bf16
+# weights, and for the ELL forward the bf16 node tables): (entry point,
+# pointers before the workspace argument, integers after it)
+OLD_FORWARDS = {"fused_gata_fwd.cu": ("gotennet_fused_gata_fwd", 16, 11),
+                "fused_ell_fwd.cu": ("gotennet_fused_ell_fwd", 17, 12)}
 
-    def __init__(self, lib):
+
+class OldForward:
+    """Calls a forward library from before its C entry point took a
+    workspace through the new signature: this tree's wrapper asks for no
+    workspace bytes, and the workspace argument is dropped."""
+
+    def __init__(self, lib, name, n_ptr, n_int):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gotennet_fused_gata_fwd.argtypes = [ptr] * 16 + [i32] * 11 + [ptr]
-        lib.gotennet_fused_gata_fwd.restype = i32
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+        fn.restype = i32
         lib.gotennet_cuda_error_string.argtypes = [i32]
         lib.gotennet_cuda_error_string.restype = ctypes.c_char_p
-        self.lib = lib
         self.gotennet_cuda_error_string = lib.gotennet_cuda_error_string
-
-    @staticmethod
-    def gotennet_fused_gata_fwd_workspace(*_):
-        return 0
-
-    def gotennet_fused_gata_fwd(self, *args):
-        return self.lib.gotennet_fused_gata_fwd(*args[:16], *args[17:])
+        setattr(self, name, lambda *a: fn(*a[:n_ptr], *a[n_ptr + 1:]))
+        setattr(self, f"{name}_workspace", lambda *_: 0)
 
 
 def busy_ms(run) -> float:
@@ -90,7 +95,8 @@ def busy_ms(run) -> float:
 
 
 def main(argv) -> int:
-    if len(argv) != 2 or not torch.cuda.is_available():
+    ell_only = argv[2:] == ["--ell"]
+    if len(argv) - ell_only != 2 or not torch.cuda.is_available():
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,34 +167,39 @@ def main(argv) -> int:
                 paths.append((f"{row} {name}, {what}", getattr(module, name),
                               calls[name]))
 
-    qm9 = synthetic_molecules(cs.TRAIN_MOLS, seed=1, min_atoms=12,
-                              max_atoms=29).graph_dicts(range(cs.TRAIN_MOLS))
-    qm9_pred = Predictor(cfg, head, seed=0, chunk=cs.CHUNK)
-    record("QM9 request", lambda: qm9_pred.predict(qm9))
-    busy.append(("QM9 request", lambda: qm9_pred.predict(qm9)))
-    grads, _ = step_of(GotenModel(cfg, head, seed=0),
-                       make_chunks(qm9, cs.TRAIN_CHUNK, "cuda"))
-    record("QM9 step", grads)
+    if not ell_only:
+        qm9 = synthetic_molecules(
+            cs.TRAIN_MOLS, seed=1, min_atoms=12,
+            max_atoms=29).graph_dicts(range(cs.TRAIN_MOLS))
+        qm9_pred = Predictor(cfg, head, seed=0, chunk=cs.CHUNK)
+        record("QM9 request", lambda: qm9_pred.predict(qm9))
+        busy.append(("QM9 request", lambda: qm9_pred.predict(qm9)))
+        grads, _ = step_of(GotenModel(cfg, head, seed=0),
+                           make_chunks(qm9, cs.TRAIN_CHUNK, "cuda"))
+        record("QM9 step", grads)
 
-    md22 = cs.md22_frames()
-    md22_pred = Predictor(big_cfg, head, seed=0, chunk=cs.MD22_CHUNK,
-                          bucket=False)
-    record("MD22 request", lambda: md22_pred.predict(md22))
-    busy.append(("MD22 request", lambda: md22_pred.predict(md22)))
-    grads, step = step_of(GotenModel(big_cfg, head, seed=0),
-                          cs.md22_chunks(md22))
-    record("MD22 step", grads)
-    busy.append(("MD22 step", step))
-    force = Predictor(big_cfg, cs.force_head(), seed=0, chunk=cs.MD22_CHUNK,
-                      bucket=False)
-    record("MD22 force request (pos_grads)",
-           lambda: force.predict_with_forces(md22), ("fused_gata_backward",))
-    busy.append(("MD22 force request", lambda: force.predict_with_forces(md22)))
+        md22 = cs.md22_frames()
+        md22_pred = Predictor(big_cfg, head, seed=0, chunk=cs.MD22_CHUNK,
+                              bucket=False)
+        record("MD22 request", lambda: md22_pred.predict(md22))
+        busy.append(("MD22 request", lambda: md22_pred.predict(md22)))
+        grads, step = step_of(GotenModel(big_cfg, head, seed=0),
+                              cs.md22_chunks(md22))
+        record("MD22 step", grads)
+        busy.append(("MD22 step", step))
+        force = Predictor(big_cfg, cs.force_head(), seed=0,
+                          chunk=cs.MD22_CHUNK, bucket=False)
+        record("MD22 force request (pos_grads)",
+               lambda: force.predict_with_forces(md22),
+               ("fused_gata_backward",))
+        busy.append(("MD22 force request",
+                     lambda: force.predict_with_forces(md22)))
 
     large = cs.large_frames()
     pred = Predictor(big_cfg, head, seed=0, chunk=1, layout="ell",
                      spatial_sort=True, block_rows=64)
     record("ELL request", lambda: pred.predict(large))
+    busy.append(("ELL request", lambda: pred.predict(large)))
     ell_chunks = make_chunks(large, 1, "cuda", layout="ell",
                              cutoff=big_cfg.cutoff,
                              max_num_neighbors=big_cfg.max_num_neighbors)
@@ -196,6 +207,10 @@ def main(argv) -> int:
                           ell_chunks)
     record("ELL step", grads)
     busy.append(("ELL step", step))
+    ell_force = Predictor(big_cfg, cs.force_head(), seed=0, chunk=1,
+                          layout="ell", spatial_sort=True, block_rows=64)
+    busy.append(("ELL force request",
+                 lambda: ell_force.predict_with_forces(large)))
 
     order = ("other", "this", "this", "other")
     for what, kernel, calls in paths:

@@ -1,20 +1,16 @@
 // Device code shared by the fused GATA message kernels on the dense
 // (fused_gata_fwd.cu) and the ELL layout (fused_ell_fwd.cu).
 //
-// The dense forward's weight path (since its Hopper redesign): W_re and
-// W_rs are rounded to bf16 once a launch, by weights_bf16_kernel, into one
-// [D + C, D] matrix whose rows are the output columns (depth contiguous),
-// the orientation mma.sync's B fragments want (and X, which every pair
-// reads rounded, by round_bf16_kernel).  A block then stages
-// kFN-column x kFK-deep tiles of it with 16-byte cp.async (stage_w_tile)
-// into a ring of kFStages shared-memory stages, so the next tiles load while
-// the current one multiplies and the slice's epilogue runs.
-//
-// The ELL forward keeps the earlier path: the product of a block's pair rows
-// (at most kMaxPairs) with a 32-column slice of W_re or W_rs, each slice
-// read from the float32 weights, rounded and transposed by the block itself
-// (product_tile_bf16), or as float32 FMAs (product_tile_f32, which the dense
-// forward also takes for a float32 pair type).
+// The weight path of both (bf16 pair type): W_re and W_rs are rounded to
+// bf16 once a launch, by weights_bf16_kernel, into one [D + C, D] matrix
+// whose rows are the output columns (depth contiguous), the orientation
+// mma.sync's B fragments want (and the node tables every pair reads rounded,
+// by round_bf16_kernel).  A block then stages kFN-column x kFK-deep tiles of
+// it with 16-byte cp.async (stage_w_tile) into a ring of kFStages
+// shared-memory stages, so the next tiles load while the current one
+// multiplies and the slice's epilogue runs.
+// A float32 pair type takes 32-column slices as float32 FMAs
+// (product_tile_f32), each slice read from the float32 weights.
 
 #pragma once
 
@@ -32,12 +28,11 @@ constexpr int kThreads = 256;
 constexpr int kNT = 32;             // product columns per tile
 constexpr int kKT = 32;             // rows of W per shared-memory stage
 constexpr int kMaxPairs = 128;      // pair rows per block (TI * M)
-constexpr int kRowsPerThread = kMaxPairs / 32;
 constexpr int kPadBF = 8;           // bf16 row padding: conflict-free fragments
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
-// the dense forward's bf16 weight tiles
+// the bf16 weight tiles of the ring
 constexpr int kFN = 128;            // output columns per slice (tile rows)
 constexpr int kFK = 64;             // depth per stage
 constexpr int kFStages = 3;         // stages of the ring
@@ -52,21 +47,24 @@ __host__ __device__ inline int a_stride(int D, bool bf) {
   return bf ? D + kPadBF : D + 1;
 }
 
-// Cs[TB][kNT+1] = As[TB][0:K] @ W[0:K, col0:col0+kNT], float32 FMAs.
+// Cs[TB][kNT+1] = As[TB][0:K] @ W[0:K, col0:col0+kNT], float32 FMAs, by
+// the NT threads of a block (TB <= kMaxPairs).
+template <int NT = kThreads>
 __device__ void product_tile_f32(const float* __restrict__ As, int lda,
                                  int TB, const float* __restrict__ W, int ldw,
                                  int col0, int K, float* __restrict__ Ws,
                                  float* __restrict__ Cs) {
+  constexpr int kRowsPerThread = kMaxPairs / (NT / 8);
   const int tid = threadIdx.x;
   const int tc = tid % 8;   // columns tc*4 .. tc*4+3
-  const int tr = tid / 8;   // rows tr, tr+32, tr+64, tr+96
+  const int tr = tid / 8;   // rows tr, tr + NT/8, ...
   float acc[kRowsPerThread][4];
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
     acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
   }
   for (int k0 = 0; k0 < K; k0 += kKT) {
-    for (int e = tid; e < kKT * kNT; e += kThreads) {
+    for (int e = tid; e < kKT * kNT; e += NT) {
       const int kk = e / kNT, c = e % kNT;
       Ws[e] = W[(size_t)(k0 + kk) * ldw + col0 + c];
     }
@@ -76,7 +74,7 @@ __device__ void product_tile_f32(const float* __restrict__ As, int lda,
       const float4 b = *reinterpret_cast<const float4*>(&Ws[kk * kNT + tc * 4]);
 #pragma unroll
       for (int r = 0; r < kRowsPerThread; ++r) {
-        const int row = tr + 32 * r;
+        const int row = tr + NT / 8 * r;
         if (row < TB) {
           const float a = As[row * lda + k0 + kk];
           acc[r][0] = fmaf(a, b.x, acc[r][0]);
@@ -90,7 +88,7 @@ __device__ void product_tile_f32(const float* __restrict__ As, int lda,
   }
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
-    const int row = tr + 32 * r;
+    const int row = tr + NT / 8 * r;
     if (row < TB) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) Cs[row * (kNT + 1) + tc * 4 + c] = acc[r][c];
@@ -99,73 +97,7 @@ __device__ void product_tile_f32(const float* __restrict__ As, int lda,
   __syncthreads();
 }
 
-// Cs[TB][kNT+1] = As[TB][0:K] @ bf16(W[0:K, col0:col0+kNT]) on the tensor
-// cores.  As holds round16(TB) rows; the rows past TB are zero.
-__device__ void product_tile_bf16(const __nv_bfloat16* __restrict__ As,
-                                  int lda, int TB,
-                                  const float* __restrict__ W, int ldw,
-                                  int col0, int K,
-                                  __nv_bfloat16* __restrict__ Wt,
-                                  float* __restrict__ Cs) {
-  const int tid = threadIdx.x;
-  const int ldt = K + kPadBF;
-  // the W slice, transposed (k contiguous) and rounded to bf16; each
-  // thread keeps kBatch loads in flight
-  constexpr int kBatch = 8;
-  const int n = K * kNT;
-  for (int e0 = tid; e0 < n; e0 += kThreads * kBatch) {
-    float w[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * kThreads;
-      w[u] = e < n ? W[(size_t)(e / kNT) * ldw + col0 + e % kNT] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = e0 + u * kThreads;
-      if (e < n) Wt[(e % kNT) * ldt + e / kNT] = __float2bfloat16(w[u]);
-    }
-  }
-  __syncthreads();
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int n_jobs = round16(TB) / 16 * (kNT / 16);
-  for (int job = warp; job < n_jobs; job += kThreads / 32) {
-    const int r0 = job / (kNT / 16) * 16, n0 = job % (kNT / 16) * 16;
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      mma_16816(As + r0 * lda + k0, lda, Wt + n0 * ldt + k0, ldt, acc[0]);
-      mma_16816(As + r0 * lda + k0, lda, Wt + (n0 + 8) * ldt + k0, ldt,
-                acc[1]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + 8 * h + 2 * t;
-      Cs[(r0 + g) * (kNT + 1) + col] = acc[h][0];
-      Cs[(r0 + g) * (kNT + 1) + col + 1] = acc[h][1];
-      Cs[(r0 + g + 8) * (kNT + 1) + col] = acc[h][2];
-      Cs[(r0 + g + 8) * (kNT + 1) + col + 1] = acc[h][3];
-    }
-  }
-  __syncthreads();
-}
-
-// Cs = As @ W slice in the pair type's arithmetic
-template <bool kBF>
-__device__ __forceinline__ void product_tile(const void* As, int lda, int TB,
-                                             const float* W, int ldw,
-                                             int col0, int K, void* Wbuf,
-                                             float* Cs) {
-  if constexpr (kBF) {
-    product_tile_bf16(static_cast<const __nv_bfloat16*>(As), lda, TB, W, ldw,
-                      col0, K, static_cast<__nv_bfloat16*>(Wbuf), Cs);
-  } else {
-    product_tile_f32(static_cast<const float*>(As), lda, TB, W, ldw, col0, K,
-                     static_cast<float*>(Wbuf), Cs);
-  }
-}
-
-// ---- the dense forward's bf16 weights -----------------------------------
+// ---- the bf16 weights -----------------------------------
 // wt[n][k] = bf16(W[k][n]) of the [D, D + C] matrix W_re | W_rs (round to
 // nearest even), a 32 x 32 tile a block, transposed through shared memory
 struct WPrep {
@@ -200,7 +132,8 @@ __global__ void __launch_bounds__(kThreads) weights_bf16_kernel(const WPrep w) {
 }
 
 // y[e] = bf16(x[e]) (round to nearest even), four values a thread (n a
-// multiple of 4, both 16-byte aligned): the dense forward's copy of X
+// multiple of 4, both 16-byte aligned): the forwards' copies of X and of
+// the ELL node tables
 struct RoundBF16 {
   const float* x;
   __nv_bfloat16* y;
@@ -214,11 +147,13 @@ __global__ void __launch_bounds__(kThreads) round_bf16_kernel(const RoundBF16 r)
 
 // One stage of the ring: rows [n0, n0 + kFN) and depths [k0, k0 + kFK) of
 // wt ([*, K], depth contiguous) into s ([kFN][kFLd]), as 1,024 cp.async of
-// 8 values, four a thread; zero at rows >= n_hi and depths >= K.
+// 8 values spread over the NT threads of the block; zero at rows >= n_hi
+// and depths >= K.
+template <int NT = kThreads>
 __device__ __forceinline__ void stage_w_tile(__nv_bfloat16* s,
                                              const __nv_bfloat16* wt, int K,
                                              int n0, int n_hi, int k0) {
-  for (int c = threadIdx.x; c < kFN * kFK / 8; c += kThreads) {
+  for (int c = threadIdx.x; c < kFN * kFK / 8; c += NT) {
     const int r = c / (kFK / 8), k = 8 * (c % (kFK / 8));
     int n = n0 + r < n_hi ? K - (k0 + k) : 0;
     n = n < 0 ? 0 : (n > 8 ? 8 : n);

@@ -26,10 +26,10 @@
 // over the row's own pairs) and g_rl (a sum over the pair's channels); only
 // the sums that cross rows run apart: g_EK (over i, from the rounded g_w
 // and g_pk the row pass writes), g_t's product, g_W_g (partials over pairs,
-// added in order) and g_b_g (the rows' sums, added in order).  A float32 pair type,
-// or rows longer than 128 pairs, take the passes the ELL backward shares
-// (fused_htr_bwd.cuh), with pair (g, i, j) reading EQ row g*M + i and EK
-// row g*M + j.  A pair whose cotangent g is zero (a padded atom's row or
+// added in order) and g_b_g (the rows' sums, added in order); the ELL
+// backward shares all of it (fused_htr_bwd.cuh).  A float32 pair type, or
+// rows longer than 128 pairs, take the header's four passes, with pair
+// (g, i, j) reading EQ row g*M + i and EK row g*M + j.  A pair whose cotangent g is zero (a padded atom's row or
 // column, where the message's backward leaves zeros) adds exact zeros to
 // every output.
 

@@ -12,18 +12,19 @@
 // Every sum has one owner and no sum uses atomics, so every result is the
 // same from run to run.
 //
-// Dense, bf16 pair type, R <= kRT (the MD22 path): the row pass
-// (row_bwd_kernel), one block per EQ row, forms z, g_w, g_z, g_EQ and g_rl
-// from one evaluation of each pair's terms, and writes the rounded g_w and
-// g_pk, the bf16 g_z and the row's sums of g_z; then g_EK (col_bwd_kernel,
-// a sum over other blocks' rows from those rounded terms), g_t = g + g_z
-// W_g^T and g_W_g = t^T g_z (bwd_sums.cuh's products) and g_b_g (the rows'
-// sums in order).  On an H100 the row pass is bounded by its per-(pair,
-// channel) arithmetic and its one sweep of t and g (PERF.md §5 has the
-// split).
+// Bf16 pair type, lmax <= 2, EQ rows that fit a 128-pair tile (the MD22 and
+// the ELL paths): the row pass (row_bwd_kernel), one block per dense EQ row
+// or per three ELL rows of 36 slots, forms z, g_w, g_z, g_EQ and g_rl from
+// one evaluation of each pair's terms, and writes the rounded g_w and g_pk,
+// the bf16 g_z and each row's sums of g_z; then g_EK (col_bwd_kernel, a sum
+// over other blocks' rows from those rounded terms, walking the transposed
+// slot list on the ELL layout), g_t = g + g_z W_g^T and g_W_g = t^T g_z
+// (bwd_sums.cuh's products) and g_b_g (the rows' sums in order).  On an H100
+// the row pass is bounded by its per-(pair, channel) arithmetic and its one
+// sweep of t and g (PERF.md §5 has the split).
 //
-// Every other case (ELL, a float32 pair type, longer dense rows) takes four
-// passes:
+// Every other case (a float32 pair type, lmax > 2, rows longer than the
+// tile) takes four passes:
 //  A. per block of kRows consecutive pairs: z = t W_g on the tensor cores
 //     (bf16 pair type) or as float32 FMAs, then per (pair, channel) g_w (the
 //     cotangent of w) and g_z (of z), both to workspace; the block keeps its
@@ -74,7 +75,9 @@ struct Params {
   // pass A's shared-memory carve-up, in bytes from the base
   int off_a, off_g, off_c, off_rl, smem;
   // the row pass's
-  int roff_a, roff_c, roff_eq, roff_rl, roff_red, roff_grl, roff_geq, rsmem;
+  int roff_a, roff_c, roff_eq, roff_rl, roff_red, roff_grl, roff_geq, roff_ek,
+      rsmem;
+  int TI;              // the row pass: EQ rows a block
   int rl_pairs;        // pairs per block of pass C (a multiple of 8)
 };
 
@@ -267,20 +270,22 @@ __global__ void __launch_bounds__(kThreads) grad_rl_kernel(const Params p) {
   }
 }
 
-// ---- the row pass (dense layout, bf16 pair type, M <= kRT, lmax <= 2) ------
-// One block per EQ row i, its R = M pairs in one tile: z = t W_g on the
-// tensor cores, kRN columns at a time, W_g's bf16 copy streamed through
-// kRStages kRK-deep stages (cp.async, fragments by ldmatrix.trans).  Then,
-// in rounds of kRRows pairs a warp with each lane on two neighbouring
-// channels, every load of a round issued before its arithmetic (the EK
-// values of the pair's L components in registers): g_w and g_z, the terms
-// S, pq, pk of each degree block once, and from them g_EQ's terms (summed
-// over the row's pairs: a warp's pairs of a round in registers, the rounds
-// in order, then the 8 warps in order) and g_rl's (summed over channels:
-// the 32 lanes in order, then the slices in order).  Writes the rounded
-// g_w and g_pk (for g_EK), the bf16 g_z (for the g_t and g_W_g products),
-// g_t = g (the g_t product adds to it), the bf16 copy of a float32 t, and
-// the row's sums of g_z (for g_b_g).
+// ---- the row pass (bf16 pair type, TI R <= kRT, lmax <= 2) ----------------
+// One block per TI consecutive EQ rows, their TI R pairs in one tile (the
+// dense layout takes one row of R = M pairs; the ELL layout as many rows of
+// R = K slots as fill the tile): z = t W_g on the tensor cores, kRN columns
+// at a time, W_g's bf16 copy streamed through kRStages kRK-deep stages
+// (cp.async, fragments by ldmatrix.trans; a warp whose rows are all past
+// the tile's pairs skips its products).  Then, in rounds of kRRows pairs a
+// warp with each lane on two neighbouring channels, every load of a round
+// issued before its arithmetic (the EK values of the pair's L components in
+// registers): g_w and g_z, the terms S, pq, pk of each degree block once, and
+// from them g_EQ's terms (summed over each EQ row's pairs: a warp's pairs of
+// a row in a round in registers, the rounds in order, then the 8 warps in
+// order) and g_rl's (summed over channels: the 32 lanes in order, then the
+// slices in order).  Writes the rounded g_w and g_pk (for g_EK), the bf16
+// g_z (for the g_t and g_W_g products), g_t = g (the g_t product adds to
+// it), the bf16 copy of a float32 t, and each row's sums of g_z (for g_b_g).
 constexpr int kRT = 128;         // pair rows of the tile
 constexpr int kRN = 64;          // z columns per slice: two a lane
 constexpr int kRK = 64;          // depth per stage of W_g
@@ -327,24 +332,27 @@ __device__ __forceinline__ void reg_terms(const float (&e)[2][kRMaxL],
   for (int c = 0; c < 2; ++c) t[c] = Terms{S[c], pq[c], pk[c], 2.f - r2};
 }
 
-template <typename TT, typename NT>
+template <bool kEll, typename TT, typename NT>
 __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
-  const long long i = blockIdx.x;   // EQ row: pairs i R .. i R + R - 1
+  const long long i0 = (long long)blockIdx.x * p.TI;   // the first EQ row
+  const int TI = (int)(p.n_eq - i0 < p.TI ? p.n_eq - i0 : p.TI);
   const int R = p.R, D = p.D, L = p.L, nb = n_blocks(p), nq = L + nb;
-  const long long p0 = i * R, j_first = i / R * R;   // EK row of j = 0
+  const int TB = TI * R;                                // the tile's pairs
+  const long long p0 = i0 * R, j_first = i0 / R * R;   // dense: EK row of j = 0
   const int lda = D + kPadBF;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   using BF = __nv_bfloat16;
   BF* ring = reinterpret_cast<BF*>(base);                  // [kRStages][kRK][kRLd]
   BF* As = reinterpret_cast<BF*>(base + p.roff_a);         // [kRT][lda] rnd(t)
   float* Cs = reinterpret_cast<float*>(base + p.roff_c);   // [kRT][kRLdc] z, g_z
-  float* eqs = reinterpret_cast<float*>(base + p.roff_eq); // [L][D] EQ row i
+  BF* eqs = reinterpret_cast<BF*>(base + p.roff_eq);       // [TI][L][D] rnd(EQ)
   float* rls = reinterpret_cast<float*>(base + p.roff_rl); // [kRT][L]
   float* red = reinterpret_cast<float*>(base + p.roff_red);  // [8][kRRows][nq][33]
   float* grl = reinterpret_cast<float*>(base + p.roff_grl);  // [kRT][nq]
-  float* geq = reinterpret_cast<float*>(base + p.roff_geq);  // [8][L][kRN]
+  float* geq = reinterpret_cast<float*>(base + p.roff_geq);  // [TI][8][L][kRN]
+  int* eks = reinterpret_cast<int*>(base + p.roff_ek);       // ELL: [kRT] EK rows
   const TT* __restrict__ t = static_cast<const TT*>(p.t);
   const NT* __restrict__ ek = static_cast<const NT*>(p.ek);
 
@@ -368,28 +376,32 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
     cp_async_commit();
   }
 
-  // the row's t (rounded; rows past R zero), four values a step; EQ row i;
-  // rl
+  // the tile's t (rounded; rows past TB zero), four values a step; the EQ
+  // rows, rounded; rl; ELL: the clamped EK row of each slot
 #pragma unroll 4
   for (int e = tid; e < kRT * D / 4; e += kThreads) {
     const int row = e / (D / 4), c = 4 * (e % (D / 4));
     float4 val = {0.f, 0.f, 0.f, 0.f};
-    if (row < R) {
+    if (row < TB) {
       val = load4(t + (p0 + row) * D + c);
       if (p.t_f32) store4_bf16(p.tb + (p0 + row) * D + c, val);
     }
     store4_bf16(As + row * lda + c, val);
   }
-  for (int e = tid; e < L * D; e += kThreads) {
-    eqs[e] = to_f(static_cast<const NT*>(p.eq)[i * L * D + e]);
+  for (int e = tid; e < TI * L * D; e += kThreads) {
+    eqs[e] = __float2bfloat16(to_f(static_cast<const NT*>(p.eq)[i0 * L * D + e]));
   }
-  for (int e = tid; e < R * L; e += kThreads) rls[e] = p.rl[p0 * L + e];
-  for (int e = tid; e < R * nq; e += kThreads) grl[e] = 0.f;
+  for (int e = tid; e < TB * L; e += kThreads) rls[e] = p.rl[p0 * L + e];
+  for (int e = tid; e < TB * nq; e += kThreads) grl[e] = 0.f;
+  if constexpr (kEll) {
+    for (int e = tid; e < TB; e += kThreads) eks[e] = (int)ek_row<true>(p, p0 + e);
+  }
 
   // degree blocks: [0, hi0) and, with separate degrees at lmax 2, [3, L)
   const int hi0 = p.sep_htr ? min(3, L) : L;
   const bool two = nb == 2;
   const int wm = warp / 2, wn = warp % 2, gq = lane / 4, tq = lane % 4;
+  const bool active = wm * 32 < TB;   // this warp's rows hold pairs
   int tile = 0;
   for (int sl = 0; sl < nsl; ++sl) {
     // z tile = rnd(t) rnd(W_g)[:, n0 : n0 + kRN]; a warp owns 32 x 32
@@ -406,6 +418,7 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
       __syncthreads();   // tile is in; every warp is done with tile - 1
       if (tile + kRStages - 1 < n_tiles) load_tile(tile + kRStages - 1);
       cp_async_commit();
+      if (!active) continue;
       const BF* Ws = ring + (tile % kRStages) * kRK * kRLd;
       const int k_hi = min(kRK, D - kt * kRK);   // a multiple of 16
       for (int kk = 0; kk < k_hi; kk += 16) {
@@ -414,48 +427,63 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
             kRLd, acc);
       }
     }
+    if (active) {
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
+      for (int a = 0; a < 2; ++a) {
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
+        for (int b = 0; b < 4; ++b) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          Cs[(wm * 32 + 16 * a + gq + (r >= 2 ? 8 : 0)) * kRLdc + wn * 32 +
-             8 * b + 2 * tq + (r & 1)] = acc[a][b][r];
+          for (int r = 0; r < 4; ++r) {
+            Cs[(wm * 32 + 16 * a + gq + (r >= 2 ? 8 : 0)) * kRLdc + wn * 32 +
+               8 * b + 2 * tq + (r & 1)] = acc[a][b][r];
+          }
         }
       }
     }
-    for (int e = tid; e < kRWarps * L * kRN; e += kThreads) geq[e] = 0.f;
+    for (int e = tid; e < TI * kRWarps * L * kRN; e += kThreads) geq[e] = 0.f;
     __syncthreads();
 
     const int n0 = sl * kRN, w = min(kRN, D - n0);
     const int cl = 2 * lane, c = n0 + cl;   // this lane's two channels
     const bool on = cl < w;
-    // the row's EQ values at these channels, rounded, and b_g
+    // the EQ row's values at these channels, rounded (e2 holds row il_e of
+    // the tile), and b_g
     float e2[2][kRMaxL];
+    int il_e = -1;
+    auto load_eq = [&](int il) {
 #pragma unroll
-    for (int m = 0; m < kRMaxL; ++m) {
-      const bool in = on && m < L;
-      e2[0][m] = in ? rnd<true>(eqs[m * D + c]) : 0.f;
-      e2[1][m] = in ? rnd<true>(eqs[m * D + c + 1]) : 0.f;
-    }
+      for (int m = 0; m < kRMaxL; ++m) {
+        const bool in = on && m < L;
+        e2[0][m] = in ? __bfloat162float(eqs[(il * L + m) * D + c]) : 0.f;
+        e2[1][m] = in ? __bfloat162float(eqs[(il * L + m) * D + c + 1]) : 0.f;
+      }
+      il_e = il;
+    };
+    if constexpr (!kEll) load_eq(0);
     const float2 bgc = on ? load2(p.bg + c) : float2{0.f, 0.f};
-    // rounds of kRRows pairs a warp, the warps apart from each other; lane
-    // l's g_rl partials meet in the warp's part of `red`, then lanes
-    // 0..nq-1 add the 32 lanes of each pair in order
+    // rounds of kRRows pairs a warp, the warps apart from each other; a
+    // warp's pairs of a round lie in one EQ row (R even, or one row a
+    // block); lane l's g_rl partials meet in the warp's part of `red`, then
+    // lanes 0..nq-1 add the 32 lanes of each pair in order
     float* rw = red + warp * kRRows * nq * 33;
-    for (int r0 = 0; r0 < R; r0 += kRWarps * kRRows) {
+    for (int r0 = 0; r0 < TB; r0 += kRWarps * kRRows) {
+      const int row0 = r0 + warp * kRRows;
+      const int il = kEll ? min(row0, TB - 1) / R : 0;   // its EQ row
+      if constexpr (kEll) {
+        if (il != il_e) load_eq(il);
+      }
       // every load of the round first
       float2 zz[kRRows], gg[kRRows], kk[kRRows][kRMaxL];
 #pragma unroll
       for (int u = 0; u < kRRows; ++u) {
-        const int row = r0 + warp * kRRows + u;
-        const bool in = on && row < R;
+        const int row = row0 + u;
+        const bool in = on && row < TB;
         const long long pair = p0 + row;
         zz[u] = in ? float2{Cs[row * kRLdc + cl], Cs[row * kRLdc + cl + 1]}
                    : float2{0.f, 0.f};
         gg[u] = in ? load2(p.g + pair * D + c) : float2{0.f, 0.f};
-        const NT* ekj = ek + (j_first + (in ? row : 0)) * L * D + c;
+        const long long jr = kEll ? (in ? eks[row] : 0) : j_first + (in ? row : 0);
+        const NT* ekj = ek + jr * L * D + c;
 #pragma unroll
         for (int m = 0; m < kRMaxL; ++m) {
           kk[u][m] = in && m < L ? load2(ekj + m * D) : float2{0.f, 0.f};
@@ -466,8 +494,8 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
       for (int m = 0; m < kRMaxL; ++m) geq_acc[m][0] = geq_acc[m][1] = 0.f;
 #pragma unroll
       for (int u = 0; u < kRRows; ++u) {
-        const int row = r0 + warp * kRRows + u;
-        const bool in = on && row < R;
+        const int row = row0 + u;
+        const bool in = on && row < TB;
         const long long pair = p0 + row;
         const float* rlp = rls + (in ? row : 0) * L;
         float x[kRMaxL], xr[kRMaxL], k[2][kRMaxL];
@@ -582,19 +610,19 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
         if (two) ru[(L + 1) * 33 + lane] = grl_acc[kRMaxL + 1];
       }
       if (on) {
+        float* gm = geq + (il * kRWarps + warp) * L * kRN + cl;
 #pragma unroll
         for (int m = 0; m < kRMaxL; ++m) {
           if (m < L) {
-            float* gm = geq + (warp * L + m) * kRN + cl;
-            gm[0] += geq_acc[m][0];
-            gm[1] += geq_acc[m][1];
+            gm[m * kRN] += geq_acc[m][0];
+            gm[m * kRN + 1] += geq_acc[m][1];
           }
         }
       }
       __syncwarp();
       for (int u = 0; u < kRRows; ++u) {
-        const int row = r0 + warp * kRRows + u;
-        if (row < R && lane < nq) {
+        const int row = row0 + u;
+        if (row < TB && lane < nq) {
           const float* ru = rw + (u * nq + lane) * 33;
           float sum = 0.f;
           for (int l = 0; l < 32; ++l) sum += ru[l];
@@ -604,22 +632,25 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
       __syncwarp();   // the warp's part of `red` is written again next round
     }
     __syncthreads();
-    // g_EQ[i, :, n0 + c]: the 8 warps' partials in order; the row's sums
-    // of g_z, its pairs in order
-    for (int e = tid; e < L * w; e += kThreads) {
-      const int m = e / w, ce = e % w;
+    // g_EQ[i0 + il, :, n0 + c]: the 8 warps' partials in order; each row's
+    // sums of g_z, its pairs in order
+    for (int e = tid; e < TI * L * w; e += kThreads) {
+      const int ce = e % w, m = e / w % L, il = e / w / L;
       float sum = 0.f;
-      for (int wp = 0; wp < kRWarps; ++wp) sum += geq[(wp * L + m) * kRN + ce];
-      p.geq[(i * L + m) * D + n0 + ce] = sum;
+      for (int wp = 0; wp < kRWarps; ++wp) {
+        sum += geq[((il * kRWarps + wp) * L + m) * kRN + ce];
+      }
+      p.geq[((i0 + il) * L + m) * D + n0 + ce] = sum;
     }
-    for (int ce = tid; ce < w; ce += kThreads) {
+    for (int e = tid; e < TI * w; e += kThreads) {
+      const int ce = e % w, il = e / w;
       float sum = 0.f;
-      for (int row = 0; row < R; ++row) sum += Cs[row * kRLdc + ce];
-      p.bpart[i * D + n0 + ce] = sum;
+      for (int row = il * R; row < il * R + R; ++row) sum += Cs[row * kRLdc + ce];
+      p.bpart[(i0 + il) * D + n0 + ce] = sum;
     }
     __syncthreads();   // Cs and geq are reused by the next slice
   }
-  for (int e = tid; e < R * L; e += kThreads) {
+  for (int e = tid; e < TB * L; e += kThreads) {
     const int row = e / L, m = e % L;
     int b = 0;
     while (m >= block_hi(p, b)) ++b;
@@ -631,11 +662,14 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
 }
 
 // ---- g_EK after the row pass: a thread per (EK row n, channel c) -----------
-// g_EK[n, m, c] = sum over i of rnd(rnd(g_w) rnd(EQ[i, m, c])) (+ rnd(g_pk)
-// rnd(rl[m]), rounded, with the rejection terms) over the pairs (i, n) of
-// n's graph in order of i, from the rounded g_w and g_pk the row pass wrote
-// (each pair's terms are formed once, there); two pairs' loads in flight
-template <typename NT>
+// g_EK[n, m, c] = sum over the pairs (i, n) that read EK row n of
+// rnd(rnd(g_w) rnd(EQ[i, m, c])) (+ rnd(g_pk) rnd(rl[m]), rounded, with the
+// rejection terms), from the rounded g_w and g_pk the row pass wrote (each
+// pair's terms are formed once, there): dense, the pairs of n's graph in
+// order of i; ELL, the slots of n's transposed slot list in the list's order
+// (a row no slot reads gets exact zeros).  Two pairs' loads in flight, four
+// on the ELL layout (its pairs come through the list).
+template <bool kEll, typename NT>
 __global__ void __launch_bounds__(kThreads) col_bwd_kernel(const Params p) {
   const int R = p.R, D = p.D, L = p.L, nb = n_blocks(p);
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -647,12 +681,12 @@ __global__ void __launch_bounds__(kThreads) col_bwd_kernel(const Params p) {
   float acc[kRMaxL];
 #pragma unroll
   for (int m = 0; m < kRMaxL; ++m) acc[m] = 0.f;
-  auto add = [&](long long i) {
-    const long long pair = (first + i) * R + at;
+  // the terms of pair `pair`, whose EQ row is i
+  auto add = [&](long long pair, long long i) {
     const float gwp = to_f(p.gw_b[pair * D + c]);
     const float gp0 = p.rej ? to_f(p.gpk_b[pair * nb * D + c]) : 0.f;
     const float gp1 = p.rej && nb == 2 ? to_f(p.gpk_b[(pair * nb + 1) * D + c]) : 0.f;
-    const NT* eqi = eq + (first + i) * L * D + c;
+    const NT* eqi = eq + i * L * D + c;
     const float* rlp = p.rl + pair * L;
     float x[kRMaxL];
 #pragma unroll
@@ -669,12 +703,31 @@ __global__ void __launch_bounds__(kThreads) col_bwd_kernel(const Params p) {
       }
     }
   };
-  int i = 0;
-  for (; i + 1 < R; i += 2) {
-    add(i);
-    add(i + 1);
+  if constexpr (kEll) {
+    // the list's slots, four in flight
+    auto add_slot = [&](int u) {
+      const long long pair = p.order[u];
+      add(pair, pair / R);
+    };
+    const int u_hi = p.starts[n + 1];
+    int u = p.starts[n];
+    for (; u + 3 < u_hi; u += 4) {
+      add_slot(u);
+      add_slot(u + 1);
+      add_slot(u + 2);
+      add_slot(u + 3);
+    }
+    for (; u < u_hi; ++u) add_slot(u);
+  } else {
+    // the pairs (i, n) of n's graph, two in flight
+    auto add_row = [&](int i) { add((first + i) * R + at, first + i); };
+    int i = 0;
+    for (; i + 1 < R; i += 2) {
+      add_row(i);
+      add_row(i + 1);
+    }
+    if (i < R) add_row(i);
   }
-  if (i < R) add(i);
 #pragma unroll
   for (int m = 0; m < kRMaxL; ++m) {
     if (m < L) p.gek[(n * L + m) * D + c] = acc[m];
@@ -699,7 +752,8 @@ Layout layout(long long P, int D, int n_eq) {
   return w;
 }
 
-// the row pass's shared arrays, byte offsets; returns the total
+// the row pass's shared arrays for p.TI EQ rows a block, byte offsets;
+// returns the total
 size_t row_smem_layout(Params& p) {
   auto up16 = [](size_t x) { return (x + 15) / 16 * 16; };
   const size_t nq = (size_t)p.L + (p.sep_htr ? p.lmax : 1);
@@ -709,7 +763,7 @@ size_t row_smem_layout(Params& p) {
   p.roff_c = (int)off;
   off += (size_t)kRT * kRLdc * sizeof(float);
   p.roff_eq = (int)off;
-  off += (size_t)p.L * p.D * sizeof(float);
+  off = up16(off + (size_t)p.TI * p.L * p.D * 2);
   p.roff_rl = (int)off;
   off += (size_t)kRT * p.L * sizeof(float);
   p.roff_red = (int)off;
@@ -717,14 +771,29 @@ size_t row_smem_layout(Params& p) {
   p.roff_grl = (int)off;
   off += (size_t)kRT * nq * sizeof(float);
   p.roff_geq = (int)off;
-  off += (size_t)kRWarps * p.L * kRN * sizeof(float);
+  off += (size_t)p.TI * kRWarps * p.L * kRN * sizeof(float);
+  p.roff_ek = (int)off;
+  off += (size_t)kRT * sizeof(int);
   p.rsmem = (int)off;
   return off;
 }
 
-// Dense, bf16 pair type, whole EQ rows in one tile: the row pass, then g_EK,
-// g_t, g_W_g and g_b_g; returns the first CUDA error.
-template <typename TT, typename NT>
+// EQ rows a block of the row pass takes: one dense row (R = M), or as many
+// ELL rows as fill the tile and the shared memory; 0 when not even one fits
+// (or lmax > 2), and the four passes run instead
+template <bool kEll>
+int row_pass_rows(Params& p) {
+  if (p.lmax > 2 || p.R > kRT) return 0;
+  // a warp's kRRows pairs of a round stay in one EQ row when R is even
+  for (p.TI = kEll && p.R % kRRows == 0 ? kRT / p.R : 1; p.TI > 0; --p.TI) {
+    if (row_smem_layout(p) <= kMaxSmem) break;
+  }
+  return p.TI;
+}
+
+// Bf16 pair type, whole EQ rows in one tile: the row pass, then g_EK, g_t,
+// g_W_g and g_b_g; returns the first CUDA error.
+template <bool kEll, typename TT, typename NT>
 cudaError_t row_backward(Params p, int t_bf16, cudaStream_t s) {
   const int D = p.D;
   // the row path needs no float32 g_z or g_w: their room holds the bf16
@@ -733,13 +802,14 @@ cudaError_t row_backward(Params p, int t_bf16, cudaStream_t s) {
   p.gpk_b = reinterpret_cast<__nv_bfloat16*>(p.gw);
   CHECK(to_bf16_copy(p.wg, (long long)D * D, p.wg_b, s));
   p.t_f32 = !t_bf16;
-  auto kern = row_bwd_kernel<TT, NT>;
+  auto kern = row_bwd_kernel<kEll, TT, NT>;
   CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              p.rsmem));
-  CHECK(run(kern, dim3((unsigned)p.n_eq), p.rsmem, p, s));
-  // g_EK from the rounded g_w and g_pk
-  CHECK(run(col_bwd_kernel<NT>, dim3(blocks_for((long long)p.n_ek * D)), 0, p,
+  CHECK(run(kern, dim3((unsigned)((p.n_eq + p.TI - 1) / p.TI)), p.rsmem, p,
             s));
+  // g_EK from the rounded g_w and g_pk
+  CHECK(run(col_bwd_kernel<kEll, NT>, dim3(blocks_for((long long)p.n_ek * D)),
+            0, p, s));
   // g_t = g + rnd(g_z) rnd(W_g)^T (the row pass wrote g into g_t)
   Product gt{};
   gt.a = p.gz_b; gt.a_sm = D; gt.a_sk = 1; gt.a_bf16 = 1;
@@ -795,10 +865,8 @@ size_t rl_smem_bytes(const Params& p) {
 template <bool kEll, bool kBF, typename TT, typename NT>
 cudaError_t backward(Params p, int t_bf16, cudaStream_t s) {
   const int D = p.D;
-  if constexpr (!kEll && kBF) {
-    if (p.R <= kRT && p.lmax <= 2 && row_smem_layout(p) <= kMaxSmem) {
-      return row_backward<TT, NT>(p, t_bf16, s);
-    }
+  if constexpr (kBF) {
+    if (row_pass_rows<kEll>(p) > 0) return row_backward<kEll, TT, NT>(p, t_bf16, s);
   }
   // A. g_w, g_z, g_t
   auto pair_kern = pair_bwd_kernel<kEll, kBF, TT, NT>;

@@ -13,15 +13,22 @@
 // slots, D = 256) reads t and g and writes g_t, all float32 over every slot
 // (78 MB, about 0.023 ms at 3.35 TB/s); its three projections (t W_g
 // recomputed, g_z W_g^T, t^T g_z) are 6 * D^2 FLOP per slot, 10 GFLOP, about
-// 0.01 ms at the bf16 tensor-core peak.  So the bytes bound it.
+// 0.01 ms at the bf16 tensor-core peak.  So the bytes bound it.  What costs
+// time on the card is the update's terms, evaluated per (slot, channel), and
+// any pass that writes them to device memory for another pass to read back
+// (PERF.md §5 has the split).
 //
-// Design (right first), that of fused_htr_bwd.cu: the passes of
-// fused_htr_bwd.cuh, every sum with one owner and no atomics, so every result
-// is the same from run to run.  The TPU kernel sums g_EK by a transposed
-// one-hot matmul over its sequential grid; here one thread per (table row,
-// degree block, channel) walks the slots that read its row through the
+// Design, that of fused_htr_bwd.cu (fused_htr_bwd.cuh): with a bf16 pair type
+// the row pass takes three destination rows of 36 slots a block (as many as
+// fill its 128-row tile) and evaluates each (slot, channel)'s terms once:
+// z on the tensor cores, g_w, g_z, g_EQ over each row's slots and g_rl over
+// channels, writing the rounded g_w and g_pk; every sum has one owner and no
+// atomics, so every result is the same from run to run.  The TPU kernel sums
+// g_EK by a transposed one-hot matmul over its sequential grid; here a thread
+// per (table row, channel) walks the slots that read its row through the
 // transposed slot list (`starts`, `order`, a stable sort of the flat nbr
-// built once per batch by the caller), in the list's order.  The update
+// built once per batch by the caller), in the list's order, from those
+// rounded terms.  A float32 pair type keeps the four passes.  The update
 // masks no slot, so padded slots (which read their own row) are updated and
 // differentiated like the others.
 

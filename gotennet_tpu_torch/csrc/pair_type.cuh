@@ -41,7 +41,13 @@ __device__ __forceinline__ float4 load4(const T* p) {
   if constexpr (sizeof(T) == 4) {
     return *reinterpret_cast<const float4*>(p);
   } else {
+#if defined(__CUDA_ARCH__)
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+#else
     const float2 a = load2(p), b = load2(p + 2);
+#endif
     return float4{a.x, a.y, b.x, b.y};
   }
 }

@@ -113,8 +113,11 @@ def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
         fn.restype = i64
     elif source == "fused_ell_fwd.cu":
         fn = lib.gotennet_fused_ell_fwd
-        fn.argtypes = [ptr] * 17 + [i32] * 12 + [ptr]
+        fn.argtypes = [ptr] * 18 + [i32] * 12 + [ptr]
         fn.restype = i32
+        fn = lib.gotennet_fused_ell_fwd_workspace
+        fn.argtypes = [i32] * 8
+        fn.restype = i64
     elif source == "fused_ell_bwd.cu":
         fn = lib.gotennet_fused_ell_bwd
         fn.argtypes = [ptr] * 33 + [i32] * 12 + [ptr]

@@ -48,7 +48,7 @@ from torch.autograd.function import once_differentiable
 
 from gotennet_tpu_torch.ops.fused_gata import (_block_layout, _check,
                                                _check_common, _check_shapes,
-                                               _raise_on)
+                                               _raise_on, aligned)
 
 __all__ = ["fused_ell", "FusedELL", "fused_ell_forward",
            "fused_ell_forward_reference", "fused_ell_backward",
@@ -396,15 +396,24 @@ def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
 def _call_kernel(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale, nbr,
                  W_re, b_re, W_rs, b_rs, d_h, dX, sm, *, lmax, num_heads,
                  sep_dir, sep_tensor, pair_dtype) -> None:
-    """One launch through the C interface on ``stream``; raises on the
-    launch's CUDA error.  Arguments are validated by the caller."""
+    """One launch through the C interface on ``stream``, with a workspace
+    of the size the library asks for (the bf16 weights and node tables);
+    raises on the launch's CUDA error.  Arguments are validated by the
+    caller."""
     bf16 = torch.bfloat16
     NR, K, D = t.shape
+    N = k.shape[0]
+    t, q, k, x_g, v, X, b_re, b_rs = (aligned(a) for a in (
+        t, q, k, x_g, v, X, b_re, b_rs))
+    n_bytes = lib.gotennet_fused_ell_fwd_workspace(
+        NR, N, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=t.device)
     ptrs = [a.data_ptr() for a in (t, q, k, x_g, v, rl, X, env_signed, scale,
                                    nbr, W_re, b_re, W_rs, b_rs, d_h, dX)]
     err = lib.gotennet_fused_ell_fwd(
-        *ptrs, sm.data_ptr() if sm is not None else None,
-        NR, k.shape[0], K, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
+        *ptrs, sm.data_ptr() if sm is not None else None, work.data_ptr(),
+        NR, N, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
         int(scale.dim() == 3), int(pair_dtype == bf16), int(t.dtype == bf16),
         int(q.dtype == bf16), stream)
     _raise_on(lib, err, "fused_ell_fwd")

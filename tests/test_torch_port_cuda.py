@@ -541,6 +541,68 @@ def test_ell_backward_kernels_match_plain(card, NR, N, head_scale, pd):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# The redesigned ELL message forward at the frame's shapes (N = 704, K = 36:
+# three rows of 36 slots a block, valid slots compacted): float32 and bf16
+# node tables, scalar and per-head scale, fewer rows than table rows; a rerun
+# gives the same bits and the wholly padded row exact zeros.  Tolerances as
+# test_ell_kernels_match_plain's.
+@pytest.mark.parametrize("NR,head_scale,nd", [
+    (704, False, torch.float32),
+    (704, True, torch.bfloat16),
+    (640, True, torch.float32),
+])
+def test_ell_forward_redesign_matches_plain_and_reruns(card, NR, head_scale,
+                                                       nd):
+    D, H, lmax, K, N = 256, 8, 2, 36, 704
+    args = ell_inputs(card, NR, N, K, D, H, lmax, head_scale, seed=11)
+    for i in (1, 2, 3, 4):
+        args[i] = args[i].to(nd)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=True, sep_tensor=True,
+              pair_dtype=torch.bfloat16, with_attn=True)
+    before = fused_ell_forward.launches
+    got = fused_ell_forward(*args, **kw)
+    again = fused_ell_forward(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_ell_forward.launches == before + 2
+    _close(got, fused_ell_forward_reference(*args, **kw), 1e-2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.all(a[-1] == 0) for a in got)
+
+
+# The ELL HTR backward's row pass at the frame's shapes (three rows of 36
+# slots a block): the gates, joined degree blocks and no rejection terms not
+# taken above, bf16 node tables, and a table row no slot reads (exact zeros
+# in g_EK); a rerun gives the same bits.  Tolerances as above.
+@pytest.mark.parametrize("gate,sep_htr,rej,nd", [
+    ("act", True, True, torch.float32),
+    ("gatedt", False, True, torch.bfloat16),
+    ("", True, False, torch.float32),
+])
+def test_ell_htr_backward_row_pass_matches_plain_and_reruns(card, gate,
+                                                            sep_htr, rej, nd):
+    D, lmax, K, NR, N = 256, 2, 36, 704, 704
+    L = (lmax + 1) ** 2 - 1
+    args = ell_inputs(card, NR, N, K, D, 8, lmax, False, seed=12)
+    nbr = torch.where(args[9] == N - 1, torch.zeros_like(args[9]), args[9])
+    gen = torch.Generator().manual_seed(4)
+    h_args = [args[0],
+              (torch.randn(NR, L, D, generator=gen) * 0.4).to(card, nd),
+              (torch.randn(N, L, D, generator=gen) * 0.4).to(card, nd),
+              args[5], nbr, args[10] / 8.0, args[11]]
+    g = torch.randn(NR, K, D, generator=gen).to(card)
+    slots = source_slots(nbr, N)
+    hkw = dict(lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+               pair_dtype=torch.bfloat16)
+    before = fused_htr_ell_backward.launches
+    got = fused_htr_ell_backward(*h_args, g, **hkw, slots=slots)
+    again = fused_htr_ell_backward(*h_args, g, **hkw, slots=slots)
+    torch.cuda.synchronize()
+    assert fused_htr_ell_backward.launches == before + 2
+    _close(got, fused_htr_ell_backward_reference(*h_args, g, **hkw), 1e-2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.all(got[2][N - 1] == 0)
+
+
 def test_ell_backward_kernels_check_arguments(card):
     args = ell_inputs(card, 16, 16, 12, 32, 4, 2, False)
     kw = dict(lmax=2, num_heads=4, sep_dir=True, sep_tensor=True)

@@ -50,7 +50,9 @@ from test_torch_port_model import _compare
 SMALL = dict(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
              n_rbf=8)
 FRAMES = dict(min_atoms=40, max_atoms=60, box=6.3)
+# the one launch line of each forward source, which the host build replaces
 _LAUNCH = "kern<<<grid, kThreads, p.smem, stream>>>(p);"
+_MSG_LAUNCH = "kern<<<grid, NT, smem, stream>>>(args);"
 BATCH_FIELDS = ("z", "pos", "node_graph", "nbr", "nbr_mask", "node_mask",
                 "graph_mask", "y")
 STATIC_FIELDS = ("gather_window", "block_rows", "gather_halo")
@@ -355,7 +357,7 @@ def test_table_above_fused_table_rows_raises():
 @pytest.fixture(scope="module")
 def host_ell(tmp_path_factory):
     return build_on_host(tmp_path_factory.mktemp("ell_fwd_on_host"),
-                         "fused_ell_fwd.cu", _LAUNCH)
+                         "fused_ell_fwd.cu", _MSG_LAUNCH)
 
 
 @pytest.fixture(scope="module")
@@ -409,3 +411,45 @@ def test_htr_source_on_host_matches_plain(host_htr_ell, NR, N, K, gate, pd,
     fused_htr._call_ell_kernel(host_htr_ell, None, *a, out, **kw)
     # every slot, padded ones included: the update masks none
     _assert_close(out.numpy(), want.numpy(), 1e-5, "out")
+
+
+# The message kernel's block shapes, each held against the plain version and
+# run twice (the same bytes: every sum has one owner): three rows of K = 36
+# slots a block with a ragged last block (NR = 70) and fewer rows than table
+# rows; ten rows of K = 12 (NR = 53); the float32 pair type's 32-column path
+# with bf16 node tables.  ell_inputs pads about a third of the slots and the
+# whole last row, whose outputs must be exact zeros.  Float32: 1e-5 of the
+# scale, as above.  bf16: the kernel's sums of the pair terms run in another
+# order than the plain version's, and a term next to a rounding boundary can
+# round to the neighbouring bf16 value -> 1e-3 of the scale.
+@pytest.mark.parametrize("NR,N,K,sep,hs,pd,td,nd", [
+    (70, 96, 36, (True, True), True, torch.bfloat16, torch.float32,
+     torch.float32),
+    (53, 64, 12, (True, False), False, torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),
+    (20, 24, 36, (False, True), True, torch.float32, torch.float32,
+     torch.bfloat16),
+], ids=["k36-ragged", "k12-bf16-nodes", "f32"])
+def test_message_source_on_host_block_shapes_rerun(host_ell, NR, N, K, sep,
+                                                   hs, pd, td, nd):
+    D, H, lmax = 32, 4, 2
+    L = (lmax + 1) ** 2 - 1
+    a = [torch.from_numpy(x) for x in ell_inputs(7, NR, N, K, D, H, lmax,
+                                                 *sep, hs)]
+    a[0] = a[0].to(td)
+    for i in (1, 2, 3, 4):
+        a[i] = a[i].to(nd)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=sep[0], sep_tensor=sep[1],
+              pair_dtype=pd)
+    want = fused_ell_forward_reference(*a, **kw, with_attn=True)
+    runs = []
+    for _ in range(2):
+        got = (torch.full((NR, D), math.nan), torch.full((NR, L, D), math.nan),
+               torch.full((NR, K, H), math.nan))
+        fused_ell._call_kernel(host_ell, None, *a, *got, **kw)
+        runs.append(got)
+    tol = 1e-3 if pd == torch.bfloat16 else 1e-5
+    for name, g1, g2, w in zip(("d_h", "dX", "sm"), *runs, want):
+        _assert_close(g1.numpy(), w.numpy(), tol, name)
+        assert g1.numpy().tobytes() == g2.numpy().tobytes(), name
+        assert torch.all(g1[-1] == 0), name   # the wholly padded row

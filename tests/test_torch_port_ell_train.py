@@ -458,3 +458,47 @@ def test_ell_attention_dropout_in_training_raises():
     model.eval()
     with torch.no_grad():
         assert torch.isfinite(model(batch)["property"]).all()
+
+
+# The HTR backward's row pass on the ELL layout (bf16 pair type: as many rows
+# of K slots a block as fill its 128-row tile), each case held against the
+# plain version and run twice (the same bytes): three rows of K = 36 a
+# block with a ragged last block, ten rows of K = 12, separate and joined
+# degree blocks, with and without the rejection terms, every gate, float32
+# and bf16 node tables; and the float32 pair type's four passes.  Table row
+# N - 1 is read by no slot, so its g_EK must be exact zeros.  Tolerances as
+# above.
+@pytest.mark.parametrize("NR,N,K,gate,sep_htr,rej,pd,td,nd", [
+    (38, 48, 36, "gatedt", True, True, torch.bfloat16, torch.float32,
+     torch.float32),
+    (25, 40, 12, "", False, False, torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),
+    (24, 32, 12, "act", True, True, torch.bfloat16, torch.float32,
+     torch.bfloat16),
+    (30, 36, 36, "gated", False, True, torch.bfloat16, torch.float32,
+     torch.float32),
+    (16, 24, 12, "gated", True, True, torch.float32, torch.float32,
+     torch.float32),
+], ids=["k36-ragged", "k12-norej", "k12-act", "k36-joined", "f32"])
+def test_htr_backward_source_on_host_row_pass_rerun(
+        host_htr_ell_bwd, NR, N, K, gate, sep_htr, rej, pd, td, nd):
+    D, lmax = 32, 2
+    a = [torch.from_numpy(x) for x in htr_ell_inputs(6, NR, N, K, D, lmax)]
+    a[0] = a[0].to(td)
+    a[1], a[2] = a[1].to(nd), a[2].to(nd)
+    a[4] = torch.where(a[4] == N - 1, torch.zeros_like(a[4]), a[4])
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (NR, K, D)).astype(np.float32))
+    kw = dict(lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate, pair_dtype=pd)
+    want = fused_htr_ell_backward_reference(*a, g, **kw)
+    runs = []
+    for _ in range(2):
+        outs = _nan_outputs(fused_htr.ell_backward_outputs(a[0], a[2]))
+        fused_htr._call_ell_backward(host_htr_ell_bwd, None, *a, g,
+                                     source_slots(a[4], N), outs, **kw)
+        runs.append(outs)
+    tol = 1e-2 if pd == torch.bfloat16 else 1e-5
+    for name, got, again, w in zip(HTR_NAMES, *runs, want):
+        _assert_close(got.numpy(), w.numpy(), tol, name)
+        assert got.numpy().tobytes() == again.numpy().tobytes(), name
+    assert torch.all(runs[0][2][N - 1] == 0)   # g_EK of the unread row

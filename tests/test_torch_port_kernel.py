@@ -186,9 +186,10 @@ _LAUNCH = "kern<<<grid, kThreads, smem, stream>>>(args);"
 
 def build_on_host(directory, source, launch):
     """Compile ``csrc/<source>`` with the host C++ compiler into
-    ``directory``, its one kernel-launch line ``launch`` replaced by a
-    host launch (one std::thread per CUDA thread); returns the loaded
-    library with its C interface declared.  Skips without g++."""
+    ``directory``, its one kernel-launch line ``launch``
+    (``kern<<<grid, THREADS, smem, stream>>>(ARGS);``) replaced by a host
+    launch of THREADS std::threads; returns the loaded library with its C
+    interface declared.  Skips without g++."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to build the CUDA source")
@@ -197,8 +198,9 @@ def build_on_host(directory, source, launch):
     src = (_build.CSRC / source).read_text()
     assert src.count(launch) == 1, f"{source}: launch line not found once"
     args = launch[launch.index(">>>(") + 4:launch.rindex(")")]
+    threads = launch[launch.index("<<<") + 3:].split(",")[1].strip()
     (directory / "k.cpp").write_text(src.replace(
-        launch, f"host_launch(kern, grid, kThreads, {args}); (void)stream;"))
+        launch, f"host_launch(kern, grid, {threads}, {args}); (void)stream;"))
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                     f"-I{directory}", f"-I{_build.CSRC}",
                     "-o", str(directory / "libk.so"),
