@@ -37,8 +37,10 @@ Phases, in order; any failure exits non-zero before the result line:
      inputs a step gave it, beside its plain version and its bound;
   7. HTR forward kernel vs plain: the fused-HTR forward against its plain
      PyTorch version at G=4, D=256, lmax 2, sep_htr, M in {16, 32, 112,
-     120}, float32 and bf16 pair types, bf16 EQ/EK, the flagship grammar and
-     the sigmoid-gated variant (every pair compared, padded ones included);
+     120}, float32 and bf16 pair types, bf16 EQ/EK (and float32 ones at
+     M = 120 with a bf16 pair type), the flagship grammar and the
+     sigmoid-gated variant (every pair compared, padded ones included), the
+     same bits from a second run;
   8. HTR backward kernel vs plain: the same grid, all six cotangents, with
      exact zeros where the cotangent of out is zero (padded atoms), the
      same bits from a second run;
@@ -51,7 +53,8 @@ Phases, in order; any failure exits non-zero before the result line:
      counters must read 8 chunks x 4 layers of GATA and x 3 of HTR; the
      answers are held against the same model run through both forward plain
      versions; the request is timed (CUDA events) and profiled, and the HTR
-     forward kernel timed on the inputs the request gave it;
+     forward kernel timed on the inputs the request gave it and split per
+     launch (``[passes]``: the bf16 W_g, then the update);
  11. MD22 training: ``train_steps`` takes one step on the same 32 frames
      (4-frame chunks, unbucketed): 32 GATA and 24 HTR launches each way; the
      first step's gradients are held against the same step through both
@@ -64,7 +67,9 @@ Phases, in order; any failure exits non-zero before the result line:
      slots and the last 8 rows padded, and a case with fewer rows than
      table rows; the same bits from a second run;
  13. ELL HTR kernel vs plain: the same shapes, the flagship grammar and the
-     sigmoid-gated variant, float32 and bf16 (every slot compared);
+     sigmoid-gated variant, float32 and bf16 pair types, float32 node tables
+     (and bf16 ones with a bf16 pair type), every slot compared, the same
+     bits from a second run;
  14. ELL serving: the flagship model with ``fused_htr=True`` answers 8
      synthetic frames of 600-700 atoms at condensed-phase density
      (``bench.py``'s ``BENCH_DATASET=large``) through
@@ -73,8 +78,8 @@ Phases, in order; any failure exits non-zero before the result line:
      layers of the message and x 3 of the HTR update; the answers are held
      against the same model run through both plain versions; the request is
      timed (CUDA events) and profiled, and both kernels timed on the inputs
-     the request gave them, the message split per launch (``[passes]``: the
-     bf16 weights and tables, then the message kernel);
+     the request gave them, both split per launch (``[passes]``: the bf16
+     weights and tables, then the message kernel or the update);
  15. ELL message backward kernel vs plain: at phase 12's shapes and cases,
      all 13 cotangents, exact zeros for g_t, g_rl, g_env and g_scale at
      padded slots, and the same bits from a second run;
@@ -923,10 +928,17 @@ def htr_cases():
 
 
 def check_htr_forward() -> None:
-    """Phase 7: the HTR forward kernel against its plain version."""
+    """Phase 7: the HTR forward kernel against its plain version, with the
+    path's bf16 node tables and, at M = 120 with a bf16 pair type, float32
+    ones (the kernel rounds those once a launch); a rerun gives the same
+    bits."""
     from gotennet_tpu_torch.ops import fused_htr
-    for M, pd, gate in htr_cases():
+    cases = [(M, pd, gate, torch.bfloat16) for M, pd, gate in htr_cases()]
+    cases += [(120, torch.bfloat16, gate, torch.float32)
+              for gate in ("", "gated")]
+    for M, pd, gate, nd in cases:
         args, _ = htr_inputs(M, seed=300 + M)
+        args[1], args[2] = args[1].to(nd), args[2].to(nd)
         kw = dict(lmax=LMAX, sep_htr=True, rej=True, gate=gate,
                   pair_dtype=pd)
         got = fused_htr.fused_htr_forward(*args, **kw)
@@ -936,11 +948,14 @@ def check_htr_forward() -> None:
         err, rel = rel_err(got, want)
         pad = torch.cat([(got - want)[0, M - 3:].flatten(),
                          (got - want)[0, :, M - 3:].flatten()])
-        log(f"[htr-fwd-vs-plain] M={M} pair={str(pd)[6:]} gate={gate!r}: "
-            f"out max abs {err:.3e} rel {rel:.3e}, on padded pairs max abs "
+        log(f"[htr-fwd-vs-plain] M={M} pair={str(pd)[6:]} tables="
+            f"{str(nd)[6:]} gate={gate!r}: out max abs {err:.3e} rel "
+            f"{rel:.3e}, on padded pairs max abs "
             f"{pad.abs().max().item():.3e} (tol {tol:g} rel)")
         if rel > tol or not torch.isfinite(got).all():
             raise AssertionError(f"HTR forward disagrees at M={M} {pd}")
+        if not torch.equal(got, fused_htr.fused_htr_forward(*args, **kw)):
+            raise AssertionError("HTR forward differs between runs")
 
 
 def check_htr_backward() -> None:
@@ -1118,14 +1133,17 @@ def md22_serve_phase(cfg, head, card) -> dict:
         capture(fused_gata, "fused_gata_forward", lambda: pred.predict(mols)),
         gata, fused_gata.fused_gata_forward_reference, fwd_bound_ms,
         card)["ms"]
+    captured = capture(fused_htr, "fused_htr_forward",
+                       lambda: pred.predict(mols))
     record = kernel_record(
         {"name": "fused_htr_fwd", "route": "cuda",
          "source": "gotennet_tpu_torch/csrc/fused_htr_fwd.cu",
          "replaces": "gotennet_tpu/ops/pallas/fused_htr.py:79"},
-        capture(fused_htr, "fused_htr_forward", lambda: pred.predict(mols)),
-        htr, fused_htr.fused_htr_forward_reference, htr_fwd_bound_ms, card)
+        captured, htr, fused_htr.fused_htr_forward_reference,
+        htr_fwd_bound_ms, card)
     record["launches"] = launches[1]
     KERNEL_MS["fused_htr_fwd, MD22 request"] = record["ms"]
+    pass_split(htr, captured, "fused_htr_fwd (MD22 request)", card)
     return record
 
 
@@ -1281,7 +1299,9 @@ def check_ell_message() -> None:
 
 
 def check_htr_ell() -> None:
-    """Phase 13: the ELL HTR kernel against its plain version."""
+    """Phase 13: the ELL HTR kernel against its plain version, with the
+    path's float32 node tables and, with a bf16 pair type, bf16 ones (read
+    as they are); a rerun gives the same bits."""
     from gotennet_tpu_torch.ops import fused_htr
     L = (LMAX + 1) ** 2 - 1
     gen = torch.Generator().manual_seed(600)
@@ -1292,20 +1312,27 @@ def check_htr_ell() -> None:
     msg = ell_message_inputs(ELL_N, ELL_N, False, seed=601)
     args = [msg[0], rand(ELL_N, L, D), rand(ELL_N, L, D), msg[5], msg[9],
             rand(D, D) / 8.0, rand(D)]
-    for pd in (torch.float32, torch.bfloat16):
-        for gate in ("", "gated"):
-            kw = dict(lmax=LMAX, sep_htr=True, rej=True, gate=gate,
-                      pair_dtype=pd)
-            got = fused_htr.fused_htr_ell_forward(*args, **kw)
-            torch.cuda.synchronize()
-            want = fused_htr.fused_htr_ell_forward_reference(*args, **kw)
-            tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
-            err, rel = rel_err(got, want)
-            log(f"[htr-ell-vs-plain] N={ELL_N} K={ELL_K} pair={str(pd)[6:]} "
-                f"gate={gate!r}: out max abs {err:.3e} rel {rel:.3e} (tol "
-                f"{tol:g} rel)")
-            if rel > tol or not torch.isfinite(got).all():
-                raise AssertionError(f"ELL HTR disagrees at {pd} {gate!r}")
+    cases = [(pd, gate, torch.float32) for pd in (torch.float32,
+                                                   torch.bfloat16)
+             for gate in ("", "gated")]
+    cases += [(torch.bfloat16, gate, torch.bfloat16) for gate in ("", "gated")]
+    for pd, gate, nd in cases:
+        a = list(args)
+        a[1], a[2] = a[1].to(nd), a[2].to(nd)
+        kw = dict(lmax=LMAX, sep_htr=True, rej=True, gate=gate,
+                  pair_dtype=pd)
+        got = fused_htr.fused_htr_ell_forward(*a, **kw)
+        torch.cuda.synchronize()
+        want = fused_htr.fused_htr_ell_forward_reference(*a, **kw)
+        tol = TOL_BF16 if pd == torch.bfloat16 else TOL_F32
+        err, rel = rel_err(got, want)
+        log(f"[htr-ell-vs-plain] N={ELL_N} K={ELL_K} pair={str(pd)[6:]} "
+            f"tables={str(nd)[6:]} gate={gate!r}: out max abs {err:.3e} rel "
+            f"{rel:.3e} (tol {tol:g} rel)")
+        if rel > tol or not torch.isfinite(got).all():
+            raise AssertionError(f"ELL HTR disagrees at {pd} {gate!r}")
+        if not torch.equal(got, fused_htr.fused_htr_ell_forward(*a, **kw)):
+            raise AssertionError("ELL HTR forward differs between runs")
 
 
 def large_frames() -> list:
@@ -1390,8 +1417,7 @@ def ell_serve_phase(cfg, head, card) -> list:
         record["launches"] = launches[len(records)]
         KERNEL_MS[f"{name}, ELL request"] = record["ms"]
         records.append(record)
-        if kernel is msg:
-            pass_split(kernel, captured, f"{name} (ELL request)", card)
+        pass_split(kernel, captured, f"{name} (ELL request)", card)
     return records
 
 

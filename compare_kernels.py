@@ -2,13 +2,13 @@
 """Time every kernel of the port's main paths against another version of
 its CUDA sources, on one NVIDIA GPU, inside one process.
 
-    python3 compare_kernels.py OTHER_CSRC [--ell]   # from the repository root
+    python3 compare_kernels.py OTHER_CSRC [--ell | --md22]   # from the repo root
 
 OTHER_CSRC is the ``csrc/`` directory of another version of
 ``gotennet_tpu_torch`` (for instance the parent commit, unpacked with
 ``git archive`` under ``build/``).  Its sources must keep this version's C
-entry points (a GATA or ELL forward without the workspace argument is
-called through ``OldForward``): only the kernels change, the Python
+entry points (a forward without the workspace argument is called through
+``OldForward``): only the kernels change, the Python
 wrappers stay this tree's.  Both versions are built with nvcc into
 ``build/`` (the library names carry the sources' hash).  The main paths run
 once with this tree's kernels while their kernel calls are recorded: the
@@ -22,9 +22,9 @@ request, the 32-frame MD22 request, the MD22 step, the MD22 force request,
 the 8-frame ELL request, the ELL step and the ELL force request
 (``torch.profiler``) is read with each, in the same turns.  Every line
 carries the card's name and power limit.  With ``--ell`` only the ELL
-paths run (the request, the step and the force request: rows 5-8).  No
-result is checked here: ``chip_smoke.py`` holds each kernel against its
-plain version.
+paths run (the request, the step and the force request: rows 5-8), with
+``--md22`` only the MD22 ones (rows 1-4).  No result is checked here:
+``chip_smoke.py`` holds each kernel against its plain version.
 """
 
 from __future__ import annotations
@@ -65,10 +65,12 @@ def libraries(csrc=None) -> dict:
 
 
 # A forward library from before its C entry point took a workspace (the bf16
-# weights, and for the ELL forward the bf16 node tables): (entry point,
-# pointers before the workspace argument, integers after it)
+# weights, and for the ELL and HTR forwards the bf16 node tables): (entry
+# point, pointers before the workspace argument, integers after it)
 OLD_FORWARDS = {"fused_gata_fwd.cu": ("gotennet_fused_gata_fwd", 16, 11),
-                "fused_ell_fwd.cu": ("gotennet_fused_ell_fwd", 17, 12)}
+                "fused_ell_fwd.cu": ("gotennet_fused_ell_fwd", 17, 12),
+                "fused_htr_fwd.cu": ("gotennet_fused_htr_fwd", 7, 10),
+                "fused_htr_ell_fwd.cu": ("gotennet_fused_htr_ell_fwd", 8, 11)}
 
 
 class OldForward:
@@ -95,8 +97,9 @@ def busy_ms(run) -> float:
 
 
 def main(argv) -> int:
-    ell_only = argv[2:] == ["--ell"]
-    if len(argv) - ell_only != 2 or not torch.cuda.is_available():
+    only = argv[2] if len(argv) == 3 else None
+    if (len(argv) not in (2, 3) or only not in (None, "--ell", "--md22")
+            or not torch.cuda.is_available()):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -167,7 +170,7 @@ def main(argv) -> int:
                 paths.append((f"{row} {name}, {what}", getattr(module, name),
                               calls[name]))
 
-    if not ell_only:
+    if only is None:
         qm9 = synthetic_molecules(
             cs.TRAIN_MOLS, seed=1, min_atoms=12,
             max_atoms=29).graph_dicts(range(cs.TRAIN_MOLS))
@@ -178,6 +181,7 @@ def main(argv) -> int:
                            make_chunks(qm9, cs.TRAIN_CHUNK, "cuda"))
         record("QM9 step", grads)
 
+    if only in (None, "--md22"):
         md22 = cs.md22_frames()
         md22_pred = Predictor(big_cfg, head, seed=0, chunk=cs.MD22_CHUNK,
                               bucket=False)
@@ -195,22 +199,23 @@ def main(argv) -> int:
         busy.append(("MD22 force request",
                      lambda: force.predict_with_forces(md22)))
 
-    large = cs.large_frames()
-    pred = Predictor(big_cfg, head, seed=0, chunk=1, layout="ell",
-                     spatial_sort=True, block_rows=64)
-    record("ELL request", lambda: pred.predict(large))
-    busy.append(("ELL request", lambda: pred.predict(large)))
-    ell_chunks = make_chunks(large, 1, "cuda", layout="ell",
-                             cutoff=big_cfg.cutoff,
-                             max_num_neighbors=big_cfg.max_num_neighbors)
-    grads, step = step_of(GotenModel(big_cfg, head, "ell", seed=0),
-                          ell_chunks)
-    record("ELL step", grads)
-    busy.append(("ELL step", step))
-    ell_force = Predictor(big_cfg, cs.force_head(), seed=0, chunk=1,
-                          layout="ell", spatial_sort=True, block_rows=64)
-    busy.append(("ELL force request",
-                 lambda: ell_force.predict_with_forces(large)))
+    if only in (None, "--ell"):
+        large = cs.large_frames()
+        pred = Predictor(big_cfg, head, seed=0, chunk=1, layout="ell",
+                         spatial_sort=True, block_rows=64)
+        record("ELL request", lambda: pred.predict(large))
+        busy.append(("ELL request", lambda: pred.predict(large)))
+        ell_chunks = make_chunks(large, 1, "cuda", layout="ell",
+                                 cutoff=big_cfg.cutoff,
+                                 max_num_neighbors=big_cfg.max_num_neighbors)
+        grads, step = step_of(GotenModel(big_cfg, head, "ell", seed=0),
+                              ell_chunks)
+        record("ELL step", grads)
+        busy.append(("ELL step", step))
+        ell_force = Predictor(big_cfg, cs.force_head(), seed=0, chunk=1,
+                              layout="ell", spatial_sort=True, block_rows=64)
+        busy.append(("ELL force request",
+                     lambda: ell_force.predict_with_forces(large)))
 
     order = ("other", "this", "this", "other")
     for what, kernel, calls in paths:

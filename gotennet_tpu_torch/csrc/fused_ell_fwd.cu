@@ -667,9 +667,8 @@ extern "C" int gotennet_fused_ell_fwd(
   auto round_table = [&](const void* x, long long at, long long n) {
     const RoundBF16 r{static_cast<const float*>(x), wb + at, n};
     if (err == cudaSuccess) {   // the first error is the one returned
-      err = run<kThreads>(round_bf16_kernel,
-                          dim3((unsigned)((n / 4 + kThreads - 1) / kThreads)),
-                          0, r, s);
+      err = run<kRoundThreads>(round_bf16_kernel, round_bf16_grid(n), 0, r,
+                               s);
     }
     return static_cast<const void*>(wb + at);
   };

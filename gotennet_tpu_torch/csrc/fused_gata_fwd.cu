@@ -700,8 +700,7 @@ extern "C" int gotennet_fused_gata_fwd(
   if (err != cudaSuccess) return (int)err;
   const RoundBF16 xr{X, wt + (size_t)(D + p.C) * D, (long long)G * M * p.L * D};
   p.xb = xr.y;
-  err = run(round_bf16_kernel,
-            dim3((unsigned)((xr.n / 4 + kThreads - 1) / kThreads)), 0, xr, s);
+  err = run(round_bf16_kernel, round_bf16_grid(xr.n), 0, xr, s);
   if (err != cudaSuccess) return (int)err;
   err = p.TI * M <= 64 ? dispatch_storage<true, 2>(p, t_bf16, node_bf16, s)
                        : dispatch_storage<true, 4>(p, t_bf16, node_bf16, s);

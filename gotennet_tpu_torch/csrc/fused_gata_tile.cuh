@@ -5,10 +5,10 @@
 // bf16 once a launch, by weights_bf16_kernel, into one [D + C, D] matrix
 // whose rows are the output columns (depth contiguous), the orientation
 // mma.sync's B fragments want (and the node tables every pair reads rounded,
-// by round_bf16_kernel).  A block then stages kFN-column x kFK-deep tiles of
-// it with 16-byte cp.async (stage_w_tile) into a ring of kFStages
-// shared-memory stages, so the next tiles load while the current one
-// multiplies and the slice's epilogue runs.
+// by pair_type.cuh's round_bf16_kernel).  A block then stages kFN-column x
+// kFK-deep tiles of it with 16-byte cp.async (stage_w_tile) into a ring of
+// kFStages shared-memory stages, so the next tiles load while the current
+// one multiplies and the slice's epilogue runs.
 // A float32 pair type takes 32-column slices as float32 FMAs
 // (product_tile_f32), each slice read from the float32 weights.
 
@@ -129,20 +129,6 @@ __global__ void __launch_bounds__(kThreads) weights_bf16_kernel(const WPrep w) {
       w.wt[(size_t)n * w.D + k] = __float2bfloat16(tile[tx * 33 + r]);
     }
   }
-}
-
-// y[e] = bf16(x[e]) (round to nearest even), four values a thread (n a
-// multiple of 4, both 16-byte aligned): the forwards' copies of X and of
-// the ELL node tables
-struct RoundBF16 {
-  const float* x;
-  __nv_bfloat16* y;
-  long long n;
-};
-
-__global__ void __launch_bounds__(kThreads) round_bf16_kernel(const RoundBF16 r) {
-  const long long e = 4 * ((long long)blockIdx.x * kThreads + threadIdx.x);
-  if (e < r.n) store4_bf16(r.y + e, load4(r.x + e));
 }
 
 // One stage of the ring: rows [n0, n0 + kFN) and depths [k0, k0 + kFK) of

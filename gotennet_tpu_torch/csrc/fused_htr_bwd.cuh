@@ -21,7 +21,10 @@
 // slot list on the ELL layout), g_t = g + g_z W_g^T and g_W_g = t^T g_z
 // (bwd_sums.cuh's products) and g_b_g (the rows' sums in order).  On an H100
 // the row pass is bounded by its per-(pair, channel) arithmetic and its one
-// sweep of t and g (PERF.md §5 has the split).
+// sweep of t and g (PERF.md §5 has the split).  It shares with the
+// forward's row path (fused_htr_fwd.cuh) the ring of bf16 W_g stages and
+// the terms in packed bf16 arithmetic (fused_htr_tile.cuh's load_w_tile and
+// pair_terms).
 //
 // Every other case (a float32 pair type, lmax > 2, rows longer than the
 // tile) takes four passes:
@@ -80,16 +83,6 @@ struct Params {
   int TI;              // the row pass: EQ rows a block
   int rl_pairs;        // pairs per block of pass C (a multiple of 8)
 };
-
-// the EK row pair `pair` reads
-template <bool kEll>
-__device__ __forceinline__ long long ek_row(const Params& p, long long pair) {
-  if constexpr (kEll) {
-    return min(max(p.nbr[pair], 0), p.n_ek - 1);
-  } else {
-    return pair / ((long long)p.R * p.R) * p.R + pair % p.R;
-  }
-}
 
 // ---- pass A: g_w, g_z to workspace; g_t = g + g_z W_g^T ------------------
 template <bool kEll, bool kBF, typename TT, typename NT>
@@ -286,52 +279,10 @@ __global__ void __launch_bounds__(kThreads) grad_rl_kernel(const Params p) {
 // slices in order).  Writes the rounded g_w and g_pk (for g_EK), the bf16
 // g_z (for the g_t and g_W_g products), g_t = g (the g_t product adds to
 // it), the bf16 copy of a float32 t, and each row's sums of g_z (for g_b_g).
+// The ring's shapes and the terms (pair_terms) are the forward's
+// (fused_htr_tile.cuh).
 constexpr int kRT = 128;         // pair rows of the tile
-constexpr int kRN = 64;          // z columns per slice: two a lane
-constexpr int kRK = 64;          // depth per stage of W_g
-constexpr int kRStages = 3;      // stages in flight
-constexpr int kRLd = kRN + 8;    // bf16 row stride of a stage, [kRK][kRLd]
-constexpr int kRLdc = kRN + 4;   // float32 row stride of the z tile
-constexpr int kRWarps = kThreads / 32;
 constexpr int kRRows = 2;        // pairs a warp takes per round
-constexpr int kRMaxL = 8;        // SH components kept in registers (lmax 2)
-
-// one degree block's terms (as block_terms) at a lane's two channels, from
-// the rounded EQ (e) and EK (k) values of components [lo, hi) in registers
-// and the pair's rl (x) and rounded rl (xr); each rounding covers both
-// channels (one packed conversion)
-__device__ __forceinline__ void reg_terms(const float (&e)[2][kRMaxL],
-                                          const float (&k)[2][kRMaxL],
-                                          const float* x, const float* xr,
-                                          int lo, int hi, int rej,
-                                          Terms (&t)[2]) {
-  float S[2] = {0.f, 0.f}, pq[2] = {0.f, 0.f}, pk[2] = {0.f, 0.f}, r2 = 0.f;
-#pragma unroll
-  for (int m = 0; m < kRMaxL; ++m) {
-    if (m >= lo && m < hi) {
-      float s0 = e[0][m] * k[0][m], s1 = e[1][m] * k[1][m];
-      rnd2<true>(s0, s1);
-      S[0] += s0;
-      S[1] += s1;
-      rnd2<true>(S[0], S[1]);
-      if (rej) {
-        float a0 = e[0][m] * xr[m], a1 = e[1][m] * xr[m];
-        float b0 = k[0][m] * xr[m], b1 = k[1][m] * xr[m];
-        rnd2<true>(a0, a1);
-        rnd2<true>(b0, b1);
-        pq[0] += a0;
-        pq[1] += a1;
-        pk[0] += b0;
-        pk[1] += b1;
-        rnd2<true>(pq[0], pq[1]);
-        rnd2<true>(pk[0], pk[1]);
-        r2 += x[m] * x[m];
-      }
-    }
-  }
-  for (int c = 0; c < 2; ++c) t[c] = Terms{S[c], pq[c], pk[c], 2.f - r2};
-}
-
 template <bool kEll, typename TT, typename NT>
 __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -360,16 +311,8 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
   const int nsl = (D + kRN - 1) / kRN, nk = (D + kRK - 1) / kRK;
   const int n_tiles = nsl * nk;
   auto load_tile = [&](int u) {
-    const int n0 = u / nk * kRN, k0 = u % nk * kRK;
-    BF* s = ring + (u % kRStages) * kRK * kRLd;
-    for (int c = tid; c < kRK * kRN / 8; c += kThreads) {
-      const int r = c / (kRN / 8), n = 8 * (c % (kRN / 8));
-      int b = k0 + r < D ? D - (n0 + n) : 0;
-      b = b < 0 ? 0 : (b > 8 ? 8 : b);
-      cp_async16(s + r * kRLd + n,
-                 b > 0 ? p.wg_b + (size_t)(k0 + r) * D + n0 + n : p.wg_b,
-                 2 * b);
-    }
+    load_w_tile(ring + (u % kRStages) * kRK * kRLd, p.wg_b, D, u / nk * kRN,
+                u % nk * kRK);
   };
   for (int u = 0; u < kRStages - 1; ++u) {
     if (u < n_tiles) load_tile(u);
@@ -449,13 +392,14 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
     // the EQ row's values at these channels, rounded (e2 holds row il_e of
     // the tile), and b_g
     float e2[2][kRMaxL];
+    BF2 ep[kRMaxL];   // the same values, packed
     int il_e = -1;
     auto load_eq = [&](int il) {
 #pragma unroll
       for (int m = 0; m < kRMaxL; ++m) {
-        const bool in = on && m < L;
-        e2[0][m] = in ? __bfloat162float(eqs[(il * L + m) * D + c]) : 0.f;
-        e2[1][m] = in ? __bfloat162float(eqs[(il * L + m) * D + c + 1]) : 0.f;
+        ep[m] = on && m < L ? bf2_load(eqs + (il * L + m) * D + c) : bf2_zero();
+        e2[0][m] = bf2_lo(ep[m]);
+        e2[1][m] = bf2_hi(ep[m]);
       }
       il_e = il;
     };
@@ -473,7 +417,8 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
         if (il != il_e) load_eq(il);
       }
       // every load of the round first
-      float2 zz[kRRows], gg[kRRows], kk[kRRows][kRMaxL];
+      float2 zz[kRRows], gg[kRRows];
+      typename Pair2<NT>::type kk[kRRows][kRMaxL];   // EK, rounded where used
 #pragma unroll
       for (int u = 0; u < kRRows; ++u) {
         const int row = row0 + u;
@@ -486,7 +431,8 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
         const NT* ekj = ek + jr * L * D + c;
 #pragma unroll
         for (int m = 0; m < kRMaxL; ++m) {
-          kk[u][m] = in && m < L ? load2(ekj + m * D) : float2{0.f, 0.f};
+          kk[u][m] = in && m < L ? load_pair2(ekj + m * D)
+                                 : typename Pair2<NT>::type{};
         }
       }
       float geq_acc[kRMaxL][2];
@@ -499,34 +445,46 @@ __global__ void __launch_bounds__(kThreads, 1) row_bwd_kernel(const Params p) {
         const long long pair = p0 + row;
         const float* rlp = rls + (in ? row : 0) * L;
         float x[kRMaxL], xr[kRMaxL], k[2][kRMaxL];
+        BF2 xp[kRMaxL], kp[kRMaxL];   // rnd(rl) in both halves; rnd(EK)
 #pragma unroll
         for (int m = 0; m < kRMaxL; m += 2) {
           x[m] = m < L ? rlp[m] : 0.f;
           x[m + 1] = m + 1 < L ? rlp[m + 1] : 0.f;
-          xr[m] = x[m];
-          xr[m + 1] = x[m + 1];
-          rnd2<true>(xr[m], xr[m + 1]);
+          const BF2 h = bf2_round(x[m], x[m + 1]);
+          xr[m] = bf2_lo(h);
+          xr[m + 1] = bf2_hi(h);
+          xp[m] = bf2_lo2(h);
+          xp[m + 1] = bf2_hi2(h);
         }
 #pragma unroll
         for (int m = 0; m < kRMaxL; ++m) {
-          k[0][m] = kk[u][m].x;
-          k[1][m] = kk[u][m].y;
-          rnd2<true>(k[0][m], k[1][m]);
+          kp[m] = bf2_of(kk[u][m]);
+          k[0][m] = bf2_lo(kp[m]);
+          k[1][m] = bf2_hi(kp[m]);
         }
-        // the terms of each degree block, both channels at once
+        // the terms of each degree block, both channels at once: S, pq, pk
+        // and, in float32, a = 2 - r2
         Terms tm[2][2];   // [block][channel]
-        reg_terms(e2, k, x, xr, 0, hi0, p.rej, tm[0]);
-        if (two) {
-          reg_terms(e2, k, x, xr, 3, L, p.rej, tm[1]);
-        } else {
-          tm[1][0] = tm[1][1] = Terms{0.f, 0.f, 0.f, 0.f};
-        }
         float rq[2][2];   // rnd(pq pk) [block][channel]
 #pragma unroll
         for (int b = 0; b < 2; ++b) {
-          rq[b][0] = tm[b][0].pq * tm[b][0].pk;
-          rq[b][1] = tm[b][1].pq * tm[b][1].pk;
-          rnd2<true>(rq[b][0], rq[b][1]);
+          const int lo = b ? 3 : 0, hi = b ? L : hi0;
+          if (b == 1 && !two) {
+            tm[1][0] = tm[1][1] = Terms{0.f, 0.f, 0.f, 0.f};
+            rq[1][0] = rq[1][1] = 0.f;
+            continue;
+          }
+          const Terms2 t2 = pair_terms(ep, kp, xp, lo, hi, p.rej);
+          float r2 = 0.f;
+#pragma unroll
+          for (int m = 0; m < kRMaxL; ++m) {
+            if (p.rej && m >= lo && m < hi) r2 += x[m] * x[m];
+          }
+          tm[b][0] = Terms{bf2_lo(t2.S), bf2_lo(t2.pq), bf2_lo(t2.pk), 2.f - r2};
+          tm[b][1] = Terms{bf2_hi(t2.S), bf2_hi(t2.pq), bf2_hi(t2.pk), 2.f - r2};
+          const BF2 q = bf2_mul(t2.pq, t2.pk);
+          rq[b][0] = bf2_lo(q);
+          rq[b][1] = bf2_hi(q);
         }
         float g_w[2], g_z[2], gwp[2];
 #pragma unroll

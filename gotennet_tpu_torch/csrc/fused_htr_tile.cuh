@@ -1,9 +1,13 @@
-// Device code shared by the fused HTR kernels, forward (fused_htr_fwd.cu,
-// fused_htr_ell_fwd.cu) and backward (fused_htr_bwd.cuh, which both
-// fused_htr_bwd.cu and fused_htr_ell_bwd.cu include): the update's
-// per-(pair, channel) terms as the TPU kernel forms them, and the product of
-// a block's pair rows with a 32-column slice of W_g or of its transpose (on
-// the tensor cores through pair_type.cuh's mma helper for a bf16 pair type).
+// Device code shared by the fused HTR kernels, forward (fused_htr_fwd.cuh,
+// which fused_htr_fwd.cu and fused_htr_ell_fwd.cu include) and backward
+// (fused_htr_bwd.cuh, which fused_htr_bwd.cu and fused_htr_ell_bwd.cu
+// include): the update's per-(pair, channel) terms as the TPU kernel forms
+// them, one value at a time (block_terms) and, for the row passes of both
+// directions, two neighbouring channels at a time in packed bf16 arithmetic
+// (pair_terms); the row passes' ring of bf16 W_g stages (load_w_tile); and
+// the slice-by-slice product of a block's pair rows with a 32-column slice
+// of W_g or of its transpose that the other cases take (on the tensor cores
+// through pair_type.cuh's mma helper for a bf16 pair type).
 
 #pragma once
 
@@ -245,6 +249,77 @@ __device__ __forceinline__ void store(AT* a, float v) {
   } else {
     *a = v;
   }
+}
+
+// the EK row pair `pair` reads (P: a kernel's parameters with R, the pairs
+// per EQ row, n_ek, the rows of EK, and nbr): dense, pair (g, i, j) of a
+// [G, M, M] slab (R = M) reads row g*M + j; ELL, slot (r, s) reads row
+// nbr[r, s] of the table, clamped so no read leaves it
+template <bool kEll, typename P>
+__device__ __forceinline__ long long ek_row(const P& p, long long pair) {
+  if constexpr (kEll) {
+    return min(max(p.nbr[pair], 0), p.n_ek - 1);
+  } else {
+    return pair / ((long long)p.R * p.R) * p.R + pair % p.R;
+  }
+}
+
+// ---- the row passes (bf16 pair type, lmax <= 2) ------------------------------
+// A block's tile of pair rows times W_g on the tensor cores, kRN columns at
+// a time, W_g's bf16 copy streamed through a ring of kRStages kRK-deep
+// stages (cp.async; fragments by ldmatrix.trans); then a warp per few
+// pairs a round with each lane on two neighbouring channels, whose terms
+// come from pair_terms.
+constexpr int kRN = 64;          // z columns per slice: two a lane
+constexpr int kRK = 64;          // depth per stage of W_g
+constexpr int kRStages = 3;      // stages in flight
+constexpr int kRLd = kRN + 8;    // bf16 row stride of a stage, [kRK][kRLd]
+constexpr int kRLdc = kRN + 4;   // float32 row stride of the z tile
+constexpr int kRWarps = kThreads / 32;
+constexpr int kRMaxL = 8;        // SH components kept in registers (lmax 2)
+
+// rows [k0, k0 + kRK) and columns [n0, n0 + kRN) of W_g's bf16 copy
+// ([D, D], (in, out)) into the ring stage s ([kRK][kRLd]), as cp.async of 8
+// values; zero past D
+__device__ __forceinline__ void load_w_tile(__nv_bfloat16* s,
+                                            const __nv_bfloat16* wg, int D,
+                                            int n0, int k0) {
+  for (int c = threadIdx.x; c < kRK * kRN / 8; c += kThreads) {
+    const int r = c / (kRN / 8), n = 8 * (c % (kRN / 8));
+    int b = k0 + r < D ? D - (n0 + n) : 0;
+    b = b < 0 ? 0 : (b > 8 ? 8 : b);
+    cp_async16(s + r * kRLd + n, b > 0 ? wg + (size_t)(k0 + r) * D + n0 + n : wg,
+               2 * b);
+  }
+}
+
+// one degree block's S, pq and pk (as block_terms forms them: one rounding
+// per product and per sum, in m order) at a lane's two channels, from the
+// rounded EQ (e) and EK (k) values of components [lo, hi) and the pair's
+// rounded rl (xr, the same value in both halves); each rounding is one
+// packed bf16 instruction for both channels, and a sum starts from -0, to
+// which adding the first term is exact.  pq and pk stay -0 without the
+// rejection terms.
+struct Terms2 {
+  BF2 S, pq, pk;
+};
+
+__device__ __forceinline__ Terms2 pair_terms(const BF2 (&e)[kRMaxL],
+                                             const BF2 (&k)[kRMaxL],
+                                             const BF2 (&xr)[kRMaxL], int lo,
+                                             int hi, int rej) {
+  Terms2 t{bf2_neg_zero(), bf2_neg_zero(), bf2_neg_zero()};
+#pragma unroll
+  for (int m = 0; m < kRMaxL; ++m) {
+    if (m >= lo && m < hi) {
+      t.S = bf2_add(t.S, bf2_mul(e[m], k[m]));
+      if (rej) {
+        t.pq = bf2_add(t.pq, bf2_mul(e[m], xr[m]));
+        t.pk = bf2_add(t.pk, bf2_mul(k[m], xr[m]));
+      }
+    }
+  }
+  return t;
 }
 
 }  // namespace

@@ -1,5 +1,7 @@
-// Device code shared by every kernel of the port: the pair type's rounding,
-// the one tensor-core product helper, `mma.sync.m16n8k16` with bf16
+// Device code shared by every kernel of the port: the pair type's rounding
+// (one value, two at once, and the packed bf16 products and sums of two
+// channels), the forwards' bf16 copies of their weights and tables, the one
+// tensor-core product helper, `mma.sync.m16n8k16` with bf16
 // factors and float32 sums, and the 16-byte cp.async that stages its
 // factors.  A build for the host (no __CUDA_ARCH__) forms
 // the same sums of exact bf16 products one accumulator slot at a time, in k
@@ -98,6 +100,118 @@ __device__ __forceinline__ void rnd2(float& a, float& b) {
     b = rnd<true>(b);
 #endif
   }
+}
+
+// Two bf16 values, a lane's two neighbouring channels, and the pair type's
+// arithmetic on them: bf2_mul and bf2_add round once to nearest even, as
+// rnd<true>(a * b) and rnd<true>(a + b) do (the product of two bf16 values
+// is exact in float32, and their sum rounds in float32 to a value that
+// rounds to the same bf16), in one packed instruction on the card with no
+// conversion.  The host build keeps the two values as floats.
+#if defined(__CUDA_ARCH__)
+using BF2 = __nv_bfloat162;
+
+__device__ __forceinline__ uint32_t bf2_bits(BF2 a) {
+  return *reinterpret_cast<const uint32_t*>(&a);
+}
+__device__ __forceinline__ BF2 bf2_of_bits(uint32_t u) {
+  return *reinterpret_cast<const BF2*>(&u);
+}
+// a b + c, rounded once
+__device__ __forceinline__ BF2 bf2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return bf2_of_bits(d);
+}
+// a b + (-0) and a 1 + b
+__device__ __forceinline__ BF2 bf2_mul(BF2 a, BF2 b) {
+  return bf2_fma(bf2_bits(a), bf2_bits(b), 0x80008000u);
+}
+__device__ __forceinline__ BF2 bf2_add(BF2 a, BF2 b) {
+  return bf2_fma(bf2_bits(a), 0x3F803F80u, bf2_bits(b));
+}
+__device__ __forceinline__ float bf2_lo(BF2 a) { return __low2float(a); }
+__device__ __forceinline__ float bf2_hi(BF2 a) { return __high2float(a); }
+// two bf16 values from 4-byte-aligned storage
+__device__ __forceinline__ BF2 bf2_load(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const BF2*>(p);
+}
+// (rnd(a), rnd(b)) in one packed conversion
+__device__ __forceinline__ BF2 bf2_round(float a, float b) {
+  return __floats2bfloat162_rn(a, b);
+}
+// (a.lo, a.lo) and (a.hi, a.hi)
+__device__ __forceinline__ BF2 bf2_lo2(BF2 a) { return __low2bfloat162(a); }
+__device__ __forceinline__ BF2 bf2_hi2(BF2 a) { return __high2bfloat162(a); }
+__device__ __forceinline__ BF2 bf2_zero() { return bf2_of_bits(0u); }
+// -0 in both halves: -0 + x = x for every x, so a sum may start from it
+__device__ __forceinline__ BF2 bf2_neg_zero() {
+  return bf2_of_bits(0x80008000u);
+}
+#else
+struct BF2 {
+  float x, y;
+};
+
+__device__ __forceinline__ BF2 bf2_mul(BF2 a, BF2 b) {
+  return BF2{rnd<true>(a.x * b.x), rnd<true>(a.y * b.y)};
+}
+__device__ __forceinline__ BF2 bf2_add(BF2 a, BF2 b) {
+  return BF2{rnd<true>(a.x + b.x), rnd<true>(a.y + b.y)};
+}
+__device__ __forceinline__ float bf2_lo(BF2 a) { return a.x; }
+__device__ __forceinline__ float bf2_hi(BF2 a) { return a.y; }
+__device__ __forceinline__ BF2 bf2_load(const __nv_bfloat16* p) {
+  return BF2{to_f(p[0]), to_f(p[1])};
+}
+__device__ __forceinline__ BF2 bf2_round(float a, float b) {
+  return BF2{rnd<true>(a), rnd<true>(b)};
+}
+__device__ __forceinline__ BF2 bf2_lo2(BF2 a) { return BF2{a.x, a.x}; }
+__device__ __forceinline__ BF2 bf2_hi2(BF2 a) { return BF2{a.y, a.y}; }
+__device__ __forceinline__ BF2 bf2_zero() { return BF2{0.f, 0.f}; }
+__device__ __forceinline__ BF2 bf2_neg_zero() { return BF2{-0.f, -0.f}; }
+#endif
+
+// Two consecutive values of float32 or bf16 storage as loaded (Pair2,
+// load_pair2: a float2, or a bf16 pair as it is) and rounded to bf16 where
+// they are used (bf2_of: one packed conversion, none for a bf16 pair), so a
+// round of loads issues before any conversion waits on one.
+template <typename T> struct Pair2 { using type = float2; };
+template <> struct Pair2<__nv_bfloat16> { using type = BF2; };
+
+template <typename T>
+__device__ __forceinline__ typename Pair2<T>::type load_pair2(const T* p) {
+  if constexpr (sizeof(T) == 2) {
+    return bf2_load(p);
+  } else {
+    return load2(p);
+  }
+}
+
+__device__ __forceinline__ BF2 bf2_of(float2 v) { return bf2_round(v.x, v.y); }
+__device__ __forceinline__ BF2 bf2_of(BF2 v) { return v; }
+
+// y[e] = bf16(x[e]) (round to nearest even), four values a thread, blocks
+// of kRoundThreads (n a multiple of 4, x 16-byte and y 8-byte aligned): the
+// forwards' bf16 copies of their weights and node tables
+constexpr int kRoundThreads = 256;
+
+struct RoundBF16 {
+  const float* x;
+  __nv_bfloat16* y;
+  long long n;
+};
+
+__global__ void __launch_bounds__(kRoundThreads)
+round_bf16_kernel(const RoundBF16 r) {
+  const long long e = 4 * ((long long)blockIdx.x * kRoundThreads + threadIdx.x);
+  if (e < r.n) store4_bf16(r.y + e, load4(r.x + e));
+}
+
+// round_bf16_kernel's grid for n values
+inline dim3 round_bf16_grid(long long n) {
+  return dim3((unsigned)((n / 4 + kRoundThreads - 1) / kRoundThreads));
 }
 
 // acc[i][j] += A[16 i .. 16 i + 16, 0:16] @ B[0:16, 8 j .. 8 j + 8] for

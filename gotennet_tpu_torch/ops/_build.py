@@ -102,8 +102,11 @@ def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
         fn.restype = i64
     elif source == "fused_htr_fwd.cu":
         fn = lib.gotennet_fused_htr_fwd
-        fn.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
+        fn.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
         fn.restype = i32
+        fn = lib.gotennet_fused_htr_fwd_workspace
+        fn.argtypes = [i32] * 4
+        fn.restype = i64
     elif source == "fused_htr_bwd.cu":
         fn = lib.gotennet_fused_htr_bwd
         fn.argtypes = [ptr] * 14 + [i32] * 10 + [ptr]
@@ -127,8 +130,11 @@ def _declare(lib: ctypes.CDLL, source: str = SOURCES[0]) -> None:
         fn.restype = i64
     elif source == "fused_htr_ell_fwd.cu":
         fn = lib.gotennet_fused_htr_ell_fwd
-        fn.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
+        fn.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
         fn.restype = i32
+        fn = lib.gotennet_fused_htr_ell_fwd_workspace
+        fn.argtypes = [i32] * 4
+        fn.restype = i64
     elif source == "fused_htr_ell_bwd.cu":
         fn = lib.gotennet_fused_htr_ell_bwd
         fn.argtypes = [ptr] * 17 + [i32] * 11 + [ptr]

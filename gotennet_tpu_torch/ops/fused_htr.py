@@ -356,11 +356,17 @@ def _launch(t, EQ, EK, rl, W_g, b_g, *, lmax, sep_htr, rej, gate,
 
 
 def _call_kernel(lib, stream, t, EQ, EK, rl, W_g, b_g, out, **kw) -> None:
-    """One forward through the C interface on ``stream`` into ``out``;
-    raises on the launch's CUDA error.  Arguments are validated by the
-    caller."""
+    """One forward through the C interface on ``stream`` into ``out``, with
+    a workspace of the size the library asks for (the bf16 W_g and node
+    tables); raises on the launch's CUDA error.  Arguments are validated by
+    the caller."""
+    G, M, _, D = t.shape
+    t, EQ, EK, W_g, b_g = (aligned(a) for a in (t, EQ, EK, W_g, b_g))
+    n_bytes = lib.gotennet_fused_htr_fwd_workspace(G, M, D, kw["lmax"])
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=t.device)
     err = lib.gotennet_fused_htr_fwd(
-        *(a.data_ptr() for a in (t, EQ, EK, rl, W_g, b_g, out)),
+        *(a.data_ptr() for a in (t, EQ, EK, rl, W_g, b_g, out, work)),
         *_flags(t, EQ, **kw), stream)
     _raise_on(lib, err, "fused_htr_fwd")
 
@@ -586,13 +592,19 @@ def _launch_ell(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax, sep_htr, rej, gate,
 
 def _call_ell_kernel(lib, stream, t, EQ, EK, rl, nbr, W_g, b_g, out, *,
                      lmax, sep_htr, rej, gate, pair_dtype) -> None:
-    """One ELL forward through the C interface on ``stream`` into ``out``;
-    raises on the launch's CUDA error.  Arguments are validated by the
-    caller."""
+    """One ELL forward through the C interface on ``stream`` into ``out``,
+    with a workspace of the size the library asks for (the bf16 W_g and
+    node tables); raises on the launch's CUDA error.  Arguments are
+    validated by the caller."""
     bf16 = torch.bfloat16
     NR, K, D = t.shape
+    t, EQ, EK, W_g, b_g = (aligned(a) for a in (t, EQ, EK, W_g, b_g))
+    n_bytes = lib.gotennet_fused_htr_ell_fwd_workspace(NR, EK.shape[0], D,
+                                                        lmax)
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=t.device)
     err = lib.gotennet_fused_htr_ell_fwd(
-        *(a.data_ptr() for a in (t, EQ, EK, rl, nbr, W_g, b_g, out)),
+        *(a.data_ptr() for a in (t, EQ, EK, rl, nbr, W_g, b_g, out, work)),
         NR, EK.shape[0], K, D, lmax, int(sep_htr), int(rej),
         GATES.index(gate), int(pair_dtype == bf16), int(t.dtype == bf16),
         int(EQ.dtype == bf16), stream)

@@ -336,6 +336,59 @@ def test_htr_backward_at_md22_reruns_bit_identical(card, gate, td):
     assert torch.all(g_EQ[0, M - 3:] == 0) and torch.all(g_EK[0, M - 3:] == 0)
 
 
+# The two HTR forwards redesigned on the row pass's shape at the paths'
+# shapes (dense: G = 4, M = 120; ELL: N = 704, K = 36, float32 node tables
+# as the ELL layer gives them), the gates and degree grammars not taken
+# above, bf16 and float32 node tables, bf16 t: against their plain versions
+# at the tolerances above, and run twice: the same bits (a block owns its
+# pairs' outputs).
+@pytest.mark.parametrize("gate,sep_htr,rej,td,nd", [
+    ("", True, True, torch.float32, torch.bfloat16),
+    ("gatedt", False, True, torch.bfloat16, torch.float32),
+    ("act", True, False, torch.float32, torch.bfloat16),
+])
+def test_htr_forward_at_md22_matches_plain_and_reruns(card, gate, sep_htr,
+                                                      rej, td, nd):
+    args, _ = htr_inputs(card, 4, 120, 256, 2, td, nd, seed=9)
+    kw = dict(lmax=2, sep_htr=sep_htr, rej=rej, gate=gate,
+              pair_dtype=torch.bfloat16)
+    before = fused_htr_forward.launches
+    got = fused_htr_forward(*args, **kw)
+    again = fused_htr_forward(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_htr_forward.launches == before + 2
+    want = fused_htr_forward_reference(*args, **kw)
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("gate,sep_htr,rej,nd", [
+    ("", True, True, torch.float32),
+    ("gated", False, True, torch.bfloat16),
+    ("act", True, False, torch.float32),
+])
+def test_htr_ell_forward_matches_plain_and_reruns(card, gate, sep_htr, rej,
+                                                  nd):
+    D, lmax, K, NR, N = 256, 2, 36, 704, 704
+    L = (lmax + 1) ** 2 - 1
+    args = ell_inputs(card, NR, N, K, D, 8, lmax, False, seed=13)
+    gen = torch.Generator().manual_seed(6)
+    h_args = [args[0],
+              (torch.randn(NR, L, D, generator=gen) * 0.4).to(card, nd),
+              (torch.randn(N, L, D, generator=gen) * 0.4).to(card, nd),
+              args[5], args[9], args[10] / 8.0, args[11]]
+    hkw = dict(lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+               pair_dtype=torch.bfloat16)
+    before = fused_htr_ell_forward.launches
+    got = fused_htr_ell_forward(*h_args, **hkw)
+    again = fused_htr_ell_forward(*h_args, **hkw)
+    torch.cuda.synchronize()
+    assert fused_htr_ell_forward.launches == before + 2
+    want = fused_htr_ell_forward_reference(*h_args, **hkw)
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert torch.equal(got, again)
+
+
 def test_htr_kernel_checks_arguments(card):
     args, _ = htr_inputs(card, 1, 8, 32, 2, torch.float32, torch.float32)
     kw = dict(lmax=2, sep_htr=True, rej=True, gate="")

@@ -51,7 +51,7 @@ SMALL = dict(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
              n_rbf=8)
 FRAMES = dict(min_atoms=40, max_atoms=60, box=6.3)
 # the one launch line of each forward source, which the host build replaces
-_LAUNCH = "kern<<<grid, kThreads, p.smem, stream>>>(p);"
+_LAUNCH = "kern<<<grid, kThreads, smem, stream>>>(args);"
 _MSG_LAUNCH = "kern<<<grid, NT, smem, stream>>>(args);"
 BATCH_FIELDS = ("z", "pos", "node_graph", "nbr", "nbr_mask", "node_mask",
                 "graph_mask", "y")
@@ -411,6 +411,49 @@ def test_htr_source_on_host_matches_plain(host_htr_ell, NR, N, K, gate, pd,
     fused_htr._call_ell_kernel(host_htr_ell, None, *a, out, **kw)
     # every slot, padded ones included: the update masks none
     _assert_close(out.numpy(), want.numpy(), 1e-5, "out")
+
+
+# The HTR update's block shapes, each held against the plain version and run
+# twice (the same bytes: a block owns its slots' outputs): the row path
+# (bf16 pair type, lmax <= 2) with K = 36 and K = 12 (a 128-slot block spans
+# rows, none aligned to it), fewer rows than table rows, two indices
+# outside the table (the kernel clamps them; the plain version is given
+# them clamped), float32 and bf16 t and tables, sep_htr on and off, no
+# rejection terms, all four gates, lmax 1 and 2; the slice path with a
+# float32 pair type and at lmax 3.  1e-5 of the scale, as above.
+@pytest.mark.parametrize("NR,N,K,lmax,v,pd,td,nd", [
+    (70, 96, 36, 2, (True, True, ""), torch.bfloat16, torch.float32,
+     torch.float32),
+    (53, 53, 12, 2, (False, True, "gated"), torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),
+    (40, 60, 36, 1, (True, False, "act"), torch.bfloat16, torch.float32,
+     torch.float32),
+    (30, 40, 12, 2, (True, False, "gatedt"), torch.bfloat16, torch.bfloat16,
+     torch.float32),
+    (20, 24, 36, 2, (True, True, "gated"), torch.float32, torch.float32,
+     torch.bfloat16),
+    (16, 20, 12, 3, (True, True, ""), torch.bfloat16, torch.float32,
+     torch.float32),
+], ids=["k36-f32-tables", "k12-bf16", "lmax1-norej", "k12-gatedt", "f32",
+        "lmax3"])
+def test_htr_source_on_host_block_shapes_rerun(host_htr_ell, NR, N, K, lmax,
+                                               v, pd, td, nd):
+    D = 32
+    a = [torch.from_numpy(x) for x in htr_ell_inputs(5, NR, N, K, D, lmax)]
+    a[0] = a[0].to(td)
+    a[1], a[2] = a[1].to(nd), a[2].to(nd)
+    a[4][0, 0], a[4][1, 2] = N + 5, -3
+    kw = dict(lmax=lmax, sep_htr=v[0], rej=v[1], gate=v[2], pair_dtype=pd)
+    clamped = list(a)
+    clamped[4] = a[4].clamp(0, N - 1)
+    want = fused_htr_ell_forward_reference(*clamped, **kw)
+    runs = []
+    for _ in range(2):
+        out = torch.full((NR, K, D), math.nan)
+        fused_htr._call_ell_kernel(host_htr_ell, None, *a, out, **kw)
+        runs.append(out)
+    _assert_close(runs[0].numpy(), want.numpy(), 1e-5, "out")
+    assert runs[0].numpy().tobytes() == runs[1].numpy().tobytes()
 
 
 # The message kernel's block shapes, each held against the plain version and

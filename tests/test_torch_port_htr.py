@@ -26,8 +26,8 @@ from gotennet_tpu_torch.ops.fused_htr import (FusedHTR, fused_htr_backward,
 from test_torch_port_kernel import _assert_close, build_on_host
 
 NAMES = ("t", "EQ", "EK", "rl", "W_g", "b_g")
-# the one kernel-launch line of each source
-_FWD_LAUNCH = "kern<<<grid, kThreads, p.smem, stream>>>(p);"
+# the one kernel-launch line of each source (both in its run())
+_FWD_LAUNCH = "kern<<<grid, kThreads, smem, stream>>>(args);"
 _BWD_LAUNCH = "kern<<<grid, kThreads, smem, stream>>>(args);"
 
 FLAGSHIP = dict(sep_htr=True, rej=True, gate="")
@@ -222,6 +222,46 @@ def test_cuda_forward_on_host_matches_plain(host_fwd, case):
     fused_htr._call_kernel(host_fwd, None, *args, out, **kw)
     # every pair, padded ones included: the update masks none
     _assert_close(out.numpy(), want.numpy(), 1e-5, "out")
+
+
+# The forward's block shapes, each held against the plain version and run
+# twice (the same bytes: a block owns its pairs' outputs): the row path
+# (bf16 pair type, lmax <= 2) at M = 120 (a 128-pair block spans two EQ
+# rows) and M = 13 (a warp's last round finds fewer pairs), rows longer than
+# a block (M = 136), float32 and bf16 t and node tables, sep_htr on and off,
+# no rejection terms, all four gates, lmax 1 and 2; the slice path with a
+# float32 pair type and at lmax 3.  1e-5 of the scale, as above.
+@pytest.mark.parametrize("case", [
+    dict(G=2, M=120, D=32, lmax=2, v=FLAGSHIP, pd=torch.bfloat16,
+         t=torch.float32, node=torch.bfloat16),
+    dict(G=2, M=13, D=32, lmax=2, v=dict(sep_htr=False, rej=True,
+                                         gate="gated"),
+         pd=torch.bfloat16, t=torch.bfloat16, node=torch.float32),
+    dict(G=2, M=13, D=64, lmax=1, v=dict(sep_htr=True, rej=False,
+                                         gate="gatedt"),
+         pd=torch.bfloat16, t=torch.float32, node=torch.bfloat16),
+    dict(G=1, M=120, D=32, lmax=2, v=dict(sep_htr=True, rej=False,
+                                          gate="act"),
+         pd=torch.bfloat16, t=torch.bfloat16, node=torch.float32),
+    dict(G=1, M=136, D=32, lmax=1, v=FLAGSHIP, pd=torch.bfloat16,
+         t=torch.float32, node=torch.float32),
+    dict(G=2, M=10, D=32, lmax=2, v=FLAGSHIP, pd=torch.float32,
+         t=torch.float32, node=torch.bfloat16),
+    dict(G=1, M=16, D=32, lmax=3, v=dict(sep_htr=True, rej=True,
+                                         gate="gated"),
+         pd=torch.bfloat16, t=torch.float32, node=torch.bfloat16),
+], ids=["md22-row", "ragged-round", "lmax1-norej", "act-f32-nodes",
+        "long-row", "f32", "lmax3"])
+def test_cuda_forward_on_host_block_shapes_rerun(host_fwd, case):
+    args, _, kw = _host_case(case)
+    want = fused_htr_forward_reference(*args, **kw)
+    runs = []
+    for _ in range(2):
+        out = torch.full(args[0].shape, math.nan)
+        fused_htr._call_kernel(host_fwd, None, *args, out, **kw)
+        runs.append(out)
+    _assert_close(runs[0].numpy(), want.numpy(), 1e-5, "out")
+    assert runs[0].numpy().tobytes() == runs[1].numpy().tobytes()
 
 
 @pytest.mark.parametrize("case", HOST_CASES)
