@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero before the result line:
   1. device: the card's name and power limit; build the CUDA kernels
      from ``gotennet_tpu_torch/csrc`` (one nvcc per source, all started
-     together) and print the ``-Xptxas -v`` summary;
+     together, and the host neighbour list with g++ beside them) and print
+     the ``-Xptxas -v`` summary;
   2. kernel vs plain: the fused-GATA forward kernel against its plain
      PyTorch version at the flagship shapes (G=8, D=256, H=8, lmax 2,
      mult 5), M in {16, 24, 32}, float32 and bf16 pair types, padded
@@ -76,10 +77,11 @@ Phases, in order; any failure exits non-zero before the result line:
      ``Predictor(layout="ell")``, one frame per chunk, atoms spatially sorted,
      64-row gather windows; the launch counters must read 8 chunks x 4
      layers of the message and x 3 of the HTR update; the answers are held
-     against the same model run through both plain versions; the request is
-     timed (CUDA events) and profiled, and both kernels timed on the inputs
-     the request gave them, both split per launch (``[passes]``: the bf16
-     weights and tables, then the message kernel or the update);
+     against the same model run through both plain versions; the loader's
+     host time is logged with the chunks; the request is timed (CUDA
+     events) and profiled, and both kernels rerun to the same bits, timed on
+     the inputs the request gave them and split per launch (``[passes]``:
+     the bf16 weights and tables, then the message kernel or the update);
  15. ELL message backward kernel vs plain: at phase 12's shapes and cases,
      all 13 cotangents, exact zeros for g_t, g_rl, g_env and g_scale at
      padded slots, and the same bits from a second run;
@@ -91,8 +93,8 @@ Phases, in order; any failure exits non-zero before the result line:
      both backward plain versions; three steps are timed after two warm-up
      steps (CUDA events), with real edges per second, the device's busy share
      of a step (``torch.profiler``) and both backward kernels timed on the
-     inputs a step gave them, beside their plain versions and bounds, and
-     both split per pass (``[passes]``);
+     inputs a step gave them (rerun to the same bits), beside their plain
+     versions and bounds, and both split per pass (``[passes]``);
  18. GATA backward with position cotangents vs plain: ``pos_grads=True``
      (g_rl and g_env, the half forces need) at M 16/24/32 (G=16) and
      112/120 (G=4), float32 and bf16, scalar and per-head scale: all 13
@@ -122,7 +124,30 @@ Phases, in order; any failure exits non-zero before the result line:
      of the message forwards' t W_re and t W_rs (57,600 pairs, each QM9
      request launch's pairs, 25,344 ELL slots), the HTR backwards' t W_g,
      g_z W_g^T and t^T g_z and the HTR forwards' t W_g (57,600 pairs and
-     25,344 slots), each logged beside the kernel's own ms a launch.
+     25,344 slots), each logged beside the kernel's own ms a launch;
+ 22. the native neighbour list (``csrc/neighborlist.cpp``, built with g++
+     in phase 1 beside the kernels): on the xl frames its edges equal
+     ``build_edges_np``'s, arrays in the same order, both timed;
+ 23. xl serving: ``bench.py``'s ``BENCH_DATASET=xl``, 2 synthetic frames of
+     4,000-4,200 atoms, as phase 14 (the flagship with ``fused_htr=True``,
+     ``Predictor(layout="ell")``, one frame per chunk): N = 4,224 rows is
+     above ``fused_table_rows`` = 2048, where the JAX package chunks its
+     kernels over halo windows (the geometry ``pick_chunking`` gives is
+     logged) and the port runs them on the whole table; 2 x 4 message and
+     2 x 3 HTR launches; answers against both plain versions; loader host
+     time, wall, busy, real edges/s; both kernels on the request's inputs
+     beside their bounds and plain versions, rerun to the same bits;
+ 24. xl training: one step through ``train_steps(layout="ell", chunk=1)``
+     on the same 2 frames, as phase 17: 8 message and 6 HTR launches each
+     way, the first step's gradients against both backward plain versions,
+     three steps timed after two warm-up steps and profiled, both backward
+     kernels on a step's inputs beside their bounds, rerun to the same bits;
+ 25. the ``large_molecule`` experiment's model (``fused=True,
+     fused_htr=False``: the fused message, the unfused HTR update) on phase
+     14's 8 frames: one request (32 message launches, no HTR launch)
+     against the plain message path, and one training step (32 message
+     launches each way) with its gradients against the plain message
+     backward, each timed and profiled.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -135,6 +160,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -164,6 +190,10 @@ MD22_SIZES = dict(min_atoms=110, max_atoms=120, box=6.3)
 # frame per chunk on the ELL layout (N = 704 rows, K = 36 slots)
 LARGE_FRAMES, ELL_N, ELL_K = 8, 704, 36
 LARGE_SIZES = dict(min_atoms=600, max_atoms=700, box=6.3)
+# bench.py's BENCH_DATASET=xl: 4,000-4,200-atom frames, one per chunk on the
+# ELL layout (N = 4,224 rows, K = 36 slots, above fused_table_rows = 2048)
+XL_FRAMES = 2
+XL_SIZES = dict(min_atoms=4000, max_atoms=4200, box=6.3)
 # ms a launch of the kernels that phase 21's yardsticks are logged beside,
 # by "kernel, path" (filled by the phases that time them)
 KERNEL_MS = {}
@@ -1343,28 +1373,99 @@ def large_frames() -> list:
                                ).graph_dicts(range(LARGE_FRAMES))
 
 
-def ell_serve_phase(cfg, head, card) -> list:
-    """Phase 14: the 600-700-atom request on the ELL layout through both ELL
-    kernels; returns their records."""
+def xl_frames() -> list:
+    """bench.py's xl batch: 2 synthetic frames of 4,000-4,200 atoms at
+    condensed-phase density, with a synthetic energy."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    return synthetic_molecules(XL_FRAMES, seed=0, **XL_SIZES
+                               ).graph_dicts(range(XL_FRAMES))
+
+
+def rerun_bits(kernel, captured, what) -> None:
+    """The kernel on the first captured call twice: the same bits."""
+    args, kwargs = captured[0]
+    with torch.inference_mode():
+        a, b = kernel(*args, **kwargs), kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    a, b = ((a,), (b,)) if isinstance(a, torch.Tensor) else (a, b)
+    if not all(torch.equal(x, y) for x, y in zip(a, b) if x is not None):
+        raise AssertionError(f"{what} differs between runs")
+    log(f"[rerun] {what}: the same bits from a second run on the path's "
+        f"inputs (t {list(args[0].shape)})")
+
+
+def ell_chunks(cfg, loader, what, card) -> list:
+    """The request's chunks as ``loader`` cuts them, its host time, and the
+    path each chunk takes: where the JAX package would cut a table above
+    ``fused_table_rows`` into halo windows (``pick_chunking``'s geometry)
+    the port's kernels take the whole table."""
+    from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+    from gotennet_tpu_torch.ops.fused_ell import pick_chunking
+    t0 = time.perf_counter()
+    chunks = [b for _, b in loader.batches()]
+    loader_ms = (time.perf_counter() - t0) * 1e3
+    limit = cfg.fused_table_rows
+    geometry = [None if not limit or b.num_nodes <= limit else
+                pick_chunking(b.num_nodes, b.num_nodes, b.gather_halo, limit)
+                for b in chunks]
+    paths = {fused_paths(cfg, b.num_nodes, b.num_nodes, b.gather_halo)
+             for b in chunks}
+    log(f"[{what}] chunks: N = {[b.num_nodes for b in chunks]}, K = "
+        f"{[b.max_neighbors for b in chunks]}, gather windows "
+        f"{[b.gather_window for b in chunks]}, halos "
+        f"{[b.gather_halo for b in chunks]}, real slots "
+        f"{[int(b.nbr_mask.sum()) for b in chunks]}; the JAX package's "
+        f"chunking (rows a chunk, window, chunks) at fused_table_rows="
+        f"{limit}: {geometry} (None: the whole table), replaced by whole-table"
+        f" calls; fused (message, update): {sorted(paths)}; loader "
+        f"{loader_ms:.3f} ms (host) | {card}")
+    return chunks
+
+
+def native_phase(card) -> None:
+    """Phase 22: the native neighbour list on this machine gives the xl
+    frames' edges as the numpy version does, arrays in the same order."""
+    from gotennet_tpu_torch.graph.native import build_edges
+    from gotennet_tpu_torch.graph.neighborlist import build_edges_np
+    for i, m in enumerate(xl_frames()):
+        t0 = time.perf_counter()
+        got = build_edges(m["pos"], 5.0, True, 32)
+        t1 = time.perf_counter()
+        want = build_edges_np(m["pos"], 5.0, True, 32)
+        t2 = time.perf_counter()
+        same = all(g.dtype == w.dtype and g.shape == w.shape
+                   and bool((g == w).all()) for g, w in zip(got, want))
+        log(f"[native] xl frame {i} ({len(m['z'])} atoms): {len(got[0])} "
+            f"edges; build_edges {1e3 * (t1 - t0):.3f} ms, build_edges_np "
+            f"{1e3 * (t2 - t1):.3f} ms (host); arrays equal in order: "
+            f"{same} | {card}")
+        if not same:
+            raise AssertionError("the native neighbour list differs from "
+                                 "build_edges_np")
+
+
+def ell_serve_phase(cfg, head, card, mols, what, kernels=True) -> list:
+    """Phases 14, 24 and 25: a request of ``mols`` (one frame per chunk) on
+    the ELL layout through the ELL forward kernels (the HTR one with
+    ``fused_htr``); with ``kernels``, returns both kernels' records."""
     from gotennet_tpu_torch.data.dataset import MoleculeDataset
     from gotennet_tpu_torch.ops import fused_ell, fused_htr
     from gotennet_tpu_torch.serve import Predictor
 
     msg, htr = fused_ell.fused_ell_forward, fused_htr.fused_htr_ell_forward
-    mols = large_frames()
+    n = len(mols)
     pred = Predictor(cfg, head, seed=0, chunk=1, layout="ell",
                      spatial_sort=True, block_rows=64)
-    expected = (LARGE_FRAMES * N_LAYERS, LARGE_FRAMES * (N_LAYERS - 1))
+    expected = (n * N_LAYERS, n * (N_LAYERS - 1) * cfg.fused_htr)
 
     # the main path: one request through the entry point
     msg.launches = htr.launches = 0
     got = pred.predict(mols)
     torch.cuda.synchronize()
     launches = (msg.launches, htr.launches)
-    log(f"[ell-serve] answered {LARGE_FRAMES} frames of 600-700 atoms, one "
-        f"per chunk: launches ELL message {launches[0]}, ELL HTR "
-        f"{launches[1]} (chunks x layers = {expected[0]}, chunks x (layers "
-        f"- 1) = {expected[1]})")
+    log(f"[{what}] answered {n} frames, one per chunk: launches ELL message "
+        f"{launches[0]}, ELL HTR {launches[1]} (chunks x layers = "
+        f"{expected[0]}, chunks x (layers - 1) = {expected[1]})")
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     with mock.patch.object(fused_ell, "fused_ell_forward",
@@ -1374,33 +1475,27 @@ def ell_serve_phase(cfg, head, card) -> list:
         want = pred.predict(mols)
     got_t = torch.from_numpy(got)
     err, rel = rel_err(got_t, torch.from_numpy(want))
-    log(f"[ell-serve] answers: shape {tuple(got.shape)}, max abs err vs the "
+    log(f"[{what}] answers: shape {tuple(got.shape)}, max abs err vs the "
         f"plain path {err:.4e} (rel {rel:.3e}, tol {TOL_SERVE:g})")
-    if (got.shape != (LARGE_FRAMES, 1) or not torch.isfinite(got_t).all()
+    if (got.shape != (n, 1) or not torch.isfinite(got_t).all()
             or rel > TOL_SERVE):
-        raise AssertionError("ELL answers disagree with the plain path")
+        raise AssertionError(f"{what}: answers disagree with the plain path")
 
     # the request's chunks as the loader cuts them; its host time is that
     # of the neighbour probe over the request and of every collation
     ds = MoleculeDataset(z=[m["z"] for m in mols],
                          pos=[m["pos"] for m in mols])
-    t0 = time.perf_counter()
-    chunks = [b for _, b in pred.loader(ds).batches()]
-    loader_ms = (time.perf_counter() - t0) * 1e3
+    chunks = ell_chunks(cfg, pred.loader(ds), what, card)
     real_edges = sum(int(b.nbr_mask.sum()) for b in chunks)
     padded = sum(b.num_nodes * b.max_neighbors for b in chunks)
-    log(f"[ell-serve] chunks: N = {[b.num_nodes for b in chunks]}, K = "
-        f"{[b.max_neighbors for b in chunks]}, gather windows "
-        f"{[b.gather_window for b in chunks]}, halos "
-        f"{[b.gather_halo for b in chunks]}; loader {loader_ms:.3f} ms "
-        f"(host)")
     req_ms, host_ms, _ = time_run(lambda: pred.predict(mols), 2, 5)
-    log(f"[time] {LARGE_FRAMES}-frame ELL request: {req_ms:.3f} ms (CUDA "
-        f"events), {host_ms:.3f} ms (host clock); real edges {real_edges} "
+    log(f"[time] {n}-frame {what}: {req_ms:.3f} ms (CUDA events), "
+        f"{host_ms:.3f} ms (host clock); real edges {real_edges} "
         f"(self-loops included), padded slots {padded}; "
         f"{real_edges / (req_ms / 1e3):.1f} real edges/s | {card}")
-    profile(lambda: pred.predict(mols), req_ms,
-            f"{LARGE_FRAMES}-frame ELL request", card)
+    profile(lambda: pred.predict(mols), req_ms, f"{n}-frame {what}", card)
+    if not kernels:
+        return []
     records = []
     for name, module, fn_name, kernel, plain, bound, replaces in (
             ("fused_ell_fwd", fused_ell, "fused_ell_forward", msg,
@@ -1410,14 +1505,15 @@ def ell_serve_phase(cfg, head, card) -> list:
              fused_htr.fused_htr_ell_forward_reference, htr_ell_fwd_bound_ms,
              "gotennet_tpu/ops/pallas/fused_htr.py:339")):
         captured = capture(module, fn_name, lambda: pred.predict(mols))
+        rerun_bits(kernel, captured, f"{name} ({what})")
         record = kernel_record(
             {"name": name, "route": "cuda",
              "source": f"gotennet_tpu_torch/csrc/{name}.cu",
              "replaces": replaces}, captured, kernel, plain, bound, card)
         record["launches"] = launches[len(records)]
-        KERNEL_MS[f"{name}, ELL request"] = record["ms"]
+        KERNEL_MS[f"{name}, {what}"] = record["ms"]
         records.append(record)
-        pass_split(kernel, captured, f"{name} (ELL request)", card)
+        pass_split(kernel, captured, f"{name} ({what})", card)
     return records
 
 
@@ -1513,9 +1609,10 @@ def check_htr_ell_backward() -> None:
                 raise AssertionError("ELL HTR backward differs between runs")
 
 
-def ell_train_phase(cfg, head, card) -> list:
-    """Phase 17: one ELL training step on the 600-700-atom frames through
-    all four ELL kernels; returns both backward kernels' records."""
+def ell_train_phase(cfg, head, card, mols, what, kernels=True) -> list:
+    """Phases 17, 24 and 25: one ELL training step on ``mols`` (one frame
+    per chunk) through the ELL kernels (the HTR ones with ``fused_htr``);
+    with ``kernels``, returns both backward kernels' records."""
     from gotennet_tpu_torch.models.model import GotenModel
     from gotennet_tpu_torch.ops import fused_ell, fused_htr
     from gotennet_tpu_torch.tasks.base import Task
@@ -1527,9 +1624,9 @@ def ell_train_phase(cfg, head, card) -> list:
     counters = (fused_ell.fused_ell_forward, fused_ell.fused_ell_backward,
                 fused_htr.fused_htr_ell_forward,
                 fused_htr.fused_htr_ell_backward)
-    mols = large_frames()
-    expected = ((LARGE_FRAMES * N_LAYERS,) * 2
-                + (LARGE_FRAMES * (N_LAYERS - 1),) * 2)
+    n = len(mols)
+    expected = ((n * N_LAYERS,) * 2
+                + (n * (N_LAYERS - 1) * cfg.fused_htr,) * 2)
 
     # the main path: one step through the entry point
     for c in counters:
@@ -1538,8 +1635,8 @@ def ell_train_phase(cfg, head, card) -> list:
                          layout="ell")
     torch.cuda.synchronize()
     launches = tuple(c.launches for c in counters)
-    log(f"[ell-train] one step on {LARGE_FRAMES} frames of 600-700 atoms, one"
-        f" per chunk: loss {losses[0]:.6f}; launches ELL message forward/"
+    log(f"[{what}] one step on {n} frames, one per chunk: loss "
+        f"{losses[0]:.6f}; launches ELL message forward/"
         f"backward {launches[0]}/{launches[1]}, ELL HTR forward/backward "
         f"{launches[2]}/{launches[3]} (expected {expected})")
     if launches != expected:
@@ -1562,12 +1659,12 @@ def ell_train_phase(cfg, head, card) -> list:
         accum_grads(model, loss_fn, chunks)
     errs = {n: rel_err(grads[n], p.grad) for n, p in model.named_parameters()}
     worst = max(errs, key=lambda n: errs[n][1])
-    log(f"[ell-train] first-step gradients, kernels vs plain backwards: "
+    log(f"[{what}] first-step gradients, kernels vs plain backwards: "
         f"{len(errs)} tensors, worst {worst} abs {errs[worst][0]:.3e} rel "
         f"{errs[worst][1]:.3e} (tol {TOL_TRAIN:g} rel)")
     if errs[worst][1] > TOL_TRAIN or not all(
             torch.isfinite(g).all() for g in grads.values()):
-        raise AssertionError("ELL gradients disagree with the plain "
+        raise AssertionError(f"{what}: gradients disagree with the plain "
                              "backwards")
 
     # timing: three steps after two warm-up steps
@@ -1581,11 +1678,13 @@ def ell_train_phase(cfg, head, card) -> list:
         raise AssertionError("training loss is not finite")
     real_edges = sum(int(b.nbr_mask.sum()) for b in chunks)
     padded = sum(b.num_nodes * b.max_neighbors for b in chunks)
-    log(f"[ell-train] step: {step_ms:.3f} ms (CUDA events), {host_ms:.3f} ms "
+    log(f"[{what}] step: {step_ms:.3f} ms (CUDA events), {host_ms:.3f} ms "
         f"(host clock); real edges {real_edges} (self-loops included), padded"
         f" slots {padded}; {real_edges / (step_ms / 1e3):.1f} real edges/s; "
         f"losses {[round(x, 6) for x in step_losses]} | {card}")
-    profile(step, step_ms, "ELL training step", card)
+    profile(step, step_ms, what, card)
+    if not kernels:
+        return []
 
     # both backward kernels on a step's inputs
     records = []
@@ -1598,14 +1697,15 @@ def ell_train_phase(cfg, head, card) -> list:
              "gotennet_tpu/ops/pallas/fused_htr.py:383")):
         captured = capture(module, kernel.__name__,
                            lambda: accum_grads(model, loss_fn, chunks))
+        rerun_bits(kernel, captured, f"{name} ({what})")
         record = kernel_record(
             {"name": name, "route": "cuda",
              "source": f"gotennet_tpu_torch/csrc/{name}.cu",
              "replaces": replaces}, captured, kernel, plain, bound, card)
         record["launches"] = n_launches
-        KERNEL_MS[f"{name}, ELL step"] = record["ms"]
+        KERNEL_MS[f"{name}, {what}"] = record["ms"]
         records.append(record)
-        pass_split(kernel, captured, f"{name} (ELL step)", card)
+        pass_split(kernel, captured, f"{name} ({what})", card)
     return records
 
 
@@ -1785,6 +1885,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from gotennet_tpu_torch.data.dataset import DenseLoader, MoleculeDataset
     from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.graph import native
     from gotennet_tpu_torch.models.gotennet import GotenNetConfig
     from gotennet_tpu_torch.ops import _build, fused_gata
     from gotennet_tpu_torch.serve import Predictor
@@ -1804,10 +1905,24 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    # the host neighbour list (g++) builds beside the kernels (nvcc)
+    host_build = {}
+
+    def build_host() -> None:
+        t = time.time()
+        host_build["path"] = native.build_library()
+        host_build["s"] = time.time() - t
+
+    thread = threading.Thread(target=build_host)
     t0 = time.time()
+    thread.start()
     _build.build_all()
-    log(f"[build] {len(_build.SOURCES)} source(s) in "
-        f"{time.time() - t0:.1f} s")
+    thread.join()
+    if "path" not in host_build:
+        raise RuntimeError("the host neighbour list did not build")
+    log(f"[build] {len(_build.SOURCES)} CUDA source(s) with nvcc and "
+        f"{native.SOURCE.name} with g++ in {time.time() - t0:.1f} s "
+        f"({native.SOURCE.name} alone {host_build['s']:.1f} s)")
     for src in _build.SOURCES:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -1921,7 +2036,8 @@ def main() -> int:
     phase_done("12 (ELL message vs plain)")
     check_htr_ell()
     phase_done("13 (ELL HTR vs plain)")
-    ell_records = ell_serve_phase(md22_cfg, head, card)
+    ell_records = ell_serve_phase(md22_cfg, head, card, large_frames(),
+                                  "ELL request")
     phase_done("14 (ELL serving)")
 
     # ---- 15.-17. ELL training: both backward kernels, then one step -------
@@ -1929,7 +2045,8 @@ def main() -> int:
     phase_done("15 (ELL message backward vs plain)")
     check_htr_ell_backward()
     phase_done("16 (ELL HTR backward vs plain)")
-    ell_bwd_records = ell_train_phase(md22_cfg, head, card)
+    ell_bwd_records = ell_train_phase(md22_cfg, head, card, large_frames(),
+                                      "ELL step")
     phase_done("17 (ELL training)")
 
     # ---- 18.-20. forces: the GATA backward's position half, then serving --
@@ -1946,10 +2063,31 @@ def main() -> int:
     products_phase(card)
     yardsticks(card, qm9_shapes)
     phase_done("21 (the backward product alone; the yardsticks)")
-    log(json.dumps({"kernels": [record, bwd_record, htr_record,
-                                htr_bwd_record, ell_records[0],
-                                ell_bwd_records[0], ell_records[1],
-                                ell_bwd_records[1], pos_record]}))
+
+    # ---- 22.-25. the xl mode and the large_molecule model ------------------
+    native_phase(card)
+    phase_done("22 (the native neighbour list vs numpy)")
+    xl_records = ell_serve_phase(md22_cfg, head, card, xl_frames(),
+                                 "xl request")
+    phase_done("23 (xl serving)")
+    xl_bwd_records = ell_train_phase(md22_cfg, head, card, xl_frames(),
+                                     "xl step")
+    phase_done("24 (xl training)")
+    lm_cfg = dataclasses.replace(md22_cfg, fused_htr=False)
+    ell_serve_phase(lm_cfg, head, card, large_frames(),
+                    "large_molecule request", kernels=False)
+    ell_train_phase(lm_cfg, head, card, large_frames(), "large_molecule step",
+                    kernels=False)
+    phase_done("25 (the large_molecule model: fused message, unfused "
+               "update)")
+    paths = [(record, "QM9 request"), (bwd_record, "QM9 step"),
+             (htr_record, "MD22 request"), (htr_bwd_record, "MD22 step"),
+             (ell_records[0], "ELL request"), (ell_bwd_records[0], "ELL step"),
+             (ell_records[1], "ELL request"), (ell_bwd_records[1], "ELL step"),
+             (pos_record, "MD22 force request"),
+             (xl_records[0], "xl request"), (xl_bwd_records[0], "xl step"),
+             (xl_records[1], "xl request"), (xl_bwd_records[1], "xl step")]
+    log(json.dumps({"kernels": [{**r, "path": p} for r, p in paths]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,8 +14,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch, collate_dense
-from gotennet_tpu_torch.graph.ell_batch import ELLBatch, collate_ell
-from gotennet_tpu_torch.graph.neighborlist import build_edges_np
+from gotennet_tpu_torch.graph.ell_batch import (ELLBatch, collate_ell,
+                                                frame_graph)
 
 __all__ = ["MoleculeDataset", "DenseLoader", "ELLLoader",
            "synthetic_molecules"]
@@ -160,7 +160,12 @@ class ELLLoader:
     to 8 and then to ``block_rows``.  ``max_neighbors`` defaults to the
     largest degree over every molecule (the JAX loader's
     ``neighbor_probe="full"``), rounded up to a multiple of 4; a batch
-    whose degree overflows it grows K by 4 and is collated again."""
+    whose degree overflows it grows K by 4 and is collated again.
+
+    Each frame's radius graph is built once, on the frame in the order the
+    batch will hold it (spatially sorted with ``spatial_sort``), by the
+    native cell list: the degree probe and the collation share it (a degree
+    does not depend on the atom order)."""
 
     def __init__(self, ds: MoleculeDataset, batch_size: int,
                  cutoff: float = 5.0, max_num_neighbors: int = 32,
@@ -178,14 +183,22 @@ class ELLLoader:
         self.node_capacity = _round_up(n_cap + 8, 8)
         if block_rows:
             self.node_capacity = _round_up(self.node_capacity, block_rows)
+        self._frames = {}
         if max_neighbors is None:
             deg = 1
-            for pos in ds.pos:
-                _, dst = build_edges_np(pos, cutoff, True, max_num_neighbors)
+            for i in range(len(ds)):
+                _, _, dst = self._frame(i)
                 if len(dst):
                     deg = max(deg, int(np.bincount(dst).max()))
             max_neighbors = _round_up(deg, 4)
         self.max_neighbors = max_neighbors
+
+    def _frame(self, i: int):
+        if i not in self._frames:
+            self._frames[i] = frame_graph(self.ds.pos[i], self.cutoff,
+                                          self.max_num_neighbors,
+                                          self.spatial_sort)
+        return self._frames[i]
 
     def batches(self) -> Iterator[Tuple[np.ndarray, ELLBatch]]:
         """Yield ``(dataset indices, batch)``; graph g of the batch holds
@@ -195,6 +208,7 @@ class ELLLoader:
         for off in range(0, len(self.ds), bs):
             idx = np.arange(off, min(off + bs, len(self.ds)))
             graphs = self.ds.graph_dicts(idx)
+            frames = [self._frame(int(i)) for i in idx]
             while True:
                 try:
                     batch = collate_ell(
@@ -203,7 +217,7 @@ class ELLLoader:
                         max_num_neighbors=self.max_num_neighbors,
                         y_dim=y_dim, block_rows=self.block_rows,
                         spatial_sort=self.spatial_sort,
-                        with_forces=self.ds.dy is not None)
+                        with_forces=self.ds.dy is not None, frames=frames)
                     break
                 except ValueError as e:
                     if "neighbor capacity" not in str(e):

@@ -12,14 +12,18 @@ gather never leaves the table.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from gotennet_tpu_torch.graph.neighborlist import build_edges_np, spatial_order
+from gotennet_tpu_torch.graph.native import build_edges
+from gotennet_tpu_torch.graph.neighborlist import spatial_order
 
-__all__ = ["ELLBatch", "collate_ell"]
+__all__ = ["ELLBatch", "collate_ell", "frame_graph"]
+
+# (perm, src, dst): a frame's atom order and the edges of the reordered frame
+FrameGraph = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
 _STATIC = ("gather_window", "block_rows", "gather_halo")
 
@@ -84,18 +88,32 @@ class ELLBatch:
             for f in dataclasses.fields(self)})
 
 
+def frame_graph(pos: np.ndarray, cutoff: float, max_num_neighbors: int,
+                spatial_sort: bool) -> FrameGraph:
+    """One frame's atom order (its spatial order with ``spatial_sort``, else
+    the order given) and the radius graph of the reordered frame,
+    self-loops included (``graph.native.build_edges``)."""
+    pos = np.asarray(pos, np.float32)
+    perm = (spatial_order(pos, cutoff) if spatial_sort
+            else np.arange(pos.shape[0]))
+    return (perm,) + build_edges(pos[perm], cutoff, True, max_num_neighbors)
+
+
 def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
                 num_graphs: int, cutoff: float = 5.0,
                 max_num_neighbors: int = 32, y_dim: int = 1,
                 block_rows: Optional[int] = None,
                 spatial_sort: bool = False,
-                with_forces: bool = False) -> ELLBatch:
+                with_forces: bool = False,
+                frames: Optional[Sequence[FrameGraph]] = None) -> ELLBatch:
     """Pack molecules (dicts with ``z``, ``pos`` and optionally ``y`` and,
     with ``with_forces``, ``dy``) into one ``ELLBatch`` on the host,
     self-loops included.  With ``spatial_sort`` each molecule's atoms (and
     forces) are put in cell order first, and ``atom`` keeps each row's
     place in the molecule as given; with ``block_rows`` the window fields
-    are measured on the batch.
+    are measured on the batch.  ``frames`` gives each molecule's
+    ``frame_graph`` when the caller has built it already (the loader's
+    degree probe); by default it is built here.
     Raises on a node degree above ``max_neighbors`` ("neighbor capacity")
     and on other overflows."""
     if len(graphs) > num_graphs:
@@ -114,16 +132,14 @@ def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
 
     n_off = 0
     for g_idx, g in enumerate(graphs):
-        gz = np.asarray(g["z"], np.int32)
         gpos = np.asarray(g["pos"], np.float32)
-        perm = np.arange(gz.shape[0])
-        if spatial_sort:
-            perm = spatial_order(gpos, cutoff)
-            gz, gpos = gz[perm], gpos[perm]
+        perm, src, dst = (frames[g_idx] if frames is not None else
+                          frame_graph(gpos, cutoff, max_num_neighbors,
+                                      spatial_sort))
+        gz, gpos = np.asarray(g["z"], np.int32)[perm], gpos[perm]
         m = gz.shape[0]
         if n_off + m > num_nodes:
             raise ValueError("node capacity exceeded")
-        src, dst = build_edges_np(gpos, cutoff, True, max_num_neighbors)
         counts = np.bincount(dst, minlength=m)
         if counts.max(initial=0) > max_neighbors:
             raise ValueError(f"node degree {counts.max()} exceeds neighbor "

@@ -4,8 +4,8 @@ Counterpart of ``build_edges_np`` and ``spatial_order`` in
 ``gotennet_tpu/graph/neighborlist.py`` (same arrays for the same input):
 a cutoff-radius neighbourhood capped to the nearest ``max_num_neighbors``
 sources, destination-sorted, with each node's self-loop appended last.
-The native C++ builder of the JAX package is not bound here yet
-(ROADMAP.md Queue 1, item 4); it gives the same edges.
+``build_edges_np`` is the plain all-pairs version, O(N^2); the loaders call
+the native cell list of ``graph/native.py``, which gives the same arrays.
 """
 
 from __future__ import annotations

@@ -21,7 +21,8 @@ from gotennet_tpu_torch.ops.spherical import num_sh_components
 
 __all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "not_ported"]
 
-# ROADMAP.md Queue 1 items that port what this package still rejects
+# ROADMAP.md Queue 1 items that port what this package still rejects (item
+# IDs are never reused: 8, 9 and 11 are done)
 ROADMAP_ITEMS = {
     1: "Training step",
     2: "Unfused dense message",
@@ -30,7 +31,6 @@ ROADMAP_ITEMS = {
     5: "Edge-update variants",
     6: "Dipole and ESE heads",
     10: "Edge-list layout",
-    11: "ELL layout: the unfused update, large tables",
     13: "CLI, configs and tools",
 }
 
@@ -68,8 +68,9 @@ def parse_edge_updates(edge_updates: Union[bool, str]) -> dict:
 class GotenNetConfig:
     """Hyper-parameters; defaults follow the shipped reference config.
 
-    ``fused`` defaults to True here (False in the JAX package): the fused
-    message kernel is the only message path ported so far."""
+    ``fused`` defaults to True here (False in the JAX package): the dense
+    layout's unfused message is not ported yet (ROADMAP.md Queue 1, item
+    2); the ELL layout takes either."""
 
     n_atom_basis: int = 256
     n_interactions: int = 4
@@ -126,27 +127,32 @@ class GotenNetConfig:
                 "multiplier * n_atom_basis must be divisible by num_heads")
         if self.aggr not in ("add", "mean", "max"):
             raise ValueError(f"unknown aggr {self.aggr!r}")
-        parse_edge_updates(self.edge_updates)
+        info = parse_edge_updates(self.edge_updates)
         for name in ("pair_dtype", "node_dtype"):
             if getattr(self, name) not in (torch.float32, torch.bfloat16):
                 raise ValueError(f"{name} must be torch.float32 or "
                                  f"torch.bfloat16, got {getattr(self, name)}")
-        if not self.fused:
-            raise not_ported("fused=False (the unfused dense message)", 2)
-        if not is_silu_like(self.activation):
-            raise ValueError(
-                "fused=True hardcodes silu in the message kernel; got "
-                f"activation={self.activation!r}")
-        if self.aggr != "add":
-            raise not_ported(f"aggr={self.aggr!r}", 2)
+        if self.fused:
+            if not is_silu_like(self.activation):
+                raise ValueError(
+                    "fused=True hardcodes silu in the message kernel; got "
+                    f"activation={self.activation!r} (fused=False takes "
+                    "any activation)")
+            if self.aggr != "add":
+                raise ValueError("fused=True supports aggr='add' only")
         if self.layernorm:
             raise not_ported("layernorm", 3)
         if self.steerable_norm:
             raise not_ported("steerable_norm (TensorLayerNorm)", 3)
         if self.trainable_rbf:
             raise not_ported("trainable_rbf", 3)
-        if self.edge_updates is not True:
+        # the update grammar both HTR paths take: rej on or off and the
+        # gates; no MLP or linear variants, no edge LayerNorm
+        if (self.edge_updates is False or info["mlp"] or info["mlpa"]
+                or info["lin_w"] or info["lin_ln"]):
             raise not_ported(f"edge_updates={self.edge_updates!r}", 5)
+        if self.edge_ln:
+            raise not_ported(f"edge_ln={self.edge_ln!r}", 5)
         if self.scan_layers:
             raise not_ported("scan_layers (layer-stacked parameter trees)",
                              13)

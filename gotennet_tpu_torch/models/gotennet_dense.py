@@ -26,7 +26,7 @@ from torch import nn
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.models.gotennet import (EQFF, GotenNetConfig,
-                                               parse_edge_updates)
+                                               not_ported, parse_edge_updates)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.ops import fused_gata, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
@@ -210,7 +210,6 @@ class GATADense(nn.Module):
         D = cfg.n_atom_basis
         pd = cfg.pair_dtype
         if self.training and cfg.attn_dropout > 0.0:
-            from gotennet_tpu_torch.models.gotennet import not_ported
             raise not_ported("attention dropout in training", 1)
 
         q, k, x_g, v = self._node_projections(h)
@@ -277,6 +276,13 @@ class GotenNetDense(nn.Module):
     def __init__(self, cfg: GotenNetConfig):
         super().__init__()
         D = cfg.n_atom_basis
+        if not cfg.fused:
+            raise not_ported("fused=False (the unfused dense message)", 2)
+        info = parse_edge_updates(cfg.edge_updates)
+        if ((info["gated"] or not info["rej"])
+                and not (cfg.fused_htr and (cfg.evec_dim or D) == D)):
+            raise not_ported(f"edge_updates={cfg.edge_updates!r} without the "
+                             "fused HTR update on the dense layout", 5)
         self.cfg = cfg
         self.A_na = nn.Embedding(cfg.max_z, D)
         self.rbf = get_rbf(cfg.radial_basis, cfg.n_rbf, cfg.cutoff)

@@ -1,23 +1,34 @@
 """GotenNet on the ELL layout: a row of ``K`` neighbour slots per node.
 
-Counterpart of ``gotennet_tpu/models/gotennet_ell.py`` on one device, with
-its fused path (``fused=True, fused_htr=True``): every GATA layer runs its
-message + aggregation through ``ops.fused_ell.fused_ell`` and its HTR
-update through ``ops.fused_htr.fused_htr_ell`` (the CUDA kernels on the
-card, forward and backward).  The transposed slot list both backward
-kernels sum table gradients by is built once per forward and shared by
-every layer.  The unfused edge update and node tables above
-``fused_table_rows``, which the JAX package runs through its chunked
-drivers, raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 11), and
-so does attention dropout in training (item 1).
+Counterpart of ``gotennet_tpu/models/gotennet_ell.py`` on one device.  Each
+GATA layer takes the path the JAX package takes for the same configuration
+and batch (``fused_paths``):
+- with ``fused`` the message + aggregation runs through
+  ``ops.fused_ell.fused_ell`` and, with ``fused_htr`` too, the HTR update
+  through ``ops.fused_htr.fused_htr_ell`` (the CUDA kernels on the card,
+  forward and backward);
+- otherwise each runs as plain tensor ops (``_unfused_message``,
+  ``_unfused_update``): any activation, ``aggr`` add, mean or max, the
+  update's ``rej`` and gates.
+A node table above ``fused_table_rows`` is where the JAX package runs its
+fused kernels chunked over halo windows, to fit the TPU's on-chip memory.
+Where it finds such a chunking (``ops.fused_ell.pick_chunking``) the port
+runs its kernels on the whole table, which they read from device memory by
+index; where it finds none (no ``gather_halo``, or a halo too wide) both
+take the unfused paths, as they do there.  The transposed slot list both
+backward kernels sum table gradients by is built once per forward and
+shared by every fused layer.  Attention dropout in training raises
+``NotImplementedError`` (ROADMAP.md Queue 1, item 1), and so do the update
+variants the fused update does not take (item 5).
 
 Types follow the JAX layer, not the dense one: the node projections (q,
 k, x_g, v, EQ, EK), ``W_ndp`` and ``W_erp`` compute in float32, only EQFF
 follows ``node_dtype``.  A batch with gather windows (spatially sorted
-atoms, ``block_rows``) rounds the gathered node features of NodeInit and
-EdgeInit to ``pair_dtype``, as the JAX package's one-hot window matmuls
-do; positions and edge counts gather exactly.  Parameters carry the
-dense layout's names, so one state dict serves both layouts.
+atoms, ``block_rows``) rounds every gathered node feature (NodeInit,
+EdgeInit and the unfused paths' k, x_g, v, X, EK) to ``pair_dtype``, as the
+JAX package's one-hot window matmuls do; positions and edge counts gather
+exactly.  Parameters carry the dense layout's names, so one state dict
+serves both layouts and every path.
 """
 
 from __future__ import annotations
@@ -38,9 +49,13 @@ from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
 from gotennet_tpu_torch.ops.rbf import get_rbf
 from gotennet_tpu_torch.ops.spherical import degree_slices, spherical_harmonics
 
-__all__ = ["GotenNetELL", "NodeInitELL", "EdgeInitELL", "GATAELL"]
+__all__ = ["GotenNetELL", "NodeInitELL", "EdgeInitELL", "GATAELL",
+           "fused_paths"]
 
 Gather = Callable[[torch.Tensor], torch.Tensor]
+
+_NEG = -1e30
+_SOFTMAX_EPS = 1e-16  # the reference softmax's denominator guard
 
 
 def _gather_fn(nbr: torch.Tensor, rounded: bool,
@@ -92,9 +107,48 @@ class EdgeInitELL(nn.Module):
         return (h[:, None, :] + gather(h)) * self.W_erp(phi)
 
 
+def _aggr_k(aggr: str, data: torch.Tensor, mask: torch.Tensor
+            ) -> torch.Tensor:
+    """Masked reduction of ``data [N, K, ...]`` over the K slots: add, mean
+    or max, with the reference's convention for a row without real slots
+    (zeros)."""
+    m = mask.to(data.dtype)
+    while m.dim() < data.dim():
+        m = m[..., None]
+    if aggr == "add":
+        return torch.sum(data * m, dim=1)
+    if aggr == "mean":
+        cnt = torch.sum(m, dim=1)
+        return torch.sum(data * m, dim=1) / torch.clamp(cnt, min=1.0)
+    if aggr == "max":
+        # amax shares the gradient among equal maxima, as jnp.max does
+        out = torch.amax(torch.where(m > 0, data, torch.full_like(data, _NEG)),
+                         dim=1)
+        any_real = torch.sum(m, dim=1) > 0
+        return torch.where(any_real, out, torch.zeros_like(out))
+    raise ValueError(f"Unknown aggr {aggr!r}")
+
+
+def fused_paths(cfg: GotenNetConfig, N: int, NR: int,
+                halo: Optional[int]) -> Tuple[bool, bool]:
+    """Whether the message and the HTR update run fused for an ``N``-row
+    node table of ``NR`` destination rows, as the JAX package chooses
+    (gotennet_ell.py:306-321, :448-487): with ``fused`` (and ``fused_htr``
+    for the update), unless the table is above ``fused_table_rows`` (0: no
+    limit) and no halo-windowed chunking exists for it (no ``halo``, or
+    ``pick_chunking`` finds no geometry).  Where the JAX package chunks, the
+    port's kernels take the whole table."""
+    fits = (not cfg.fused_table_rows or N <= cfg.fused_table_rows
+            or (halo is not None and fused_ell.pick_chunking(
+                NR, N, halo, cfg.fused_table_rows) is not None))
+    message = cfg.fused and fits
+    return message, message and cfg.fused_htr
+
+
 class GATAELL(nn.Module):
-    """One interaction: the fused ELL message + aggregation, then (except in
-    the last layer) the fused ELL HTR update."""
+    """One interaction: the message + aggregation, then (except in the last
+    layer) the HTR update, each fused or unfused as ``fused_paths``
+    chose."""
 
     def __init__(self, cfg: GotenNetConfig, last_layer: bool = False):
         super().__init__()
@@ -102,6 +156,7 @@ class GATAELL(nn.Module):
         act = get_activation(cfg.activation)
         kw = dict(weight_init=cfg.weight_init, bias_init=cfg.bias_init)
         self.cfg = cfg
+        self.act = act
         self.last_layer = last_layer
         self.gamma_s = nn.ModuleList([Dense(D, D, activation=act, **kw),
                                       Dense(D, mult * D, **kw)])
@@ -109,6 +164,8 @@ class GATAELL(nn.Module):
         self.W_k = Dense(D, D, **kw)
         self.gamma_v = nn.ModuleList([Dense(D, D, activation=act, **kw),
                                       Dense(D, mult * D, **kw)])
+        # no activation here: the fused kernel applies silu to W_re's
+        # product itself, the unfused message applies ``act``
         self.W_re = Dense(D, D, **kw)
         self.W_rs = Dense(D, mult * D, **kw)
         if not last_layer:
@@ -122,28 +179,21 @@ class GATAELL(nn.Module):
                 self.W_vk = Dense(D, D, use_bias=False, **kw)
 
     def forward(self, h, X, t_ij, rl_ij, dist, nbr, nbr_mask, n_edges,
+                gather: Gather, paths: Tuple[bool, bool],
                 slots: Optional[fused_ell.Slots]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        D = cfg.n_atom_basis
         if self.training and cfg.attn_dropout > 0.0:
             raise not_ported("attention dropout in training", 1)
         q, k = self.W_q(h), self.W_k(h)
         x_g = self.gamma_s[1](self.gamma_s[0](h))
         v = self.gamma_v[1](self.gamma_v[0](h))
-        # the sign of env_signed carries the slot mask
-        env_signed = torch.where(nbr_mask, cosine_cutoff(dist, cfg.cutoff),
-                                 torch.full_like(dist, -1.0))
-        if cfg.scale_edge:
-            scale = torch.sqrt(n_edges) / math.sqrt(D)
+        if paths[0]:
+            d_h, dX = self._fused_message(t_ij, q, k, x_g, v, rl_ij, X, dist,
+                                          nbr, nbr_mask, n_edges, slots)
         else:
-            scale = torch.full_like(dist, 1.0 / math.sqrt(D))
-        d_h, dX = fused_ell.fused_ell(
-            t_ij, q, k, x_g, v, rl_ij, X, env_signed, scale, nbr,
-            self.W_re.weight.t().contiguous(), self.W_re.bias,
-            self.W_rs.weight.t().contiguous(), self.W_rs.bias, lmax=cfg.lmax,
-            num_heads=cfg.num_heads, sep_dir=cfg.sep_dir,
-            sep_tensor=cfg.sep_tensor, pair_dtype=cfg.pair_dtype, slots=slots)
+            d_h, dX = self._unfused_message(t_ij, q, k, x_g, v, rl_ij, X,
+                                            dist, nbr_mask, n_edges, gather)
         h = h + d_h
         X = X + dX
         if self.last_layer:
@@ -156,11 +206,110 @@ class GATAELL(nn.Module):
         else:
             EK = self.W_vk(X)
         info = parse_edge_updates(cfg.edge_updates)
+        if not paths[1]:
+            return h, X, self._unfused_update(t_ij, rl_ij, EQ, EK, gather,
+                                              info)
         layer = self.gamma_t.dense_layers[0]
         return h, X, fused_htr.fused_htr_ell(
             t_ij, EQ, EK, rl_ij, nbr, layer.weight.t().contiguous(),
             layer.bias, lmax=cfg.lmax, sep_htr=cfg.sep_htr, rej=info["rej"],
             gate=info["gated"] or "", pair_dtype=cfg.pair_dtype, slots=slots)
+
+    def _fused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist, nbr,
+                       nbr_mask, n_edges, slots):
+        cfg = self.cfg
+        D = cfg.n_atom_basis
+        # the sign of env_signed carries the slot mask
+        env_signed = torch.where(nbr_mask, cosine_cutoff(dist, cfg.cutoff),
+                                 torch.full_like(dist, -1.0))
+        if cfg.scale_edge:
+            scale = torch.sqrt(n_edges) / math.sqrt(D)
+        else:
+            scale = torch.full_like(dist, 1.0 / math.sqrt(D))
+        return fused_ell.fused_ell(
+            t_ij, q, k, x_g, v, rl_ij, X, env_signed, scale, nbr,
+            self.W_re.weight.t().contiguous(), self.W_re.bias,
+            self.W_rs.weight.t().contiguous(), self.W_rs.bias, lmax=cfg.lmax,
+            num_heads=cfg.num_heads, sep_dir=cfg.sep_dir,
+            sep_tensor=cfg.sep_tensor, pair_dtype=cfg.pair_dtype, slots=slots)
+
+    def _unfused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist, nbr_mask,
+                         n_edges, gather: Gather):
+        """The message as plain tensor ops (JAX gotennet_ell.py:375-434):
+        any activation and aggregation.  Returns ``(d_h, dX)``."""
+        cfg = self.cfg
+        D, H, lmax = cfg.n_atom_basis, cfg.num_heads, cfg.lmax
+        N, K = nbr_mask.shape
+        Dh, C = D // H, cfg.multiplier * D
+        t_attn = self.W_re(t_ij)
+        if self.act is not None:
+            t_attn = self.act(t_attn)
+        t_filter = self.W_rs(t_ij)                            # [N, K, C]
+        # attention: SDDMM logits, masked softmax over the K slots
+        logit = torch.sum(q.reshape(N, 1, H, Dh)
+                          * gather(k).reshape(N, K, H, Dh)
+                          * t_attn.reshape(N, K, H, Dh), dim=-1)
+        real = nbr_mask[..., None]
+        logit = torch.where(real, logit, torch.full_like(logit, _NEG))
+        top = torch.amax(logit, dim=1, keepdim=True).detach()
+        expd = torch.exp(logit - top) * real
+        attn = expd / (torch.sum(expd, dim=1, keepdim=True) + _SOFTMAX_EPS)
+        if cfg.scale_edge:
+            attn = attn * (torch.sqrt(n_edges)[..., None] / math.sqrt(D))
+        else:
+            attn = attn / math.sqrt(D)
+        sea = (attn[..., None] * gather(v).reshape(N, K, H, C // H)
+               ).reshape(N, K, C)
+        spatial = (t_filter * gather(x_g)
+                   * cosine_cutoff(dist, cfg.cutoff)[..., None])
+        chunks = list(torch.split(spatial + sea, D, dim=-1))
+        o_s, rest = chunks[0], chunks[1:]
+        # the degree block of each SH component
+        deg = torch.tensor([l - 1 for l in range(1, lmax + 1)
+                            for _ in range(2 * l + 1)], device=t_ij.device)
+        if cfg.sep_dir:
+            o_d, rest = torch.stack(rest[:lmax], dim=2), rest[lmax:]
+            dX_R = rl_ij[..., None] * o_d[:, :, deg]
+        else:
+            o_d, rest = rest[0], rest[1:]
+            dX_R = rl_ij[..., None] * o_d[:, :, None, :]
+        X_j = gather(X)                                       # [N, K, L, D]
+        if cfg.sep_tensor:
+            dX_X = X_j * torch.stack(rest[:lmax], dim=2)[:, :, deg]
+        else:
+            dX_X = X_j * rest[0][:, :, None, :]
+        return (_aggr_k(cfg.aggr, o_s, nbr_mask),
+                _aggr_k(cfg.aggr, dX_R + dX_X, nbr_mask))
+
+    def _unfused_update(self, t_ij, rl_ij, EQ, EK, gather: Gather,
+                        info: dict) -> torch.Tensor:
+        """The HTR update as plain tensor ops (JAX gotennet_ell.py:523-574)
+        for the grammar the fused update takes: explicit rejection (or
+        none), per degree with ``sep_htr``, and the gates."""
+        EQ_i = EQ[:, None]                                    # [N, 1, L, D]
+        EK_j = gather(EK)                                     # [N, K, L, D]
+
+        def reject(rep, r):
+            proj = torch.sum(rep * r[..., None], dim=2, keepdim=True)
+            return rep - proj * r[..., None]
+
+        if self.cfg.sep_htr:
+            w_ij = 0.0
+            for lo, hi in degree_slices(self.cfg.lmax):
+                eq_l, ek_l = EQ_i[:, :, lo:hi], EK_j[:, :, lo:hi]
+                if info["rej"]:
+                    r_l = rl_ij[:, :, lo:hi]
+                    eq_l, ek_l = reject(eq_l, r_l), reject(ek_l, -r_l)
+                w_ij = w_ij + torch.sum(eq_l * ek_l, dim=2)
+        elif not info["rej"]:
+            w_ij = torch.sum(EQ_i * EK_j, dim=2)
+        else:
+            w_ij = torch.sum(reject(EQ_i.expand_as(EK_j), rl_ij)
+                             * reject(EK_j, -rl_ij), dim=2)
+        gw = {"gatedt": torch.tanh, "gated": torch.sigmoid,
+              "act": torch.nn.functional.silu}.get(info["gated"],
+                                                   lambda w: w)(w_ij)
+        return t_ij + self.gamma_t(t_ij) * gw
 
 
 class GotenNetELL(nn.Module):
@@ -169,11 +318,8 @@ class GotenNetELL(nn.Module):
 
     def __init__(self, cfg: GotenNetConfig):
         super().__init__()
-        if not cfg.fused_htr or (cfg.evec_dim or cfg.n_atom_basis) != \
-                cfg.n_atom_basis:
-            raise not_ported("layout='ell' without the fused HTR update "
-                             "(fused_htr=False or evec_dim != n_atom_basis)",
-                             11)
+        if (cfg.evec_dim or cfg.n_atom_basis) != cfg.n_atom_basis:
+            raise not_ported("layout='ell' with evec_dim != n_atom_basis", 5)
         D = cfg.n_atom_basis
         self.cfg = cfg
         self.A_na = nn.Embedding(cfg.max_z, D)
@@ -188,10 +334,7 @@ class GotenNetELL(nn.Module):
     def forward(self, batch: ELLBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         N, K = batch.nbr.shape
-        if cfg.fused_table_rows and N > cfg.fused_table_rows:
-            raise not_ported(f"an ELL node table of {N} rows, above "
-                             f"fused_table_rows={cfg.fused_table_rows} (the "
-                             "chunked drivers)", 11)
+        paths = fused_paths(cfg, N, N, batch.gather_halo)
         nbr, nm, pos = batch.nbr, batch.nbr_mask, batch.pos
         idx = nbr.long()
         gather = _gather_fn(nbr, bool(batch.gather_window and batch.block_rows),
@@ -222,10 +365,10 @@ class GotenNetELL(nn.Module):
         X = torch.zeros(N, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
                         device=h.device)
         # what the backward kernels sum table gradients by, once per batch
-        slots = (fused_ell.source_slots(nbr, N) if torch.is_grad_enabled()
-                 else None)
+        slots = (fused_ell.source_slots(nbr, N)
+                 if paths[0] and torch.is_grad_enabled() else None)
         for gata, eqff in zip(self.gata_list, self.eqff_list):
             h, X, t_ij = gata(h, X, t_ij, rl_ij, dist, nbr, nm, n_edges,
-                              slots)
+                              gather, paths, slots)
             h, X = eqff(h, X)
         return h, X

@@ -52,7 +52,7 @@ from gotennet_tpu_torch.ops.fused_gata import (_block_layout, _check,
 
 __all__ = ["fused_ell", "FusedELL", "fused_ell_forward",
            "fused_ell_forward_reference", "fused_ell_backward",
-           "fused_ell_backward_reference", "source_slots"]
+           "fused_ell_backward_reference", "source_slots", "pick_chunking"]
 
 Out = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 # (starts [N + 1], order [NR * K]), both int32: table row n is read by the
@@ -77,6 +77,33 @@ def source_slots(nbr: torch.Tensor, N: int) -> Slots:
     starts = torch.zeros(N + 1, dtype=torch.int32, device=nbr.device)
     starts[1:] = torch.cumsum(torch.bincount(flat, minlength=N), 0)
     return starts, order
+
+
+def pick_chunking(NR: int, NT: int, halo: int,
+                  max_rows: int) -> Optional[Tuple[int, int, int]]:
+    """The chunk geometry the JAX package's halo-windowed chunked paths
+    would take for ``NR`` destination rows over an ``NT``-row table (a copy
+    of its ``pick_chunking``): the largest multiple-of-8 divisor ``cr`` of
+    ``NR`` whose window ``cr + 2 * halo``, rounded up to 128 rows and capped
+    at ``NT``, fits ``max_rows``; ``(cr, W, C = NR // cr)``, or None when no
+    divisor fits.
+
+    The port calls its kernels on the whole table, which they read from
+    device memory by index with no bound on its rows; this decides only
+    which path the model takes, fused or unfused, as the JAX package's
+    choice does.  Their pair-block caps (``capped_pairs``,
+    ``_chunked_pairs``) budget the TPU's on-chip memory and have no
+    counterpart here."""
+    def w_of(cr):
+        return min(NT, -(-(cr + 2 * halo) // 128) * 128)
+
+    divs = [d for d in range(8, NR + 1, 8) if NR % d == 0] \
+        or [d for d in range(1, NR + 1) if NR % d == 0]
+    fits = [cr for cr in divs if w_of(cr) <= max_rows]
+    if not fits:
+        return None
+    cr = fits[-1]
+    return cr, w_of(cr), NR // cr
 
 
 def fused_ell_forward_reference(t, q, k, x_g, v, rl, X, env_signed, scale,

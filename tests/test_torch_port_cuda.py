@@ -656,6 +656,75 @@ def test_ell_htr_backward_row_pass_matches_plain_and_reruns(card, gate,
     assert torch.all(got[2][N - 1] == 0)
 
 
+# All four ELL kernels at the xl mode's shapes (N = 4,224 rows, K = 36 slots,
+# bench.py's 4,000-4,200-atom frames on the whole table): the slot products
+# reach N K L D = 3.1e8 elements and the transposed slot list 152,064 slots.
+# Tolerances as test_ell_kernels_match_plain's; reruns give the same bits.
+@pytest.mark.parametrize("pd", [torch.float32, torch.bfloat16])
+def test_ell_kernels_at_xl_shapes_match_plain_and_rerun(card, pd):
+    D, H, lmax, K, N = 256, 8, 2, 36, 4224
+    L = (lmax + 1) ** 2 - 1
+    args = ell_inputs(card, N, N, K, D, H, lmax, False, seed=21)
+    kw = dict(lmax=lmax, num_heads=H, sep_dir=True, sep_tensor=True,
+              pair_dtype=pd)
+    tol = 1e-2 if pd == torch.bfloat16 else 1e-4
+    got = fused_ell_forward(*args, **kw, with_attn=True)
+    again = fused_ell_forward(*args, **kw, with_attn=True)
+    torch.cuda.synchronize()
+    _close(got, fused_ell_forward_reference(*args, **kw, with_attn=True),
+           tol)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    sm = got[2]
+    gen = torch.Generator().manual_seed(5)
+    g_dh = torch.randn(N, D, generator=gen).to(card)
+    g_dX = torch.randn(N, L, D, generator=gen).to(card)
+    slots = source_slots(args[9], N)
+    got = fused_ell_backward(*args, sm, g_dh, g_dX, **kw, slots=slots)
+    again = fused_ell_backward(*args, sm, g_dh, g_dX, **kw, slots=slots)
+    torch.cuda.synchronize()
+    want = fused_ell_backward_reference(*args, sm, g_dh, g_dX, **kw)
+    _close(got, want, tol)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again, want
+
+    h_args = [args[0], (torch.randn(N, L, D, generator=gen) * 0.4).to(card),
+              (torch.randn(N, L, D, generator=gen) * 0.4).to(card), args[5],
+              args[9], args[10] / 8.0, args[11]]
+    hkw = dict(lmax=lmax, sep_htr=True, rej=True, gate="", pair_dtype=pd)
+    out = fused_htr_ell_forward(*h_args, **hkw)
+    torch.cuda.synchronize()
+    _close([out], [fused_htr_ell_forward_reference(*h_args, **hkw)], tol)
+    assert torch.equal(out, fused_htr_ell_forward(*h_args, **hkw))
+    g = torch.randn(N, K, D, generator=gen).to(card)
+    got = fused_htr_ell_backward(*h_args, g, **hkw, slots=slots)
+    again = fused_htr_ell_backward(*h_args, g, **hkw, slots=slots)
+    torch.cuda.synchronize()
+    _close(got, fused_htr_ell_backward_reference(*h_args, g, **hkw), tol)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_unfused_ell_paths_on_card_match_cpu(card):
+    """The large_molecule experiment's model (fused message, unfused
+    update) and fused=False with aggr mean, on two 600-700-atom frames,
+    float32, card against CPU; only the first launches a kernel."""
+    head = HeadConfig(mean=0.5, stddev=2.0)
+    mols = synthetic_molecules(2, seed=7, min_atoms=600, max_atoms=700,
+                               box=6.3).graph_dicts(range(2))
+    for kw, msg in ((dict(fused=True, fused_htr=False), 4),
+                    (dict(fused=False, aggr="mean"), 0)):
+        cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                             num_heads=8, n_rbf=16, **kw)
+        n_msg = fused_ell_forward.launches
+        n_htr = fused_htr_ell_forward.launches
+        got = Predictor(cfg, head, seed=2, chunk=1, layout="ell").predict(
+            mols)
+        assert fused_ell_forward.launches == n_msg + msg
+        assert fused_htr_ell_forward.launches == n_htr
+        want = Predictor(cfg, head, seed=2, chunk=1, layout="ell",
+                         device="cpu").predict(mols)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_ell_backward_kernels_check_arguments(card):
     args = ell_inputs(card, 16, 16, 12, 32, 4, 2, False)
     kw = dict(lmax=2, num_heads=4, sep_dir=True, sep_tensor=True)

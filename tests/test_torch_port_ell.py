@@ -34,6 +34,7 @@ from gotennet_tpu_torch.data.dataset import ELLLoader, synthetic_molecules
 from gotennet_tpu_torch.graph.ell_batch import collate_ell
 from gotennet_tpu_torch.graph.neighborlist import build_edges_np, spatial_order
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+from gotennet_tpu_torch.models.gotennet_ell import fused_paths
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.ops import fused_ell, fused_htr
 from gotennet_tpu_torch.ops.fused_ell import (fused_ell_forward,
@@ -41,7 +42,7 @@ from gotennet_tpu_torch.ops.fused_ell import (fused_ell_forward,
 from gotennet_tpu_torch.ops.fused_htr import (fused_htr_ell_forward,
                                               fused_htr_ell_forward_reference)
 from gotennet_tpu_torch.serve import Predictor
-from gotennet_tpu_torch.train.trainer import train_steps
+from gotennet_tpu_torch.train.trainer import make_chunks, train_steps
 from gotennet_tpu_torch.utils.convert import state_dict_from_jax_params
 
 from test_torch_port_kernel import _assert_close, build_on_host
@@ -50,6 +51,8 @@ from test_torch_port_model import _compare
 SMALL = dict(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
              n_rbf=8)
 FRAMES = dict(min_atoms=40, max_atoms=60, box=6.3)
+# the frames of the JAX package's chunked-path test (tests/test_ell.py)
+XL_TEST_FRAMES = dict(min_atoms=155, max_atoms=160, box=6.3)
 # the one launch line of each forward source, which the host build replaces
 _LAUNCH = "kern<<<grid, kThreads, smem, stream>>>(args);"
 _MSG_LAUNCH = "kern<<<grid, NT, smem, stream>>>(args);"
@@ -309,9 +312,11 @@ def test_ell_predictor_matches_per_frame_model():
 
 def test_ell_training_raises():
     """What still raises when training on ELL: attention dropout in training
-    (item 1: the layer would otherwise drop it silently) and, through
-    train_steps, a node table above fused_table_rows (item 11: the chunked
-    drivers).  Without them the dispatchers record the backward."""
+    (item 1: the layer would otherwise drop it silently).  Without it the
+    dispatchers record the backward, and train_steps runs a node table
+    above fused_table_rows that has no halo-windowed chunking (64-row
+    blocks, a 64-row limit): the JAX package takes its unfused paths there,
+    and so does the port."""
     inputs = [torch.from_numpy(a) for a in ell_inputs(
         0, 8, 8, 12, 32, 4, 2, True, True, False)]
     inputs[0].requires_grad_(True)
@@ -330,27 +335,43 @@ def test_ell_training_raises():
     model.train()
     with pytest.raises(NotImplementedError, match="item 1:"):
         model(batch)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_steps(_port_cfg(False, fused_table_rows=64), HeadConfig(), mols,
-                    1, chunk=2, device="cpu", layout="ell")
+    cfg = _port_cfg(False, fused_table_rows=64)
+    chunk, = make_chunks(mols, 2, "cpu", layout="ell")
+    assert chunk.num_nodes > 64
+    assert fused_paths(cfg, chunk.num_nodes, chunk.num_nodes,
+                       chunk.gather_halo) == (False, False)
+    losses = train_steps(cfg, HeadConfig(), mols, 2, chunk=2, device="cpu",
+                         layout="ell")
+    assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 def test_table_above_fused_table_rows_raises():
-    ds = synthetic_molecules(2, seed=0, **FRAMES)
-    batch = next(iter(ELLLoader(ds, batch_size=2)))
-    assert batch.num_nodes > 64
-    model = GotenModel(_port_cfg(False, fused_table_rows=64), HeadConfig(),
-                       layout="ell", device="cpu")
-    with torch.inference_mode(), pytest.raises(NotImplementedError,
-                                               match="item 11"):
-        model(batch)
-    model = GotenModel(_port_cfg(False, fused_table_rows=0), HeadConfig(),
-                       layout="ell", device="cpu")
-    with torch.inference_mode():      # 0 means no limit, as in JAX
+    """A node table above fused_table_rows where the JAX package runs its
+    chunked paths (a halo-windowed chunking exists): the port runs the
+    same kernels on the whole table, so its answer is the one it gives with
+    no limit (0), bit for bit; the JAX side is held in
+    tests/test_torch_port_xl.py.  (The test once checked that such a table
+    raised.)  The large_molecule experiment's model, fused_htr=False, runs
+    too."""
+    ds = synthetic_molecules(2, seed=0, **XL_TEST_FRAMES)
+    batch = next(iter(ELLLoader(ds, batch_size=2, spatial_sort=True,
+                                block_rows=8)))
+    N, limit = batch.num_nodes, 256
+    assert N > limit
+    cr, W, C = fused_ell.pick_chunking(N, N, batch.gather_halo, limit)
+    assert C > 1 and W < N
+    outs = []
+    for rows in (limit, 0):
+        cfg = _port_cfg(False, fused_table_rows=rows)
+        assert fused_paths(cfg, N, N, batch.gather_halo) == (True, True)
+        model = GotenModel(cfg, HeadConfig(), layout="ell", device="cpu")
+        with torch.inference_mode():
+            outs.append(model(batch)["property"])
+    assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])
+    model = GotenModel(GotenNetConfig(**SMALL), HeadConfig(), layout="ell",
+                       device="cpu")     # without fused_htr
+    with torch.inference_mode():
         assert torch.isfinite(model(batch)["property"]).all()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GotenModel(GotenNetConfig(**SMALL), HeadConfig(), layout="ell",
-                   device="cpu")     # without fused_htr
 
 
 # ---- both CUDA sources on the host ------------------------------------------

@@ -82,6 +82,25 @@ def test_fused_htr_model_matches_jax(dtypes, tol):
     _compare(jout, pout, tol)
 
 
+def test_fused_htr_model_update_variant_matches_jax():
+    """A gate without the rejection terms (``edge_updates="gatedt_norej"``)
+    through the dense fused HTR update, float32, 1e-5 of the scale as
+    above."""
+    jmodel = _jax_model(edge_updates="gatedt_norej")
+    jbatch = _jax_batch(3, 3, 3)[0]
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(1), jbatch)
+    jout = jax.jit(jmodel.apply)(params, jbatch)
+    cfg = GotenNetConfig(**SMALL, fused_htr=True, edge_updates="gatedt_norej")
+    model = GotenModel(cfg, HeadConfig(), device="cpu")
+    model.load_state_dict(state_dict_from_jax_params(params, cfg,
+                                                     HeadConfig()))
+    batch = next(iter(DenseLoader(synthetic_molecules(3, seed=3, **FRAMES),
+                                  batch_size=3)))
+    with torch.inference_mode():
+        pout = model(batch)
+    _compare(jout, pout, 1e-5)
+
+
 def test_fused_htr_weights_cross_unchanged():
     """The JAX fused HTR path keeps the XLA path's parameter tree
     (gamma_t/layers_0/linear), so one converter serves both, and the port's

@@ -13,8 +13,9 @@ from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.serve import Predictor
 from gotennet_tpu_torch.train.trainer import train_steps
 
-CFG = GotenNetConfig(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
-                     n_rbf=8)
+CFG_KW = dict(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
+              n_rbf=8)
+CFG = GotenNetConfig(**CFG_KW)
 HEAD = HeadConfig(mean=0.5, stddev=2.0)
 
 
@@ -68,16 +69,30 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         GotenModel(CFG, HEAD, device="cuda")
 
 
+# the unfused message, other aggregations and the update's gates run on the
+# ELL layout; the dense model refuses them (items 2 and 5), the config the
+# rest
 @pytest.mark.parametrize("kw,item", [
-    (dict(fused=False), "item 2"), (dict(aggr="mean"), "item 2"),
+    (dict(fused=False), "item 2"), (dict(fused=False, aggr="mean"), "item 2"),
     (dict(layernorm="pre"), "item 3"), (dict(steerable_norm="pre"), "item 3"),
     (dict(trainable_rbf=True), "item 3"), (dict(edge_updates="gated"),
                                            "item 5"),
-    (dict(edge_updates=False), "item 5"), (dict(aggr="max"), "item 2"),
-    (dict(scan_layers=True), "item 13")])
+    (dict(edge_updates=False), "item 5"),
+    (dict(fused=False, aggr="max"), "item 2"),
+    (dict(scan_layers=True), "item 13"), (dict(edge_ln="layer"), "item 5"),
+    (dict(edge_updates="mlp"), "item 5")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
+        GotenModel(GotenNetConfig(**{**CFG_KW, **kw}), HEAD, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(aggr="mean"), dict(aggr="max"),
+                                dict(activation="ssp")])
+def test_fused_message_options_raise_value_error(kw):
+    """As the JAX config does: the fused message is silu and aggr='add'."""
+    with pytest.raises(ValueError, match="fused=True"):
         GotenNetConfig(**kw)
+    assert GotenNetConfig(fused=False, **kw).fused is False
 
 
 def test_unported_layouts_heads_and_training_dropout_raise():
