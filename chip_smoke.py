@@ -147,7 +147,29 @@ Phases, in order; any failure exits non-zero before the result line:
      14's 8 frames: one request (32 message launches, no HTR launch)
      against the plain message path, and one training step (32 message
      launches each way) with its gradients against the plain message
-     backward, each timed and profiled.
+     backward, each timed and profiled;
+ 26. QM9 through the command line: ``cli.main(["train",
+     "experiment=qm9_u0_tpu", ...])`` on 1,280 synthetic 12-29-atom
+     molecules (1,024 / 128 / 128), 2 epochs: the flagship width, bf16
+     pairs, fused, bucketed, ``grad_accum_steps`` 8 and attention dropout
+     0.1 (32 batches and 4 optimizer steps an epoch).  Both GATA kernels'
+     launches must equal batches x 4 layers, every training launch must
+     take a per-head scale (dropout) and every evaluation launch a scalar
+     one; every logged loss finite; the checkpoints, splits, JSONL log and
+     test results written.  ``resume=true`` on a copy of the run, to 3
+     epochs, must give a fresh 3-epoch run's epoch-2 record within 1e-3
+     (the head's ``index_add`` atomics make it inexact); ``cli test`` of
+     ``ckpt_best`` must give the run's test results within 1e-5, and
+     within ``TOL_SERVE`` through the forward's plain version.  Epoch,
+     optimizer steps/s, training molecules/s, evaluation and checkpoint
+     times are printed, and both kernels held against their plain
+     versions and timed on the run's own inputs;
+ 27. ``large_molecule`` through the command line, 1 epoch on its 32
+     synthetic 600-700-atom frames: 6 batches of 4 frames, 2 optimizer
+     steps (``grad_accum_steps`` 4, the second from a partial group), the
+     ELL message with dropout's per-head scale, no HTR launch; launches,
+     losses, files, ``cli test`` against the run and the plain path, the
+     same timings and records.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -158,6 +180,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import pathlib
+import shutil
 import subprocess
 import sys
 import threading
@@ -194,6 +218,18 @@ LARGE_SIZES = dict(min_atoms=600, max_atoms=700, box=6.3)
 # ELL layout (N = 4,224 rows, K = 36 slots, above fused_table_rows = 2048)
 XL_FRAMES = 2
 XL_SIZES = dict(min_atoms=4000, max_atoms=4200, box=6.3)
+# phases 26-27: the command line's train and test runs, under build/
+CLI_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+CLI_QM9 = ["experiment=qm9_u0_tpu", "datamodule.dataset=synthetic",
+           "datamodule.n_molecules=1280", "datamodule.min_atoms=12",
+           "datamodule.max_atoms=29", "datamodule.train_size=1024",
+           "datamodule.val_size=128", "datamodule.test_size=128",
+           "trainer.max_epochs=2", "trainer.log_every=1"]
+CLI_LARGE = ["experiment=large_molecule", "trainer.max_epochs=1"]
+# resume against a fresh run: the same steps, the Atomwise head's
+# index_add atomics on the card -> 1e-3; cli test of the same checkpoint
+# on the same data -> 1e-5
+TOL_RESUME, TOL_CLI_TEST = 1e-3, 1e-5
 # ms a launch of the kernels that phase 21's yardsticks are logged beside,
 # by "kernel, path" (filled by the phases that time them)
 KERNEL_MS = {}
@@ -1877,6 +1913,217 @@ def ell_force_phase(cfg, card) -> None:
                "fused_htr_ell_bwd (ELL force request)", card)
 
 
+@contextlib.contextmanager
+def spy(module, name, keep, backward=False):
+    """Record every call of ``module.<name>`` while the block runs: whether
+    it trains (a backward, or a forward ``with_attn``, which keeps the
+    softmax for the backward) and the number of dimensions of its scale
+    (argument 8), and keep the arguments of the first ``keep`` training
+    calls (the calls still go to the kernel)."""
+    kernel = getattr(module, name)
+    calls, kept = [], []
+
+    def record(*args, **kwargs):
+        training = backward or kwargs.get("with_attn", False)
+        calls.append((training, args[8].dim()))
+        if training and len(kept) < keep:
+            kept.append((args, kwargs))
+        return kernel(*args, **kwargs)
+
+    with mock.patch.object(module, name, record):
+        yield calls, kept
+
+
+@contextlib.contextmanager
+def trainer_timings():
+    """Wall seconds of every ``Trainer.evaluate`` (by phase) and
+    ``Trainer.save_checkpoint`` while the block runs."""
+    from gotennet_tpu_torch.train.trainer import Trainer
+    times = {"evaluate": [], "save": []}
+    evaluate, save = Trainer.evaluate, Trainer.save_checkpoint
+
+    def timed_evaluate(self, state_dict, loader, phase="test"):
+        t0 = time.perf_counter()
+        out = evaluate(self, state_dict, loader, phase)
+        times["evaluate"].append((phase, time.perf_counter() - t0))
+        return out
+
+    def timed_save(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, *args, **kwargs)
+        times["save"].append(time.perf_counter() - t0)
+
+    with mock.patch.object(Trainer, "evaluate", timed_evaluate), \
+            mock.patch.object(Trainer, "save_checkpoint", timed_save):
+        yield times
+
+
+def read_jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def epoch_record(workdir, epoch) -> dict:
+    recs = [r for r in read_jsonl(workdir / "metrics.jsonl")
+            if r["phase"] == "val_epoch" and r["epoch"] == epoch]
+    if len(recs) != 1:
+        raise AssertionError(f"{workdir}: {len(recs)} records of epoch "
+                             f"{epoch}")
+    return recs[0]
+
+
+def hold_results(what, got, want, tol) -> None:
+    for key in want:
+        rel = abs(got[key] - want[key]) / max(abs(want[key]), 1e-30)
+        log(f"[{what}] {key}: {got[key]!r} vs {want[key]!r} (rel "
+            f"{rel:.3e}, tol {tol:g})")
+        if not math.isfinite(got[key]) or rel > tol:
+            raise AssertionError(f"{what}: {key} disagrees")
+
+
+def cli_phase(card, what, overrides, kernels, plain_forward, expected,
+              idle, n_train, steps_per_epoch, resume=False) -> list:
+    """Phases 26-27: ``cli train`` with ``overrides`` through the kernels of
+    ``kernels`` (forward, backward: ``(name, module, fn, plain, bound,
+    replaces)``), launches checked against ``expected`` and none of the
+    wrappers in ``idle``; the files, losses and timings of the run; with
+    ``resume``, resume against a fresh run; ``cli test`` against the run
+    and, through ``plain_forward`` (module, name, plain), against the plain
+    path.  Returns both kernels' records."""
+    from gotennet_tpu_torch import cli
+
+    root = CLI_DIR / what.replace(" ", "_")
+    shutil.rmtree(root, ignore_errors=True)
+    run = root / "run"
+    counters = [getattr(k[1], k[2]) for k in kernels]
+    for c in counters + idle:
+        c.launches = 0
+    with spy(kernels[0][1], kernels[0][2], 8) as (fwd_calls, fwd_kept), \
+            spy(kernels[1][1], kernels[1][2], 8, backward=True) as (
+                bwd_calls, bwd_kept), \
+            trainer_timings() as times:
+        t0 = time.perf_counter()
+        cli.main(["train", *overrides, f"workdir={run}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = tuple(c.launches for c in counters)
+    log(f"[{what}] cli train: {wall:.2f} s on the wall; launches forward/"
+        f"backward {launches} (expected {expected}), idle wrappers "
+        f"{[c.launches for c in idle]}")
+    if launches != expected or any(c.launches for c in idle):
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expected}")
+    train_dims = {d for t, d in fwd_calls if t} | {d for _, d in bwd_calls}
+    eval_dims = {d for t, d in fwd_calls if not t}
+    log(f"[{what}] scale dimensions: training launches {sorted(train_dims)}"
+        f" (per head: 4 dense, 3 ELL), evaluation launches "
+        f"{sorted(eval_dims)}")
+    per_head = 4 if kernels[0][0].startswith("fused_gata") else 3
+    if train_dims != {per_head} or eval_dims != {per_head - 1}:
+        raise AssertionError(f"{what}: the training launches did not all "
+                             "take the dropout's per-head scale")
+    for name in ("ckpt_best", "ckpt_last", "splits.npz", "metrics.jsonl",
+                 "test_results.json"):
+        if not (run / name).exists():
+            raise AssertionError(f"{what}: {name} was not written")
+    recs = read_jsonl(run / "metrics.jsonl")
+    losses = [r["loss"] for r in recs if r["phase"] == "train"]
+    epochs = [r for r in recs if r["phase"] == "val_epoch"]
+    numbers = losses + [r[k] for r in epochs for k in
+                        ("val_loss", "train_loss", "MeanAbsoluteError")]
+    log(f"[{what}] {len(losses)} optimizer steps, losses "
+        f"{[round(x, 6) for x in losses]}")
+    if not losses or not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"{what}: a loss is not finite")
+    vals = [s for p, s in times["evaluate"] if p == "validation"]
+    for rec, val_s in zip(epochs, vals):
+        train_s = rec["epoch_time_s"] - val_s
+        log(f"[time] {what} epoch {rec['epoch']}: {rec['epoch_time_s']:.3f}"
+            f" s, of which training {train_s:.3f} s ("
+            f"{steps_per_epoch / train_s:.3f} optimizer steps/s, "
+            f"{n_train / train_s:.1f} training molecules/s) and validation "
+            f"{val_s:.3f} s | {card}")
+    test_s = [s for p, s in times["evaluate"] if p == "test"]
+    log(f"[time] {what}: test evaluation pass {test_s[0]:.3f} s, checkpoint "
+        f"writes {[round(s, 3) for s in times['save']]} s | {card}")
+    results = json.loads((run / "test_results.json").read_text())
+
+    if resume:
+        more = [*overrides, "trainer.max_epochs=3"]
+        shutil.copytree(run, root / "resumed")
+        cli.main(["train", *more, "trainer.resume=true",
+                  f"workdir={root / 'resumed'}"])
+        cli.main(["train", *more, f"workdir={root / 'fresh'}"])
+        keys = ("val_loss", "MeanSquaredError", "MeanAbsoluteError",
+                "train_loss", "lr_scale", "step")
+        got, want = (epoch_record(root / d, 2) for d in ("resumed", "fresh"))
+        hold_results(f"{what} resume", {k: got[k] for k in keys},
+                     {k: want[k] for k in keys}, TOL_RESUME)
+
+    ckpt = f"checkpoint={run / 'ckpt_best'}"
+    with trainer_timings() as times:
+        cli.main(["test", ckpt, *overrides, f"workdir={root / 'test'}"])
+    log(f"[time] {what}: cli test evaluation pass "
+        f"{times['evaluate'][0][1]:.3f} s | {card}")
+    hold_results(f"{what} cli test",
+                 json.loads((root / "test" / "test_results.json").read_text()),
+                 results, TOL_CLI_TEST)
+    with mock.patch.object(*plain_forward):
+        cli.main(["test", ckpt, *overrides, f"workdir={root / 'plain'}"])
+    hold_results(f"{what} cli test, plain path",
+                 json.loads((root / "plain" / "test_results.json").read_text()),
+                 results, TOL_SERVE)
+
+    records = []
+    for (name, module, fn, plain, bound, replaces), kept, n in zip(
+            kernels, (fwd_kept, bwd_kept), launches):
+        record = kernel_record(
+            {"name": name, "route": "cuda",
+             "source": f"gotennet_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces}, kept, getattr(module, fn), plain, bound,
+            card)
+        record["launches"] = n
+        records.append(record)
+    return records
+
+
+def cli_phases(card, phase_done) -> tuple:
+    """Phases 26 and 27; returns each one's two kernel records."""
+    from gotennet_tpu_torch.ops import fused_ell, fused_gata, fused_htr
+    qm9_records = cli_phase(
+        card, "QM9 cli", CLI_QM9,
+        [("fused_gata_fwd", fused_gata, "fused_gata_forward",
+          fused_gata.fused_gata_forward_reference, fwd_bound_ms,
+          "gotennet_tpu/ops/pallas/fused_gata.py:108"),
+         ("fused_gata_bwd", fused_gata, "fused_gata_backward",
+          fused_gata.fused_gata_backward_reference, bwd_bound_ms,
+          "gotennet_tpu/ops/pallas/fused_gata.py:350")],
+        (fused_gata, "fused_gata_forward",
+         fused_gata.fused_gata_forward_reference),
+        # 32 training batches an epoch, one validation and one test batch
+        ((32 * 2 + 2 + 1) * N_LAYERS, 32 * 2 * N_LAYERS),
+        [fused_htr.fused_htr_forward, fused_htr.fused_htr_backward],
+        n_train=1024, steps_per_epoch=4, resume=True)
+    phase_done("26 (QM9 through the command line)")
+    large_records = cli_phase(
+        card, "large_molecule cli", CLI_LARGE,
+        [("fused_ell_fwd", fused_ell, "fused_ell_forward",
+          fused_ell.fused_ell_forward_reference, ell_fwd_bound_ms,
+          "gotennet_tpu/ops/pallas/fused_ell.py:77"),
+         ("fused_ell_bwd", fused_ell, "fused_ell_backward",
+          fused_ell.fused_ell_backward_reference, ell_bwd_bound_ms,
+          "gotennet_tpu/ops/pallas/fused_ell.py:256")],
+        (fused_ell, "fused_ell_forward",
+         fused_ell.fused_ell_forward_reference),
+        # 6 training batches, one validation and one test batch
+        ((6 + 1 + 1) * N_LAYERS, 6 * N_LAYERS),
+        [fused_htr.fused_htr_ell_forward, fused_htr.fused_htr_ell_backward],
+        n_train=24, steps_per_epoch=2)
+    phase_done("27 (large_molecule through the command line)")
+    return qm9_records, large_records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1936,9 +2183,11 @@ def main() -> int:
     phase_done("2 (GATA forward vs plain)")
 
     # ---- 3. serving path at full width -----------------------------------
+    # remat off, as bench.py runs the fused paths (a layer recomputed in
+    # the backward pass would launch its forward kernels twice)
     cfg = GotenNetConfig(n_atom_basis=D, n_interactions=N_LAYERS, lmax=LMAX,
                          n_rbf=64, num_heads=H, pair_dtype=bf16,
-                         node_dtype=bf16, merge_proj=True)
+                         node_dtype=bf16, merge_proj=True, remat=False)
     head = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0}).build_head()
     pred = Predictor(cfg, head, seed=0, chunk=CHUNK)
     ds = synthetic_molecules(sum(REQUESTS), seed=0, min_atoms=12,
@@ -2080,13 +2329,20 @@ def main() -> int:
                     kernels=False)
     phase_done("25 (the large_molecule model: fused message, unfused "
                "update)")
+
+    # ---- 26.-27. the command line's train and test --------------------------
+    qm9_records, large_records = cli_phases(card, phase_done)
     paths = [(record, "QM9 request"), (bwd_record, "QM9 step"),
              (htr_record, "MD22 request"), (htr_bwd_record, "MD22 step"),
              (ell_records[0], "ELL request"), (ell_bwd_records[0], "ELL step"),
              (ell_records[1], "ELL request"), (ell_bwd_records[1], "ELL step"),
              (pos_record, "MD22 force request"),
              (xl_records[0], "xl request"), (xl_bwd_records[0], "xl step"),
-             (xl_records[1], "xl request"), (xl_bwd_records[1], "xl step")]
+             (xl_records[1], "xl request"), (xl_bwd_records[1], "xl step"),
+             (qm9_records[0], "QM9 cli train and test"),
+             (qm9_records[1], "QM9 cli train"),
+             (large_records[0], "large_molecule cli train and test"),
+             (large_records[1], "large_molecule cli train")]
     log(json.dumps({"kernels": [{**r, "path": p} for r, p in paths]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

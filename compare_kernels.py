@@ -127,7 +127,8 @@ def main(argv) -> int:
     bf16 = torch.bfloat16
     cfg = GotenNetConfig(n_atom_basis=cs.D, n_interactions=cs.N_LAYERS,
                          lmax=cs.LMAX, n_rbf=64, num_heads=cs.H,
-                         pair_dtype=bf16, node_dtype=bf16, merge_proj=True)
+                         pair_dtype=bf16, node_dtype=bf16, merge_proj=True,
+                         remat=False)
     big_cfg = dataclasses.replace(cfg, fused_htr=True)
     head = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0}).build_head()
 

@@ -1,8 +1,10 @@
-"""In-memory molecular datasets and the dense- and ELL-batch loaders.
+"""In-memory molecular datasets, the dense- and ELL-batch loaders and the
+split and standardisation helpers.
 
 Counterpart of ``gotennet_tpu/data/dataset.py`` for the dense and ELL
-layouts: the same seed gives the same molecules (numpy ``default_rng``)
-and the same batches as the JAX package.
+layouts: the same seed gives the same molecules (numpy ``default_rng``),
+the same splits and, epoch by epoch (``set_epoch``), the same batches as
+the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +20,29 @@ from gotennet_tpu_torch.graph.ell_batch import (ELLBatch, collate_ell,
                                                 frame_graph)
 
 __all__ = ["MoleculeDataset", "DenseLoader", "ELLLoader",
-           "synthetic_molecules"]
+           "synthetic_molecules", "make_splits", "center_positions",
+           "standardize_energy", "ATOMIC_MASSES"]
+
+# IUPAC 2021 standard atomic weights, index = atomic number (0 = dummy);
+# the JAX package's table (gotennet_tpu/models/heads.py)
+ATOMIC_MASSES = np.asarray([
+    1.008, 1.008, 4.002602, 6.94, 9.0121831, 10.81, 12.011, 14.007, 15.999,
+    18.998403163, 20.1797, 22.98976928, 24.305, 26.9815385, 28.085,
+    30.973761998, 32.06, 35.45, 39.948, 39.0983, 40.078, 44.955908, 47.867,
+    50.9415, 51.9961, 54.938044, 55.845, 58.933194, 58.6934, 63.546, 65.38,
+    69.723, 72.63, 74.921595, 78.971, 79.904, 83.798, 85.4678, 87.62,
+    88.90584, 91.224, 92.90637, 95.95, 97.90721, 101.07, 102.9055, 106.42,
+    107.8682, 112.414, 114.818, 118.71, 121.76, 127.6, 126.90447, 131.293,
+    132.90545196, 137.327, 138.90547, 140.116, 140.90766, 144.242, 144.91276,
+    150.36, 151.964, 157.25, 158.92535, 162.5, 164.93033, 167.259, 168.93422,
+    173.054, 174.9668, 178.49, 180.94788, 183.84, 186.207, 190.23, 192.217,
+    195.084, 196.966569, 200.592, 204.38, 207.2, 208.9804, 208.98243,
+    209.98715, 222.01758, 223.01974, 226.02541, 227.02775, 232.0377,
+    231.03588, 238.02891, 237.04817, 244.06421, 243.06138, 247.07035,
+    247.07031, 251.07959, 252.083, 257.09511, 258.09843, 259.101, 262.11,
+    267.122, 268.126, 271.134, 270.133, 269.1338, 278.156, 281.165, 281.166,
+    285.177, 286.182, 289.19, 289.194, 293.204, 293.208, 294.214,
+], dtype=np.float32)
 
 
 @dataclasses.dataclass
@@ -29,9 +53,19 @@ class MoleculeDataset:
     pos: List[np.ndarray]                   # [M_i, 3] float
     y: Optional[np.ndarray] = None          # [n, T] graph targets
     dy: Optional[List[np.ndarray]] = None   # [M_i, 3] forces
+    atomref: Optional[np.ndarray] = None    # [max_z, 1]
 
     def __len__(self) -> int:
         return len(self.z)
+
+    def subset(self, idx: Sequence[int]) -> "MoleculeDataset":
+        idx = np.asarray(idx)
+        return MoleculeDataset(
+            z=[self.z[i] for i in idx],
+            pos=[self.pos[i] for i in idx],
+            y=self.y[idx] if self.y is not None else None,
+            dy=[self.dy[i] for i in idx] if self.dy is not None else None,
+            atomref=self.atomref)
 
     def graph_dicts(self, idx: Sequence[int]) -> List[dict]:
         out = []
@@ -78,8 +112,79 @@ def synthetic_molecules(n: int, seed: int = 0, min_atoms: int = 6,
                            dy=dys if with_forces else None)
 
 
+def make_splits(n: int, train_size, val_size, test_size, seed: int,
+                save_path: Optional[str] = None,
+                splits_path: Optional[str] = None):
+    """Seeded permutation split; each size an int, a float fraction or None
+    (the remainder; at most one).  ``save_path`` writes ``splits.npz``;
+    ``splits_path`` reads one back instead of splitting."""
+    if splits_path is not None:
+        f = np.load(splits_path)
+        return f["idx_train"], f["idx_val"], f["idx_test"]
+
+    def resolve(size):
+        if size is None:
+            return None
+        if isinstance(size, float):
+            return int(round(size * n))
+        return int(size)
+
+    tr, va, te = resolve(train_size), resolve(val_size), resolve(test_size)
+    if sum(x is None for x in (tr, va, te)) > 1:
+        raise ValueError("at most one of the split sizes may be None")
+    if tr is None:
+        tr = n - va - te
+    elif va is None:
+        va = n - tr - te
+    if te is None:
+        te = n - tr - va
+    if tr + va + te > n:
+        raise ValueError(f"splits {tr}+{va}+{te} exceed dataset size {n}")
+
+    perm = np.random.default_rng(seed).permutation(n)
+    idx_train = perm[:tr]
+    idx_val = perm[tr:tr + va]
+    idx_test = perm[tr + va:tr + va + te]
+    if save_path is not None:
+        np.savez(save_path, idx_train=idx_train, idx_val=idx_val,
+                 idx_test=idx_test)
+    return idx_train, idx_val, idx_test
+
+
+def center_positions(ds: MoleculeDataset) -> MoleculeDataset:
+    """Subtract each molecule's centre of mass from its positions (the
+    datamodule's ``normalize_positions``)."""
+    masses = np.asarray(ATOMIC_MASSES, np.float64)
+    pos = []
+    for z, p in zip(ds.z, ds.pos):
+        w = masses[np.asarray(z)]
+        com = (w[:, None] * p).sum(0) / w.sum()
+        pos.append((p - com).astype(p.dtype))
+    return dataclasses.replace(ds, pos=pos)
+
+
+def standardize_energy(ds: MoleculeDataset, idx: Sequence[int],
+                       label_col: int = 0, use_atomref: bool = True):
+    """``(mean, std)`` of the target over a split, each molecule's atomref
+    sum subtracted first when the dataset has a table and ``use_atomref``."""
+    ys = []
+    for i in idx:
+        y = float(ds.y[i, label_col])
+        if use_atomref and ds.atomref is not None:
+            y -= float(ds.atomref[ds.z[i], 0].sum())
+        ys.append(y)
+    ys = np.asarray(ys, np.float64)
+    return float(ys.mean()), float(ys.std(ddof=1))
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def set_epoch(loader, epoch: int) -> None:
+    """Make the loader's shuffle a pure function of ``(seed, epoch)``, so a
+    resumed run repeats the uninterrupted run's batch order."""
+    loader.rng = np.random.default_rng([loader.seed, epoch])
 
 
 class DenseLoader:
@@ -104,6 +209,7 @@ class DenseLoader:
         self.ds = ds
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
         if max_atoms is None:
@@ -117,6 +223,8 @@ class DenseLoader:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    set_epoch = set_epoch
 
     def _batch_index_arrays(self, order) -> List[np.ndarray]:
         bs = self.batch_size
@@ -154,13 +262,18 @@ class DenseLoader:
 
 class ELLLoader:
     """Iterates fixed-capacity ELLBatches (``[N, K]`` neighbour rows) over a
-    dataset, ``batch_size`` molecules each, in order.
+    dataset, ``batch_size`` molecules each, in order or, with ``shuffle``,
+    in an order drawn from ``seed`` (and the epoch, ``set_epoch``);
+    ``drop_last`` leaves out a short last batch.
 
     Node capacity: the ``batch_size`` largest molecules plus 8, rounded up
     to 8 and then to ``block_rows``.  ``max_neighbors`` defaults to the
-    largest degree over every molecule (the JAX loader's
-    ``neighbor_probe="full"``), rounded up to a multiple of 4; a batch
-    whose degree overflows it grows K by 4 and is collated again.
+    largest degree over the frames ``neighbor_probe`` names: every frame
+    with ``"full"`` (the default), else that many frames spread evenly over
+    the dataset (``np.linspace``), whose degree is given 25 % headroom
+    (capped at ``max_num_neighbors`` + 1), as the JAX loader does; either
+    is rounded up to a multiple of 4.  A batch whose degree overflows it
+    grows K by 4 and is collated again.
 
     Each frame's radius graph is built once, on the frame in the order the
     batch will hold it (spatially sorted with ``spatial_sort``), by the
@@ -171,13 +284,20 @@ class ELLLoader:
                  cutoff: float = 5.0, max_num_neighbors: int = 32,
                  max_neighbors: Optional[int] = None,
                  spatial_sort: bool = False,
-                 block_rows: Optional[int] = None):
+                 block_rows: Optional[int] = None,
+                 shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False,
+                 neighbor_probe: "int | str" = "full"):
         self.ds = ds
         self.batch_size = batch_size
         self.cutoff = cutoff
         self.max_num_neighbors = max_num_neighbors
         self.spatial_sort = spatial_sort
         self.block_rows = block_rows
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = drop_last
         sizes = np.asarray([len(z) for z in ds.z])
         n_cap = int(np.sort(sizes)[-min(batch_size, len(sizes)):].sum())
         self.node_capacity = _round_up(n_cap + 8, 8)
@@ -185,13 +305,27 @@ class ELLLoader:
             self.node_capacity = _round_up(self.node_capacity, block_rows)
         self._frames = {}
         if max_neighbors is None:
+            full = neighbor_probe == "full"
+            probe = (np.arange(len(ds)) if full else np.linspace(
+                0, len(ds) - 1, min(len(ds), int(neighbor_probe))
+            ).astype(int))
             deg = 1
-            for i in range(len(ds)):
-                _, _, dst = self._frame(i)
+            for i in probe:
+                _, _, dst = self._frame(int(i))
                 if len(dst):
                     deg = max(deg, int(np.bincount(dst).max()))
+            if not full:
+                deg = min(int(deg * 1.25) + 1, max_num_neighbors + 1)
             max_neighbors = _round_up(deg, 4)
         self.max_neighbors = max_neighbors
+
+    def __len__(self) -> int:
+        n = len(self.ds)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    set_epoch = set_epoch
 
     def _frame(self, i: int):
         if i not in self._frames:
@@ -205,8 +339,12 @@ class ELLLoader:
         molecule ``indices[g]``."""
         bs = self.batch_size
         y_dim = self.ds.y.shape[1] if self.ds.y is not None else 1
-        for off in range(0, len(self.ds), bs):
-            idx = np.arange(off, min(off + bs, len(self.ds)))
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        stop = len(order) - (len(order) % bs if self.drop_last else 0)
+        for off in range(0, stop, bs):
+            idx = order[off:off + bs]
             graphs = self.ds.graph_dicts(idx)
             frames = [self._frame(int(i)) for i in idx]
             while True:

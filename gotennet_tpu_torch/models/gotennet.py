@@ -1,16 +1,24 @@
-"""GotenNet configuration and the equivariant feed-forward block.
+"""GotenNet configuration, the equivariant feed-forward block and the
+attention-dropout keep masks.
 
 Counterpart of ``gotennet_tpu/models/gotennet.py``: ``GotenNetConfig``
 keeps the JAX package's field names and defaults, with ``pair_dtype``
 and ``node_dtype`` as ``torch.dtype``s.  Options whose code is not
 ported yet raise ``NotImplementedError`` naming the ROADMAP.md item that
 ports them.
+
+Attention dropout (``attn_dropout > 0``, in training only) draws one
+Bernoulli keep mask per interaction layer from an explicit
+``torch.Generator`` (``keep_masks``, through ``attention_keep_mask``, which
+a test may replace to hand in a mask of its own).  The layers fold it into
+the post-softmax scale, ``scale * keep / (1 - p)``, as the JAX package
+does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -19,18 +27,19 @@ from gotennet_tpu_torch.nn.dense import Dense
 from gotennet_tpu_torch.ops.activations import get_activation, is_silu_like
 from gotennet_tpu_torch.ops.spherical import num_sh_components
 
-__all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "not_ported"]
+__all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "not_ported",
+           "attention_keep_mask", "keep_masks", "run_layer"]
 
 # ROADMAP.md Queue 1 items that port what this package still rejects (item
-# IDs are never reused: 8, 9 and 11 are done)
+# IDs are never reused: 1, 8, 9 and 11 are done)
 ROADMAP_ITEMS = {
-    1: "Training step",
     2: "Unfused dense message",
     3: "Remaining primitives",
     4: "Data",
     5: "Edge-update variants",
     6: "Dipole and ESE heads",
     10: "Edge-list layout",
+    12: "Multi-GPU",
     13: "CLI, configs and tools",
 }
 
@@ -106,6 +115,9 @@ class GotenNetConfig:
     # keep the inter-layer edge state t_ij in pair_dtype
     edge_state_pair_dtype: bool = False
     fused_htr: bool = False
+    # recompute each interaction layer in the backward pass
+    # (torch.utils.checkpoint) instead of keeping its activations
+    remat: bool = True
     # ELL layout: the most node-table rows one fused kernel call takes;
     # larger tables need the chunked drivers, not ported yet
     fused_table_rows: int = 2048
@@ -169,6 +181,41 @@ class GotenNetConfig:
         if self.sep_tensor:
             m += self.lmax - 1
         return m
+
+
+def attention_keep_mask(shape: Sequence[int], rate: float,
+                        generator: torch.Generator,
+                        device: torch.device) -> torch.Tensor:
+    """A boolean Bernoulli(1 - rate) keep mask of ``shape``, drawn from
+    ``generator`` on ``device``."""
+    return torch.rand(tuple(shape), generator=generator,
+                      device=device) < 1.0 - rate
+
+
+def keep_masks(cfg: GotenNetConfig, training: bool, shape: Sequence[int],
+               generator: Optional[torch.Generator],
+               device: torch.device) -> List[Optional[torch.Tensor]]:
+    """One attention keep mask ``shape`` (``[..., H]``) per interaction
+    layer, in layer order, when ``training`` with ``attn_dropout > 0``;
+    Nones otherwise (no draw)."""
+    if not (training and cfg.attn_dropout > 0.0):
+        return [None] * cfg.n_interactions
+    if generator is None:
+        raise ValueError("attention dropout in training draws from an "
+                         "explicit torch.Generator; none was given")
+    return [attention_keep_mask(shape, cfg.attn_dropout, generator, device)
+            for _ in range(cfg.n_interactions)]
+
+
+def run_layer(cfg: GotenNetConfig, training: bool, layer: nn.Module,
+              *args):
+    """``layer(*args)``, recomputed in the backward pass under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` in training with autograd
+    on (the same values either way)."""
+    if cfg.remat and training and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
 
 
 class EQFF(nn.Module):

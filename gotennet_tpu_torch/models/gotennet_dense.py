@@ -10,6 +10,9 @@ its expanded-rejection form,
 
 through ``ops.fused_htr.fused_htr`` (its CUDA kernels, ``FusedHTR`` in
 training) when ``fused_htr`` is set, as plain tensor ops otherwise.
+Attention dropout in training folds each layer's ``[G, M, M, H]`` keep
+mask into the kernel's per-head scale; ``remat`` recomputes each layer in
+the backward pass (``models.gotennet.run_layer``).
 
 Parameters carry the reference state-dict names
 (``gata_list.{i}.W_q.weight`` ...).  ``pair_dtype`` and ``node_dtype``
@@ -26,7 +29,8 @@ from torch import nn
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.models.gotennet import (EQFF, GotenNetConfig,
-                                               not_ported, parse_edge_updates)
+                                               keep_masks, not_ported,
+                                               parse_edge_updates, run_layer)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.ops import fused_gata, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
@@ -204,13 +208,14 @@ class GATADense(nn.Module):
                               for l, (lo, hi)
                               in enumerate(degree_slices(cfg.lmax))], dim=2)
 
-    def forward(self, h, X, t_ij, rl_ij, dist, pair_mask, n_edges
+    def forward(self, h, X, t_ij, rl_ij, dist, pair_mask, n_edges,
+                keep: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``keep``: the layer's ``[G, M, M, H]`` attention keep mask, or
+        None (no dropout)."""
         cfg = self.cfg
         D = cfg.n_atom_basis
         pd = cfg.pair_dtype
-        if self.training and cfg.attn_dropout > 0.0:
-            raise not_ported("attention dropout in training", 1)
 
         q, k, x_g, v = self._node_projections(h)
         # the sign of env_signed carries the pair mask
@@ -220,6 +225,10 @@ class GATADense(nn.Module):
             scale = torch.sqrt(n_edges) / math.sqrt(D)
         else:
             scale = torch.full_like(dist, 1.0 / math.sqrt(D))
+        if keep is not None:
+            # dropout folds into the per-head post-softmax scale
+            scale = (scale[..., None] * keep.to(scale.dtype)
+                     / (1.0 - cfg.attn_dropout))
         # through FusedGATA (kernel backward) when a gradient is wanted
         d_h, dX = fused_gata.fused_gata(
             t_ij.contiguous(), q.contiguous(), k.contiguous(),
@@ -293,8 +302,11 @@ class GotenNetDense(nn.Module):
             GATADense(cfg, last_layer=(i == n - 1)) for i in range(n))
         self.eqff_list = nn.ModuleList(EQFF(cfg) for _ in range(n))
 
-    def forward(self, batch: DenseBatch
+    def forward(self, batch: DenseBatch,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` draws the attention keep masks (training with
+        ``attn_dropout > 0``)."""
         cfg = self.cfg
         G, M = batch.z.shape
         geo = pair_geometry(batch.pos, batch.mask, cfg.cutoff,
@@ -313,9 +325,12 @@ class GotenNetDense(nn.Module):
         sd = cfg.pair_dtype if cfg.edge_state_pair_dtype else None
         if sd is not None:
             t_ij = t_ij.to(sd)
-        for gata, eqff in zip(self.gata_list, self.eqff_list):
-            h, X, t_ij = gata(h, X, t_ij, rl_ij, geo.dist, geo.pair_mask,
-                              n_edges)
+        masks = keep_masks(cfg, self.training, (G, M, M, cfg.num_heads),
+                           generator, h.device)
+        for gata, eqff, keep in zip(self.gata_list, self.eqff_list, masks):
+            h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
+                                   rl_ij, geo.dist, geo.pair_mask, n_edges,
+                                   keep)
             if sd is not None:
                 t_ij = t_ij.to(sd)
             h, X = eqff(h, X)

@@ -17,9 +17,12 @@ runs its kernels on the whole table, which they read from device memory by
 index; where it finds none (no ``gather_halo``, or a halo too wide) both
 take the unfused paths, as they do there.  The transposed slot list both
 backward kernels sum table gradients by is built once per forward and
-shared by every fused layer.  Attention dropout in training raises
-``NotImplementedError`` (ROADMAP.md Queue 1, item 1), and so do the update
-variants the fused update does not take (item 5).
+shared by every fused layer.  Attention dropout in training takes each
+layer's ``[N, K, H]`` keep mask: the fused message folds it into its
+per-head scale, the unfused one drops the attention with it, as the JAX
+package's ``attn_dropout`` does; ``remat`` recomputes each layer in the
+backward pass.  The update variants the fused update does not take raise
+``NotImplementedError`` (ROADMAP.md Queue 1, item 5).
 
 Types follow the JAX layer, not the dense one: the node projections (q,
 k, x_g, v, EQ, EK), ``W_ndp`` and ``W_erp`` compute in float32, only EQFF
@@ -41,7 +44,8 @@ from torch import nn
 
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
 from gotennet_tpu_torch.models.gotennet import (EQFF, GotenNetConfig,
-                                               not_ported, parse_edge_updates)
+                                               keep_masks, not_ported,
+                                               parse_edge_updates, run_layer)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.ops import fused_ell, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
@@ -180,20 +184,22 @@ class GATAELL(nn.Module):
 
     def forward(self, h, X, t_ij, rl_ij, dist, nbr, nbr_mask, n_edges,
                 gather: Gather, paths: Tuple[bool, bool],
-                slots: Optional[fused_ell.Slots]
+                slots: Optional[fused_ell.Slots],
+                keep: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``keep``: the layer's ``[N, K, H]`` attention keep mask, or None
+        (no dropout)."""
         cfg = self.cfg
-        if self.training and cfg.attn_dropout > 0.0:
-            raise not_ported("attention dropout in training", 1)
         q, k = self.W_q(h), self.W_k(h)
         x_g = self.gamma_s[1](self.gamma_s[0](h))
         v = self.gamma_v[1](self.gamma_v[0](h))
         if paths[0]:
             d_h, dX = self._fused_message(t_ij, q, k, x_g, v, rl_ij, X, dist,
-                                          nbr, nbr_mask, n_edges, slots)
+                                          nbr, nbr_mask, n_edges, slots, keep)
         else:
             d_h, dX = self._unfused_message(t_ij, q, k, x_g, v, rl_ij, X,
-                                            dist, nbr_mask, n_edges, gather)
+                                            dist, nbr_mask, n_edges, gather,
+                                            keep)
         h = h + d_h
         X = X + dX
         if self.last_layer:
@@ -216,7 +222,7 @@ class GATAELL(nn.Module):
             gate=info["gated"] or "", pair_dtype=cfg.pair_dtype, slots=slots)
 
     def _fused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist, nbr,
-                       nbr_mask, n_edges, slots):
+                       nbr_mask, n_edges, slots, keep):
         cfg = self.cfg
         D = cfg.n_atom_basis
         # the sign of env_signed carries the slot mask
@@ -226,6 +232,10 @@ class GATAELL(nn.Module):
             scale = torch.sqrt(n_edges) / math.sqrt(D)
         else:
             scale = torch.full_like(dist, 1.0 / math.sqrt(D))
+        if keep is not None:
+            # dropout folds into the per-head post-softmax scale
+            scale = (scale[..., None] * keep.to(scale.dtype)
+                     / (1.0 - cfg.attn_dropout))
         return fused_ell.fused_ell(
             t_ij, q, k, x_g, v, rl_ij, X, env_signed, scale, nbr,
             self.W_re.weight.t().contiguous(), self.W_re.bias,
@@ -234,7 +244,7 @@ class GATAELL(nn.Module):
             sep_tensor=cfg.sep_tensor, pair_dtype=cfg.pair_dtype, slots=slots)
 
     def _unfused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist, nbr_mask,
-                         n_edges, gather: Gather):
+                         n_edges, gather: Gather, keep):
         """The message as plain tensor ops (JAX gotennet_ell.py:375-434):
         any activation and aggregation.  Returns ``(d_h, dX)``."""
         cfg = self.cfg
@@ -258,6 +268,10 @@ class GATAELL(nn.Module):
             attn = attn * (torch.sqrt(n_edges)[..., None] / math.sqrt(D))
         else:
             attn = attn / math.sqrt(D)
+        if keep is not None:
+            # flax's Dropout: kept entries divided by the keep rate
+            attn = torch.where(keep, attn / (1.0 - cfg.attn_dropout),
+                               torch.zeros_like(attn))
         sea = (attn[..., None] * gather(v).reshape(N, K, H, C // H)
                ).reshape(N, K, C)
         spatial = (t_filter * gather(x_g)
@@ -331,7 +345,11 @@ class GotenNetELL(nn.Module):
             GATAELL(cfg, last_layer=(i == n - 1)) for i in range(n))
         self.eqff_list = nn.ModuleList(EQFF(cfg) for _ in range(n))
 
-    def forward(self, batch: ELLBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, batch: ELLBatch,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` draws the attention keep masks (training with
+        ``attn_dropout > 0``)."""
         cfg = self.cfg
         N, K = batch.nbr.shape
         paths = fused_paths(cfg, N, N, batch.gather_halo)
@@ -367,8 +385,11 @@ class GotenNetELL(nn.Module):
         # what the backward kernels sum table gradients by, once per batch
         slots = (fused_ell.source_slots(nbr, N)
                  if paths[0] and torch.is_grad_enabled() else None)
-        for gata, eqff in zip(self.gata_list, self.eqff_list):
-            h, X, t_ij = gata(h, X, t_ij, rl_ij, dist, nbr, nm, n_edges,
-                              gather, paths, slots)
+        masks = keep_masks(cfg, self.training, (N, K, cfg.num_heads),
+                           generator, h.device)
+        for gata, eqff, keep in zip(self.gata_list, self.eqff_list, masks):
+            h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
+                                   rl_ij, dist, nbr, nm, n_edges, gather,
+                                   paths, slots, keep)
             h, X = eqff(h, X)
         return h, X

@@ -74,7 +74,9 @@ def init_parameters_(module: nn.Module, generator: torch.Generator,
 
 class GotenModel(nn.Module):
     """GotenNet representation + one output head; ``layout`` is "dense"
-    (``DenseBatch``) or "ell" (``ELLBatch``, forward only)."""
+    (``DenseBatch``) or "ell" (``ELLBatch``).  ``dropout_generator`` (on
+    the model's device, seeded with ``seed``) draws the attention keep
+    masks in training."""
 
     def __init__(self, cfg: GotenNetConfig, head: HeadConfig,
                  layout: str = "dense", *, seed: int = 0,
@@ -106,12 +108,16 @@ class GotenModel(nn.Module):
             mean=head.mean, stddev=head.stddev, atomref=head.atomref)])
         init_parameters_(self, torch.Generator().manual_seed(seed))
         self.to(device)
+        # attention dropout's keep masks (training with attn_dropout > 0);
+        # the Trainer reseeds it and keeps its state in checkpoints
+        self.dropout_generator = torch.Generator(device=device)
+        self.dropout_generator.manual_seed(seed)
         # serving mode after construction; training code calls .train()
         self.eval()
 
     def forward(self, batch: DenseBatch | ELLBatch
                 ) -> Dict[str, torch.Tensor]:
-        h, X = self.representation(batch)
+        h, X = self.representation(batch, self.dropout_generator)
         if self.layout == "dense":
             G, M = h.shape[:2]
             h = h.reshape(G * M, -1)

@@ -1,9 +1,11 @@
 """Task interface (``gotennet_tpu/tasks/base.py``): head construction,
-losses and targets for a graph-level scalar property.
+losses, metrics and targets for a graph-level scalar property.
 
 A loss spec is a dict ``{'name', 'prediction', 'target', 'loss_fn',
 'loss_weight'}``: ``prediction`` keys into the model's result dict and
-``target`` into ``get_targets``.
+``target`` into ``get_targets``.  A metric spec has ``kind`` in place of
+the weight: the statistic (``'mae'`` or ``'mse'``) its accumulator
+reports.
 """
 
 from __future__ import annotations
@@ -52,6 +54,14 @@ class Task:
             "loss_fn": _LOSSES[loss_name],
             "loss_weight": 1.0,
         }]
+
+    def get_metrics(self) -> List[dict]:
+        return [
+            {"name": "MeanSquaredError", "prediction": "property",
+             "target": "y", "loss_fn": mse_loss, "kind": "mse"},
+            {"name": "MeanAbsoluteError", "prediction": "property",
+             "target": "y", "loss_fn": l1_loss, "kind": "mae"},
+        ]
 
     def build_head(self) -> HeadConfig:
         mean = float(self.dataset_meta.get("mean") or 0.0)

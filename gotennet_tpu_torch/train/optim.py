@@ -4,18 +4,23 @@ The JAX package's recipe is optax's ``chain(clip_by_global_norm(clip),
 adamw(lr, eps=1e-7, weight_decay))``.  Here it is ``torch.optim.AdamW``
 with the same hyper-parameters, and ``clip_by_global_norm`` applied to
 the gradients before ``step()``, with optax's rule: gradients are scaled
-by ``max_norm / g_norm`` only when ``g_norm >= max_norm``.
+by ``max_norm / g_norm`` only when ``g_norm >= max_norm``.  The learning
+rate of a step is the base rate times ``Trainer.lr_scale(step)`` (warm-up
+times the plateau or cosine multiplier), written into the param groups
+before ``step()`` (``set_lr``); ``PlateauState`` / ``plateau_update`` are
+ReduceLROnPlateau on the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Iterable, Optional
 
 import torch
 
-__all__ = ["make_optimizer", "clip_by_global_norm", "warmup_scale",
-           "cosine_scale"]
+__all__ = ["make_optimizer", "clip_by_global_norm", "set_lr", "warmup_scale",
+           "cosine_scale", "PlateauState", "plateau_update"]
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
@@ -47,6 +52,13 @@ def clip_by_global_norm(params: Iterable[torch.nn.Parameter],
     return g_norm
 
 
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Write ``lr`` into every param group (optax's injected
+    ``learning_rate`` hyper-parameter)."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
 def warmup_scale(step: int, warmup_steps: int) -> float:
     """Linear warmup multiplier."""
     if warmup_steps <= 0:
@@ -60,3 +72,35 @@ def cosine_scale(step: int, t_max: int, eta_min_ratio: float = 0.0) -> float:
         return 1.0
     c = 0.5 * (1 + math.cos(math.pi * min(step, t_max) / t_max))
     return eta_min_ratio + (1 - eta_min_ratio) * c
+
+
+@dataclasses.dataclass
+class PlateauState:
+    """Host-side ReduceLROnPlateau state (mode 'min', relative threshold),
+    torch's semantics: improvement means ``metric < best * (1 -
+    threshold)``; ``num_bad > patience`` reduces the scale and resets."""
+
+    factor: float = 0.8
+    patience: int = 15
+    min_lr: float = 1e-7
+    best: float = float("inf")
+    num_bad: int = 0
+    scale: float = 1.0
+    threshold: float = 1e-4
+
+
+def plateau_update(state: PlateauState, metric: float,
+                   base_lr: float) -> PlateauState:
+    """Advance the plateau scheduler by one validation epoch."""
+    if math.isinf(state.best):
+        better = metric < state.best
+    else:
+        better = metric < state.best * (1.0 - state.threshold)
+    if better:
+        return dataclasses.replace(state, best=metric, num_bad=0)
+    num_bad = state.num_bad + 1
+    if num_bad > state.patience:
+        new_scale = max(state.scale * state.factor,
+                        state.min_lr / max(base_lr, 1e-30))
+        return dataclasses.replace(state, num_bad=0, scale=new_scale)
+    return dataclasses.replace(state, num_bad=num_bad)

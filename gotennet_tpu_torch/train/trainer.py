@@ -1,5 +1,5 @@
-"""Training step (the counterpart of ``bench.py``'s ``one_step`` and of
-``make_loss_fn`` / ``_accum_grads`` in ``gotennet_tpu/train/trainer.py``).
+"""Training: the ``Trainer`` (``gotennet_tpu/train/trainer.py``) and the
+bare training step (``bench.py``'s ``one_step``).
 
 One step takes a batch cut into accumulation chunks: the loss of each
 chunk is differentiated (through the fused kernels' backward on the
@@ -8,18 +8,27 @@ hold a real graph, clipped by their global norm, and AdamW steps.
 
     losses = train_steps(cfg, head, molecules, n_steps=3)   # on cuda
 
-The ``Trainer`` class, checkpoints, the LR schedulers' state, metrics
-and the loss EMA are not ported yet (ROADMAP.md Queue 1, item 1).  A force
-loss (a head with ``derivative``) has a value here but does not train: it
-needs the gradient of the forces, a gradient of a gradient, which the fused
+``Trainer.fit`` runs epochs of such steps over a loader
+(``grad_accum_steps`` consecutive batches a step; a trailing partial group
+counts only its own batches), with warm-up times plateau or cosine LR, the
+per-stage loss EMA (and ``use_ema_in_loss``'s gradient rescale), early
+stopping, ``ckpt_best`` / ``ckpt_last`` checkpoints and a full-state
+``resume``; ``Trainer.evaluate`` gives the loss and the task's metrics,
+summed in float64.  One device only: ``data_parallel``, ``edge_parallel``
+and ``distributed`` raise (ROADMAP.md Queue 1, item 12).  A force loss (a
+head with ``derivative``) has a value here but does not train: it needs
+the gradient of the forces, a gradient of a gradient, which the fused
 kernels' backward does not give (the JAX package trains forces on its
 unfused message, ROADMAP.md Queue 1, item 2).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,10 +41,14 @@ from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
 from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
                                              apply_with_forces)
 from gotennet_tpu_torch.tasks.base import Task
-from gotennet_tpu_torch.train.optim import clip_by_global_norm, make_optimizer
+from gotennet_tpu_torch.train.metrics import MetricAccumulator
+from gotennet_tpu_torch.train.optim import (PlateauState, clip_by_global_norm,
+                                            cosine_scale, make_optimizer,
+                                            plateau_update, set_lr,
+                                            warmup_scale)
 
 __all__ = ["make_loss_fn", "make_chunks", "accum_grads", "train_step",
-           "train_steps"]
+           "train_steps", "TrainerConfig", "Trainer"]
 
 
 def make_loss_fn(model: GotenModel, task: Task) -> Callable:
@@ -97,19 +110,23 @@ def make_chunks(molecules: Sequence[dict], chunk: int,
 
 
 def accum_grads(model: GotenModel, loss_fn: Callable,
-                chunks: Sequence[DenseBatch]) -> torch.Tensor:
+                chunks: Sequence[DenseBatch],
+                logs: Optional[dict] = None) -> torch.Tensor:
     """Gradients of the mean loss over ``chunks`` into ``p.grad``.  Chunks
     without a real graph add zero and are left out of the divisor, as in
     the JAX package's ``_accum_grads``.  Returns the mean loss (a tensor
-    on the model's device).  A head with ``derivative`` raises."""
+    on the model's device); ``logs``, when given, receives the per-loss
+    values of a single chunk.  A head with ``derivative`` raises."""
     _refuse_force_training(model.head)
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         p.grad = None
     l_sum = n_real = 0.0
     for batch in chunks:
-        loss, _, _ = loss_fn(batch)
+        loss, chunk_logs, _ = loss_fn(batch)
         loss.backward()
+        if logs is not None and len(chunks) == 1:
+            logs.update(chunk_logs)
         l_sum = l_sum + loss.detach()
         n_real = n_real + batch.graph_mask.any().to(torch.float32)
     n_real = torch.clamp(torch.as_tensor(n_real), min=1.0)
@@ -120,18 +137,30 @@ def accum_grads(model: GotenModel, loss_fn: Callable,
 
 def train_step(model: GotenModel, optimizer: torch.optim.Optimizer,
                chunks: Sequence[DenseBatch], grad_clip: Optional[float] = 5.0,
-               *, loss_fn: Optional[Callable] = None) -> float:
+               *, loss_fn: Optional[Callable] = None, grad_scale: float = 1.0,
+               logs: Optional[dict] = None) -> float:
     """One optimizer step over the accumulation ``chunks``: mean gradient,
-    global-norm clip at ``grad_clip`` (None: none), then
-    ``optimizer.step()``.  ``loss_fn`` defaults to the base task's L1
-    loss on the property.  Returns the mean loss."""
+    times ``grad_scale``, global-norm clip at ``grad_clip`` (None: none),
+    then ``optimizer.step()``.  ``loss_fn`` defaults to the base task's L1
+    loss on the property.  ``logs``, when given, receives the gradients'
+    global norm before the clip (``grad_norm``) and, for a single chunk,
+    the per-loss values.  Returns the mean loss."""
     model.train()
     if loss_fn is None:
         loss_fn = make_loss_fn(model, Task(None))
-    loss = accum_grads(model, loss_fn, chunks)
+    loss = accum_grads(model, loss_fn, chunks, logs=logs)
+    params = [p for p in model.parameters() if p.grad is not None]
+    if grad_scale != 1.0:
+        for p in params:
+            p.grad.mul_(grad_scale)
     if grad_clip is not None:
-        clip_by_global_norm(model.parameters(), grad_clip)
+        g_norm = clip_by_global_norm(params, grad_clip)
+    elif logs is not None:
+        g_norm = torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                                for p in params))
     optimizer.step()
+    if logs is not None:
+        logs["grad_norm"] = g_norm
     return float(loss)
 
 
@@ -158,3 +187,286 @@ def train_steps(cfg: GotenNetConfig, head: HeadConfig,
     loss_fn = make_loss_fn(model, Task(None))
     return [train_step(model, optimizer, chunks, optimizer.grad_clip,
                        loss_fn=loss_fn) for _ in range(n_steps)]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """The JAX package's ``TrainerConfig``: the same fields and defaults."""
+
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    grad_clip: Optional[float] = 5.0
+    lr_warmup_steps: int = 0
+    scheduler: str = "plateau"          # 'plateau' | 'cosine' | 'none'
+    lr_decay: float = 0.8               # plateau factor
+    lr_patience: int = 15
+    lr_minlr: float = 1e-7
+    cosine_t_max: int = 1_000_000
+    max_epochs: int = 1000
+    early_stopping_patience: int = 150
+    # early-stop and plateau monitor
+    monitor: str = "val_loss"
+    # checkpoint-selection monitor; None means ``monitor``
+    monitor_checkpoint: Optional[str] = None
+    # loss-value EMA: replaces the logged and monitored loss of the stages
+    # in ``ema_stages``; with ``use_ema_in_loss`` the gradients are also
+    # scaled by ``ema_rate`` (before clipping) from the second train batch
+    ema_rate: float = 0.0               # 0 = off
+    ema_stages: Tuple[str, ...] = ("train", "validation")
+    use_ema_in_loss: bool = False
+    seed: int = 1
+    log_every: int = 50
+    workdir: str = "runs/default"
+    logger: str = "jsonl"
+    tensorboard: bool = False
+    resume: bool = False                # continue from ckpt_last
+    grad_accum_steps: int = 1
+    data_parallel: int = 1
+    edge_parallel: int = 1
+    distributed: bool = False
+
+
+def _on_device(loader: Iterable, device: torch.device):
+    for batch in loader:
+        yield batch.to(device)
+
+
+def _grouped(it: Iterable, n: int):
+    """Lists of ``n`` consecutive items; the trailing partial one as is."""
+    buf = []
+    for b in it:
+        buf.append(b)
+        if len(buf) == n:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+class Trainer:
+    """Single-device trainer over ``model`` (a ``GotenModel`` on its
+    device) for ``task``.  ``fit`` trains the model in place; both
+    ``fit`` and ``evaluate`` take a state dict to start from (``evaluate``:
+    None keeps the model's weights)."""
+
+    def __init__(self, model: GotenModel, task, cfg: TrainerConfig):
+        if cfg.data_parallel > 1 or cfg.edge_parallel > 1 or cfg.distributed:
+            raise not_ported(
+                f"data_parallel={cfg.data_parallel}, edge_parallel="
+                f"{cfg.edge_parallel}, distributed={cfg.distributed} "
+                "(more than one device)", 12)
+        from gotennet_tpu_torch.utils.logging import make_logger
+        self.model = model
+        self.task = task
+        self.cfg = cfg
+        self.device = next(model.parameters()).device
+        self.loss_fn = make_loss_fn(model, task)
+        self.ema: Dict[str, float] = {}
+        self.plateau = PlateauState(cfg.lr_decay, cfg.lr_patience,
+                                    cfg.lr_minlr)
+        os.makedirs(cfg.workdir, exist_ok=True)
+        self._logger = make_logger(cfg.workdir, cfg.logger,
+                                   tensorboard=cfg.tensorboard)
+
+    # ---- schedules and the loss EMA --------------------------------------
+    def lr_scale(self, step: int) -> float:
+        w = warmup_scale(step, self.cfg.lr_warmup_steps)
+        if self.cfg.scheduler == "plateau":
+            return w * self.plateau.scale
+        if self.cfg.scheduler == "cosine":
+            return w * cosine_scale(step, self.cfg.cosine_t_max)
+        return w
+
+    def _update_ema(self, key: str, value: float) -> float:
+        """ema <- rate * value + (1 - rate) * ema, replacing the value."""
+        rate = self.cfg.ema_rate
+        if not (0.0 < rate < 1.0) or math.isnan(value):
+            return value
+        prev = self.ema.get(key)
+        ema = value if prev is None else rate * value + (1 - rate) * prev
+        self.ema[key] = ema
+        return ema
+
+    def _stage_ema(self, stage: str, value: float) -> float:
+        if stage in self.cfg.ema_stages:
+            return self._update_ema(f"{stage}_loss", value)
+        return value
+
+    def _ema_grad_scale(self) -> float:
+        """``use_ema_in_loss``: the backpropagated loss is rate * loss +
+        (1 - rate) * the detached EMA, so the gradients scale by the rate
+        once an EMA value exists."""
+        cfg = self.cfg
+        if (cfg.use_ema_in_loss and 0.0 < cfg.ema_rate < 1.0
+                and "train" in cfg.ema_stages and "train_loss" in self.ema):
+            return cfg.ema_rate
+        return 1.0
+
+    # ---- one optimizer step ----------------------------------------------
+    def _train_step(self, optimizer, chunks, lr_scale: float,
+                    ema_scale: float) -> Dict[str, float]:
+        cfg = self.cfg
+        set_lr(optimizer, cfg.lr * lr_scale)
+        logs: Dict[str, Any] = {}
+        loss = train_step(self.model, optimizer, chunks, cfg.grad_clip,
+                          loss_fn=self.loss_fn, grad_scale=ema_scale,
+                          logs=logs)
+        grad_norm = float(logs.pop("grad_norm"))
+        if cfg.grad_accum_steps > 1:
+            logs = {}   # the per-loss values are logged without accumulation
+        return {**{k: float(v) for k, v in logs.items()}, "loss": loss,
+                "grad_norm": grad_norm}
+
+    # ---- loops ------------------------------------------------------------
+    def fit(self, state_dict: Dict[str, torch.Tensor], train_loader: Iterable,
+            val_loader: Iterable, max_steps: Optional[int] = None
+            ) -> Tuple[Dict[str, torch.Tensor], List[Dict[str, float]]]:
+        """Train from ``state_dict`` (or, with ``resume``, from the
+        workdir's ``ckpt_last`` and its full training state).  Returns the
+        final state dict and one validation record per epoch."""
+        from gotennet_tpu_torch.data.prefetch import prefetch
+        from gotennet_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                         load_train_state)
+        cfg, model = self.cfg, self.model
+        model.load_state_dict(state_dict)
+        optimizer = make_optimizer(model.parameters(), cfg.lr,
+                                   cfg.weight_decay, cfg.grad_clip)
+        generator = model.dropout_generator
+        generator.manual_seed(cfg.seed)
+        step = start_epoch = bad_epochs = 0
+        monitor_ckpt = cfg.monitor_checkpoint or cfg.monitor
+        best_stop = best_ckpt = math.inf
+        last = os.path.join(cfg.workdir, "ckpt_last")
+        if cfg.resume and os.path.isdir(last):
+            # full state: weights, AdamW moments, schedules, EMA, epoch,
+            # best values and the dropout generator
+            _, saved, step = load_checkpoint(last, self.device)
+            model.load_state_dict(saved)
+            ts = load_train_state(last, optimizer)
+            if ts:
+                start_epoch = int(ts.get("epoch", -1)) + 1
+                best_stop = float(ts.get("best_stop", math.inf))
+                best_ckpt = float(ts.get("best_ckpt", math.inf))
+                bad_epochs = int(ts.get("bad_epochs", 0))
+                self.ema = dict(ts.get("ema") or {})
+                if ts.get("plateau"):
+                    self.plateau = dataclasses.replace(self.plateau,
+                                                       **ts["plateau"])
+                if ts.get("generator") is not None:
+                    generator.set_state(torch.tensor(ts["generator"],
+                                                     dtype=torch.uint8))
+        n_accum = max(1, cfg.grad_accum_steps)
+        history = []
+        for epoch in range(start_epoch, cfg.max_epochs):
+            # the shuffle is a function of (seed, epoch): a resumed run
+            # repeats the uninterrupted run's batch order
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            t0 = time.time()
+            model.train()
+            train_losses = []
+            for chunks in prefetch(_grouped(_on_device(train_loader,
+                                                       self.device), n_accum)):
+                logs = self._train_step(optimizer, chunks,
+                                        self.lr_scale(step),
+                                        self._ema_grad_scale())
+                step += 1
+                loss = self._stage_ema("train", logs["loss"])
+                if step % cfg.log_every == 0:
+                    self._log({"phase": "train", "step": step, **logs,
+                               "loss": loss})
+                train_losses.append(loss)
+                if max_steps is not None and step >= max_steps:
+                    break
+
+            val = self.evaluate(None, val_loader, phase="validation")
+            val["train_loss"] = (float(np.mean(train_losses))
+                                 if train_losses else math.nan)
+            val["epoch"] = epoch
+            val["step"] = step
+            val["lr_scale"] = self.lr_scale(step)
+            val["epoch_time_s"] = time.time() - t0
+            history.append(val)
+            self._log({"phase": "val_epoch", **val})
+
+            for key in {cfg.monitor, monitor_ckpt}:
+                if key not in val:
+                    raise KeyError(
+                        f"monitor {key!r} not among validation metrics "
+                        f"{sorted(val)}")
+            monitored = val[cfg.monitor]
+            if cfg.scheduler == "plateau":
+                self.plateau = plateau_update(self.plateau, monitored,
+                                              cfg.lr)
+            improved_ckpt = val[monitor_ckpt] < best_ckpt
+            if improved_ckpt:
+                best_ckpt = val[monitor_ckpt]
+            if monitored < best_stop:
+                best_stop = monitored
+                bad_epochs = 0
+            else:
+                bad_epochs += 1
+            train_state = {
+                "epoch": epoch, "best_stop": best_stop,
+                "best_ckpt": best_ckpt, "bad_epochs": bad_epochs,
+                "ema": dict(self.ema),
+                "plateau": {"best": self.plateau.best,
+                            "num_bad": self.plateau.num_bad,
+                            "scale": self.plateau.scale},
+                "generator": generator.get_state().tolist(),
+            }
+            if improved_ckpt:
+                self.save_checkpoint(optimizer, step, "best", train_state)
+            self.save_checkpoint(optimizer, step, "last", train_state)
+            if bad_epochs > cfg.early_stopping_patience:
+                break
+            if max_steps is not None and step >= max_steps:
+                break
+        return {k: v.detach().clone() for k, v in
+                model.state_dict().items()}, history
+
+    @torch.no_grad()
+    def evaluate(self, state_dict: Optional[Dict[str, torch.Tensor]],
+                 loader: Iterable, phase: str = "test") -> Dict[str, float]:
+        """``val_loss`` (the mean of the per-batch losses, each through the
+        stage's EMA) and each of the task's metrics over ``loader``."""
+        from gotennet_tpu_torch.data.prefetch import prefetch
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        self.model.eval()
+        metrics = self.task.get_metrics()
+        accs = {m["name"]: MetricAccumulator() for m in metrics}
+        losses = []
+        for batch in prefetch(_on_device(loader, self.device)):
+            loss, _, out = self.loss_fn(batch)
+            losses.append(self._stage_ema(phase, float(loss)))
+            targets = self.task.get_targets(batch)
+            for m in metrics:
+                tgt, mask = targets[m["target"]]
+                pred = out[m["prediction"]].reshape(tgt.shape)
+                accs[m["name"]].update(pred.float().cpu().numpy(),
+                                       tgt.float().cpu().numpy(),
+                                       mask.float().cpu().numpy())
+
+        def kind_of(m):
+            return m.get("kind") or ("mae" if "Absolute" in m["name"]
+                                     else "mse")
+
+        out = {"val_loss": float(np.mean(losses)) if losses else math.nan}
+        for m in metrics:
+            out[m["name"]] = accs[m["name"]].compute()[kind_of(m)]
+        return out
+
+    # ---- persistence -------------------------------------------------------
+    def save_checkpoint(self, optimizer, step: int, tag: str,
+                        train_state: Optional[Dict] = None) -> None:
+        from gotennet_tpu_torch.train.checkpoint import save_checkpoint
+        extra = {"task": getattr(self.task, "name", None),
+                 "label": getattr(self.task, "label_name",
+                                  getattr(self.task, "label", None))}
+        save_checkpoint(os.path.join(self.cfg.workdir, f"ckpt_{tag}"),
+                        self.model, step=step, extra_meta=extra,
+                        optimizer=optimizer, train_state=train_state)
+
+    def _log(self, record: Dict[str, Any]) -> None:
+        self._logger.log(record)

@@ -1,4 +1,4 @@
-"""Weights from the JAX package into this package.
+"""Weights between the JAX package and this package.
 
 ``state_dict_from_jax_params`` maps a flax parameter tree (nested dicts
 of arrays, as ``GotenModel.init`` returns it) onto this package's state
@@ -8,7 +8,9 @@ transposed from JAX's ``[in, out]`` to torch's ``[out, in]``.  The
 mapping is a local copy of ``_mapping`` / ``head_mapping`` in
 ``gotennet_tpu/utils/torch_convert.py``, restricted to the options this
 package ports; the head's mean, stddev and atomref come from the
-``HeadConfig``.
+``HeadConfig``.  ``jax_params_from_state_dict`` is its inverse: a state
+dict back to the JAX package's parameter tree (``{'params': {...}}`` of
+numpy arrays), which is what a checkpoint of either package stores.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import HeadConfig
 
-__all__ = ["state_dict_from_jax_params"]
+__all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict"]
 
 Entry = Tuple[str, tuple, bool]   # (torch key, flax path, transpose)
 
@@ -88,6 +90,14 @@ def _get(tree, path):
     return tree
 
 
+def _head_entries(n_layers: int) -> List[Entry]:
+    out = []
+    for i in range(n_layers):
+        out += _dense(f"output_modules.0.out_net.1.out_net.{i}",
+                      ("head", "out_net", f"dense_{i}"))
+    return out
+
+
 def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
                                head: HeadConfig) -> Dict[str, torch.Tensor]:
     """Flax ``GotenModel`` params (with or without the outer 'params'
@@ -103,10 +113,8 @@ def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
     for key, path, tr in _mapping(cfg):
         put("representation." + key, _get(tree["representation"], path), tr)
     pre = "output_modules.0."
-    for i in range(len(tree["head"]["out_net"])):
-        for key, path, tr in _dense(f"{pre}out_net.1.out_net.{i}",
-                                    ("head", "out_net", f"dense_{i}")):
-            put(key, _get(tree, path), tr)
+    for key, path, tr in _head_entries(len(tree["head"]["out_net"])):
+        put(key, _get(tree, path), tr)
     put(f"{pre}standardize.mean", [head.mean], False)
     put(f"{pre}standardize.stddev", [head.stddev], False)
     if head.atomref is not None:
@@ -114,3 +122,27 @@ def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
         put(f"{pre}atomref.weight", table[:, None] if table.ndim == 1
             else table, False)
     return out
+
+
+def jax_params_from_state_dict(state_dict: Dict[str, torch.Tensor],
+                               cfg: GotenNetConfig) -> Dict:
+    """This package's ``GotenModel`` state dict -> the JAX package's
+    parameter tree ``{'params': {'representation': ..., 'head': ...}}`` of
+    float32 numpy arrays (kernels transposed back to ``[in, out]``).  The
+    head's buffers (mean, stddev, atomref) are not parameters there."""
+    tree: Dict = {}
+
+    def put(path, key, transpose):
+        arr = state_dict[key].detach().cpu().to(torch.float32).numpy()
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+
+    for key, path, tr in _mapping(cfg):
+        put(("representation",) + path, "representation." + key, tr)
+    n_head = len({k.split(".")[5] for k in state_dict
+                  if k.startswith("output_modules.0.out_net.1.out_net.")})
+    for key, path, tr in _head_entries(n_head):
+        put(path, key, tr)
+    return {"params": tree}

@@ -224,7 +224,7 @@ def test_train_step_on_card_matches_cpu(card):
     """Two training steps in float32, card against CPU, same seed; each
     step launches both kernels chunks x layers times."""
     cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
-                         num_heads=8, n_rbf=16)
+                         num_heads=8, n_rbf=16, remat=False)
     head = HeadConfig(mean=0.5, stddev=2.0)
     mols = synthetic_molecules(24, seed=5, min_atoms=5,
                                max_atoms=29).graph_dicts(range(24))
@@ -429,7 +429,7 @@ def test_md22_train_step_on_card_matches_cpu(card):
     against CPU; each step launches the HTR kernels chunks x (layers - 1)
     times."""
     cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
-                         num_heads=8, n_rbf=16, fused_htr=True)
+                         num_heads=8, n_rbf=16, fused_htr=True, remat=False)
     head = HeadConfig(mean=0.5, stddev=2.0)
     mols = _md22_frames(8, seed=5)
     n_fwd, n_bwd = fused_htr_forward.launches, fused_htr_backward.launches
@@ -755,7 +755,7 @@ def test_ell_train_step_on_card_matches_cpu(card):
     CPU; each step launches all four ELL kernels chunks x layers times (the
     HTR ones chunks x (layers - 1))."""
     cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
-                         num_heads=8, n_rbf=16, fused_htr=True)
+                         num_heads=8, n_rbf=16, fused_htr=True, remat=False)
     head = HeadConfig(mean=0.5, stddev=2.0)
     mols = synthetic_molecules(2, seed=9, min_atoms=600, max_atoms=700,
                                box=6.3).graph_dicts(range(2))
@@ -790,3 +790,51 @@ def test_backward_products_match_matmul(product_lib, P):
     twice with the same bits (chip_smoke.hold_products raises otherwise)."""
     rows = chip_smoke.hold_products(product_lib, P, seed=3)
     assert len(rows) == 7 and all(rel <= 1e-5 for _, _, rel in rows[5:])
+
+
+@pytest.mark.parametrize("layout", ["dense", "ell"])
+def test_trainer_fit_epoch_with_dropout_on_card(card, tmp_path, layout):
+    """One Trainer.fit epoch on the card with attention dropout 0.1 and
+    2-batch accumulation: every batch launches the message kernels once a
+    layer each way, the record is finite, and ckpt_last evaluates on the CPU as on the card
+    (float32, 1e-4 of the scale)."""
+    from gotennet_tpu_torch.data.dataset import DenseLoader, ELLLoader
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.ops import fused_ell
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+    from gotennet_tpu_torch.train.checkpoint import load_checkpoint
+    from gotennet_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, attn_dropout=0.1,
+                         remat=False)
+    task = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0})
+    if layout == "dense":
+        ds = synthetic_molecules(40, seed=3, min_atoms=5, max_atoms=29)
+        make = lambda d: DenseLoader(d, 8, shuffle=True, seed=1, bucket=True)
+        fwd, bwd = fused_gata_forward, fused_gata_backward
+        n_train, n_batches = 24, 3
+    else:
+        ds = synthetic_molecules(5, seed=3, min_atoms=600, max_atoms=700,
+                                 box=6.3)
+        make = lambda d: ELLLoader(d, 1, shuffle=True, seed=1,
+                                   spatial_sort=True, block_rows=64)
+        fwd, bwd = fused_ell.fused_ell_forward, fused_ell.fused_ell_backward
+        n_train, n_batches = 3, 3
+    train, val = make(ds.subset(range(n_train))), make(
+        ds.subset(range(n_train, len(ds))))
+    model = GotenModel(cfg, task.build_head(), layout, seed=1)
+    tr = Trainer(model, task, TrainerConfig(max_epochs=1, grad_accum_steps=2,
+                                            workdir=str(tmp_path)))
+    n_fwd, n_bwd = fwd.launches, bwd.launches
+    _, hist = tr.fit(model.state_dict(), train, val)
+    assert fwd.launches - n_fwd == (n_batches + len(val)) * 2
+    assert bwd.launches - n_bwd == n_batches * 2
+    assert hist[0]["step"] == 2
+    assert all(math.isfinite(v) for v in hist[0].values())
+    on_card = tr.evaluate(None, val)
+    cpu_model, state, _ = load_checkpoint(str(tmp_path / "ckpt_last"), "cpu")
+    cpu = Trainer(cpu_model, task, TrainerConfig(
+        workdir=str(tmp_path / "cpu"))).evaluate(state, val)
+    for key, value in cpu.items():
+        assert abs(on_card[key] - value) <= 1e-4 * max(abs(value), 1.0), key

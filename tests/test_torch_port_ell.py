@@ -311,12 +311,12 @@ def test_ell_predictor_matches_per_frame_model():
 
 
 def test_ell_training_raises():
-    """What still raises when training on ELL: attention dropout in training
-    (item 1: the layer would otherwise drop it silently).  Without it the
-    dispatchers record the backward, and train_steps runs a node table
-    above fused_table_rows that has no halo-windowed chunking (64-row
-    blocks, a 64-row limit): the JAX package takes its unfused paths there,
-    and so does the port."""
+    """Training on ELL: attention dropout in training draws its keep masks
+    (item 1, ported: the answer moves off the eval one and gradients reach
+    the parameters), the dispatchers record the backward, and train_steps
+    runs a node table above fused_table_rows that has no halo-windowed
+    chunking (64-row blocks, a 64-row limit): the JAX package takes its
+    unfused paths there, and so does the port."""
     inputs = [torch.from_numpy(a) for a in ell_inputs(
         0, 8, 8, 12, 32, 4, 2, True, True, False)]
     inputs[0].requires_grad_(True)
@@ -332,9 +332,13 @@ def test_ell_training_raises():
                        layout="ell", device="cpu")
     batch = next(iter(ELLLoader(synthetic_molecules(2, seed=0, **FRAMES),
                                 batch_size=2)))
+    with torch.no_grad():
+        want = model(batch)["property"]
     model.train()
-    with pytest.raises(NotImplementedError, match="item 1:"):
-        model(batch)
+    got = model(batch)["property"]
+    assert torch.isfinite(got).all() and not torch.equal(got, want)
+    got.sum().backward()
+    assert model.representation.gata_list[0].W_q.weight.grad is not None
     cfg = _port_cfg(False, fused_table_rows=64)
     chunk, = make_chunks(mols, 2, "cpu", layout="ell")
     assert chunk.num_nodes > 64

@@ -443,21 +443,30 @@ def test_ell_train_steps_entry_point_on_cpu():
 
 # ---- attention dropout on ELL --------------------------------------------------
 def test_ell_attention_dropout_in_training_raises():
-    """The ELL layer does not drop attention silently: in training with
-    attn_dropout > 0 it raises (item 1), with autograd on or off; in eval it
-    answers."""
+    """The ELL layer does not drop attention silently, and no longer raises
+    on it (item 1 is ported): in training with attn_dropout > 0 it draws a
+    keep mask from the model's generator, with autograd on or off (the same
+    answer from the same generator state); in eval it draws none and
+    answers as before."""
     cfg = GotenNetConfig(**SMALL, fused_htr=True, attn_dropout=0.1)
     model = GotenModel(cfg, HeadConfig(), layout="ell", device="cpu")
     batch = next(iter(ELLLoader(synthetic_molecules(2, seed=0, **FRAMES),
                                 batch_size=2)))
-    model.train()
-    with pytest.raises(NotImplementedError, match="item 1:"):
-        model(batch)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 1:"):
-        model(batch)
-    model.eval()
     with torch.no_grad():
-        assert torch.isfinite(model(batch)["property"]).all()
+        want = model(batch)["property"]
+    model.train()
+    state = model.dropout_generator.get_state()
+    got = model(batch)["property"]
+    model.dropout_generator.set_state(state)
+    with torch.no_grad():
+        again = model(batch)["property"]
+    assert torch.isfinite(got).all() and not torch.equal(got, want)
+    assert torch.equal(got, again)
+    model.eval()
+    state = model.dropout_generator.get_state()
+    with torch.no_grad():
+        assert torch.equal(model(batch)["property"], want)
+    assert torch.equal(model.dropout_generator.get_state(), state)
 
 
 # The HTR backward's row pass on the ELL layout (bf16 pair type: as many rows
