@@ -169,7 +169,34 @@ Phases, in order; any failure exits non-zero before the result line:
      steps (``grad_accum_steps`` 4, the second from a partial group), the
      ELL message with dropout's per-head scale, no HTR launch; launches,
      losses, files, ``cli test`` against the run and the plain path, the
-     same timings and records.
+     same timings and records;
+ 28. the QM9 'mu' and 'r2' heads through the command line: ``cli train
+     experiment=qm9_u0_tpu label=mu`` (the Dipole head) and ``label=r2``
+     (the electronic spatial extent), each one epoch on 640 of phase 26's
+     synthetic molecules (512 / 64 / 64) at the flagship width, fused, bf16
+     pairs, dropout 0.1: both GATA kernels' launches equal batches x 4
+     layers, dropout's per-head scale on every training launch, finite
+     losses, the checkpoint's head kind, ``cli test`` against the run
+     within 1e-5 and through the forward's plain version within
+     ``TOL_SERVE``, the same timings and records as phase 26;
+ 29. the unfused dense message at MD22 size: phase 10's 32 frames through
+     ``Predictor`` with ``fused=False`` (the plain-tensor message and HTR
+     update: no kernel launch) against ``fused=True`` (both GATA and both
+     HTR kernels) at one state dict, energies (``predict``) and energies
+     and forces (``predict_with_forces``) within ``TOL_SERVE``; both paths'
+     requests timed (CUDA events) and profiled, the unfused force request's
+     peak memory;
+ 30. training on forces: ``cli train experiment=md22_atat`` as its yaml
+     sets it (dense, ``fused=False``, 256 channels, 4 layers, 64 RBFs, bf16
+     pairs, batch 8 at M = 120, MSE energy 0.05 / force 0.95, dropout 0.1,
+     remat) for one epoch on an sGDML ``md22_AT-AT-CG-CG.npz`` the script
+     writes under ``build/`` (96 synthetic frames of one 118-atom topology
+     at condensed-phase density, pair-potential energies and forces): no
+     kernel launch, every loss finite, the first step's gradients on the
+     card against the same step on the CPU (the same weights, batch and
+     dropout masks) within ``TOL_TRAIN``, then ``cli test`` against the run
+     within 1e-5; epoch seconds, optimizer steps/s, frames/s, a step's time,
+     busy share and peak memory, evaluation and checkpoint times.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -226,6 +253,16 @@ CLI_QM9 = ["experiment=qm9_u0_tpu", "datamodule.dataset=synthetic",
            "datamodule.val_size=128", "datamodule.test_size=128",
            "trainer.max_epochs=2", "trainer.log_every=1"]
 CLI_LARGE = ["experiment=large_molecule", "trainer.max_epochs=1"]
+# phase 28: the QM9 'mu' and 'r2' heads through the command line, phase 26's
+# molecules (512 / 64 / 64), one epoch each
+CLI_QM9_LABELS = ["experiment=qm9_u0_tpu", "datamodule.dataset=synthetic",
+                  "datamodule.n_molecules=640", "datamodule.min_atoms=12",
+                  "datamodule.max_atoms=29", "datamodule.train_size=512",
+                  "datamodule.val_size=64", "datamodule.test_size=64",
+                  "trainer.max_epochs=1", "trainer.log_every=1"]
+# phase 30: md22_atat as its yaml sets it, on an sGDML file of 96 synthetic
+# frames of one 118-atom topology (77 / 10 / 9 frames), one epoch
+MD22_CLI_FRAMES, MD22_CLI_ATOMS = 96, 118
 # resume against a fresh run: the same steps, the Atomwise head's
 # index_add atomics on the card -> 1e-3; cli test of the same checkpoint
 # on the same data -> 1e-5
@@ -2088,6 +2125,264 @@ def cli_phase(card, what, overrides, kernels, plain_forward, expected,
     return records
 
 
+def label_cli_phases(card, phase_done) -> list:
+    """Phase 28: ``cli train`` / ``cli test`` of ``qm9_u0_tpu`` with
+    ``label=mu`` (the Dipole head) and ``label=r2`` (the electronic spatial
+    extent) through both GATA kernels; returns the four kernel records."""
+    from gotennet_tpu_torch.ops import fused_gata, fused_htr
+    records = []
+    for label in ("mu", "r2"):
+        records += cli_phase(
+            card, f"QM9 {label} cli", [*CLI_QM9_LABELS, f"label={label}"],
+            [("fused_gata_fwd", fused_gata, "fused_gata_forward",
+              fused_gata.fused_gata_forward_reference, fwd_bound_ms,
+              "gotennet_tpu/ops/pallas/fused_gata.py:108"),
+             ("fused_gata_bwd", fused_gata, "fused_gata_backward",
+              fused_gata.fused_gata_backward_reference, bwd_bound_ms,
+              "gotennet_tpu/ops/pallas/fused_gata.py:350")],
+            (fused_gata, "fused_gata_forward",
+             fused_gata.fused_gata_forward_reference),
+            # 16 training batches of 32, one validation and one test batch
+            ((16 + 1 + 1) * N_LAYERS, 16 * N_LAYERS),
+            [fused_htr.fused_htr_forward, fused_htr.fused_htr_backward],
+            n_train=512, steps_per_epoch=2)
+        meta = json.loads((CLI_DIR / f"QM9_{label}_cli" / "run" / "ckpt_best"
+                           / "meta.json").read_text())
+        log(f"[QM9 {label} cli] head {meta['head']['kind']}, label "
+            f"{meta['label']}")
+        want = {"mu": "dipole", "r2": "electronic_spatial_extent"}[label]
+        if meta["head"]["kind"] != want:
+            raise AssertionError(f"label={label} built a {meta['head']['kind']}"
+                                 f" head, not {want}")
+    phase_done("28 (QM9 mu and r2 through the command line)")
+    return records
+
+
+def kernel_counters() -> list:
+    """Every kernel wrapper of the port (their ``launches`` counters)."""
+    from gotennet_tpu_torch.ops import fused_ell, fused_gata, fused_htr
+    return [fused_gata.fused_gata_forward, fused_gata.fused_gata_backward,
+            fused_htr.fused_htr_forward, fused_htr.fused_htr_backward,
+            fused_ell.fused_ell_forward, fused_ell.fused_ell_backward,
+            fused_htr.fused_htr_ell_forward, fused_htr.fused_htr_ell_backward]
+
+
+def md22_unfused_phase(cfg, card) -> None:
+    """Phase 29: phase 10's 32 frames through ``Predictor`` with
+    ``fused=False`` (the plain-tensor message and HTR update, no kernel)
+    against ``fused=True`` (both GATA and both HTR kernels) at one state
+    dict: energies (``predict``) and energies and forces
+    (``predict_with_forces``) within TOL_SERVE; both paths timed and
+    profiled, the unfused force request's peak memory."""
+    from gotennet_tpu_torch.serve import Predictor
+
+    mols = md22_frames()
+    head = force_head()
+    fused = Predictor(cfg, head, seed=0, chunk=MD22_CHUNK, bucket=False)
+    plain = Predictor(dataclasses.replace(cfg, fused=False), head,
+                      fused.model.state_dict(), chunk=MD22_CHUNK,
+                      bucket=False)
+    counters = kernel_counters()
+    n_chunks = math.ceil(MD22_FRAMES / MD22_CHUNK)
+    gata, htr = n_chunks * N_LAYERS, n_chunks * (N_LAYERS - 1)
+    # predict launches the forwards, predict_with_forces both ways
+    expected = {"fused": [2 * gata, gata, 2 * htr, htr, 0, 0, 0, 0],
+                "unfused": [0] * 8}
+    answers = {}
+    for what, pred in (("fused", fused), ("unfused", plain)):
+        for c in counters:
+            c.launches = 0
+        answers[what] = (pred.predict(mols), pred.predict_with_forces(mols))
+        torch.cuda.synchronize()
+        got = [c.launches for c in counters]
+        log(f"[md22-unfused] {what}: launches {got} (expected "
+            f"{expected[what]})")
+        if got != expected[what]:
+            raise AssertionError(f"{what}: launches {got}, expected "
+                                 f"{expected[what]}")
+    energies, want = answers["unfused"][0], answers["fused"][0]
+    err, rel = rel_err(torch.from_numpy(energies), torch.from_numpy(want))
+    log(f"[md22-unfused] request energies, unfused vs fused: max abs err "
+        f"{err:.4e} (rel {rel:.3e}, tol {TOL_SERVE:g})")
+    if rel > TOL_SERVE or not torch.isfinite(torch.from_numpy(energies)).all():
+        raise AssertionError("unfused energies disagree with the fused "
+                             "kernels'")
+    hold_forces("md22-unfused force request, unfused vs fused",
+                answers["unfused"][1], answers["fused"][1])
+    for what, pred in (("fused", fused), ("unfused", plain)):
+        for kind, run in (("request", lambda: pred.predict(mols)),
+                          ("force request",
+                           lambda: pred.predict_with_forces(mols))):
+            if what == "unfused" and kind == "force request":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                run()
+                torch.cuda.synchronize()
+                log(f"[md22-unfused] unfused force request: peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                    f"(torch.cuda.max_memory_allocated) | {card}")
+            ms, host_ms, _ = time_run(run, 2, 3)
+            log(f"[time] {MD22_FRAMES}-frame MD22 {kind}, {what} message: "
+                f"{ms:.3f} ms (CUDA events), {host_ms:.3f} ms (host clock) "
+                f"| {card}")
+            profile(run, ms, f"{MD22_FRAMES}-frame MD22 {kind}, {what} "
+                    "message", card)
+
+
+def write_md22_npz(root) -> pathlib.Path:
+    """An sGDML-format ``md22_AT-AT-CG-CG.npz`` of MD22_CLI_FRAMES frames
+    of one MD22_CLI_ATOMS-atom topology at condensed-phase density, with the
+    synthetic pair-potential energies and forces."""
+    import numpy as np
+    from gotennet_tpu_torch.data.dataset import synthetic_trajectory
+    t = synthetic_trajectory(MD22_CLI_FRAMES, MD22_CLI_ATOMS, seed=0)
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / "md22_AT-AT-CG-CG.npz"
+    np.savez(path, z=t.z[0], R=np.stack(t.pos), E=t.y, F=np.stack(t.dy))
+    return path
+
+
+def md22_cli_phase(card) -> None:
+    """Phase 30: ``cli train experiment=md22_atat`` at the yaml's width
+    (dense, fused=False, bf16 pairs, batch 8 at M = 120, MSE energy 0.05 /
+    force 0.95, standardised, attention dropout 0.1, remat) for one epoch,
+    then ``cli test``.  No kernel launches; every loss finite; the first
+    optimizer step's gradients on the card against the same step on the CPU
+    (the same weights, batch and dropout masks) within TOL_TRAIN; ``cli
+    test`` against the run within TOL_CLI_TEST; epoch, steps/s, frames/s,
+    a step's busy share and peak memory, checkpoint and evaluation times."""
+    from gotennet_tpu_torch import cli
+    from gotennet_tpu_torch.models import gotennet
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (accum_grads, make_loss_fn,
+                                                  train_step)
+    from gotennet_tpu_torch.utils.config import load_config
+
+    root = CLI_DIR / "md22_atat"
+    shutil.rmtree(root, ignore_errors=True)
+    path = write_md22_npz(root / "data")
+    overrides = ["experiment=md22_atat",
+                 f"datamodule.dataset_root={path.parent}",
+                 "trainer.max_epochs=1", "trainer.log_every=1"]
+    run = root / "run"
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    with trainer_timings() as times:
+        t0 = time.perf_counter()
+        cli.main(["train", *overrides, f"workdir={run}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    log(f"[md22 cli] cli train: {wall:.2f} s on the wall; kernel launches "
+        f"{launches} (none expected: the unfused paths)")
+    if any(launches):
+        raise AssertionError("md22_atat launched a fused kernel")
+    recs = read_jsonl(run / "metrics.jsonl")
+    steps = [r for r in recs if r["phase"] == "train"]
+    (epoch,) = [r for r in recs if r["phase"] == "val_epoch"]
+    numbers = [r[k] for r in steps for k in ("loss", "energy_MSELoss",
+                                             "force_MSELoss", "grad_norm")]
+    numbers += [epoch[k] for k in ("val_loss", "train_loss",
+                                   "MeanAbsoluteError_energy",
+                                   "MeanAbsoluteError_force")]
+    log(f"[md22 cli] {len(steps)} optimizer steps, losses "
+        f"{[round(r['loss'], 6) for r in steps]}, force losses "
+        f"{[round(r['force_MSELoss'], 6) for r in steps]}")
+    if not steps or not all(math.isfinite(x) for x in numbers):
+        raise AssertionError("md22_atat: a loss is not finite")
+    cfg = load_config(cli.CONFIG_DIR, "train.yaml",
+                      [*overrides, f"workdir={root / 'grads'}"])
+    train_loader, _, _, meta = cli._build_data(cfg, cfg["label"])
+    n_train = len(train_loader.ds)
+    (val_s,) = [s for p, s in times["evaluate"] if p == "validation"]
+    train_s = epoch["epoch_time_s"] - val_s
+    test_s = [s for p, s in times["evaluate"] if p == "test"]
+    log(f"[time] md22 cli epoch: {epoch['epoch_time_s']:.3f} s, of which "
+        f"training {train_s:.3f} s ({len(steps) / train_s:.3f} optimizer "
+        f"steps/s, {n_train / train_s:.2f} training frames/s) and "
+        f"validation {val_s:.3f} s; test evaluation pass {test_s[0]:.3f} s; "
+        f"checkpoint writes {[round(x, 3) for x in times['save']]} s | "
+        f"{card}")
+
+    # the first step on the card against the same step on the CPU
+    train_loader.set_epoch(0)
+    batch = next(iter(train_loader))
+    grads, models = [], []
+    keep = torch.Generator()
+    real_mask = gotennet.attention_keep_mask
+
+    def same_masks(shape, rate, generator, device):
+        return real_mask(shape, rate, keep, torch.device("cpu")).to(device)
+
+    for device in ("cuda", "cpu"):
+        model, task, _ = cli._build_model_and_trainer(cfg, meta,
+                                                      torch.device(device))
+        model.train()
+        keep.manual_seed(0)
+        t0 = time.perf_counter()
+        with mock.patch.object(gotennet, "attention_keep_mask", same_masks):
+            loss = accum_grads(model, make_loss_fn(model, task),
+                               [batch.to(device)])
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+        log(f"[md22 cli] first step on {device}: loss {float(loss):.6f}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        models.append((model, task))
+    errs = {n: rel_err(grads[0][n], g) for n, g in grads[1].items()}
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[md22 cli] first-step gradients, card vs CPU: {len(errs)} tensors, "
+        f"worst {worst} abs {errs[worst][0]:.3e} rel {errs[worst][1]:.3e} "
+        f"(tol {TOL_TRAIN:g} rel)")
+    if errs[worst][1] > TOL_TRAIN or not all(
+            torch.isfinite(g).all() for g in grads[0].values()):
+        raise AssertionError("md22_atat gradients on the card disagree with "
+                             "the CPU's")
+
+    # one optimizer step on the card: its time, busy share and peak memory
+    model, task = models[0]
+    chunks = [batch.to("cuda")]
+    opt = make_optimizer(model.parameters(), cfg["model"]["lr"])
+    loss_fn = make_loss_fn(model, task)
+
+    def step():
+        return train_step(model, opt, chunks, opt.grad_clip, loss_fn=loss_fn)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms, host_ms, _ = time_run(step, 1, 3)
+    log(f"[time] md22 force-training step ({batch.num_graphs} frames, M = "
+        f"{batch.max_atoms}, double backward): {step_ms:.3f} ms (CUDA "
+        f"events), {host_ms:.3f} ms (host clock); peak memory {peak:.3f} GiB"
+        f" (torch.cuda.max_memory_allocated) | {card}")
+    profile(step, step_ms, "md22 force-training step", card)
+
+    results = json.loads((run / "test_results.json").read_text())
+    with trainer_timings() as times:
+        cli.main(["test", f"checkpoint={run / 'ckpt_best'}", *overrides,
+                  f"workdir={root / 'test'}"])
+    log(f"[time] md22 cli test evaluation pass {times['evaluate'][0][1]:.3f}"
+        f" s | {card}")
+    hold_results("md22 cli test",
+                 json.loads((root / "test" / "test_results.json").read_text()),
+                 results, TOL_CLI_TEST)
+
+
+def new_phases(card, phase_done, md22_cfg) -> list:
+    """Phases 28-30; returns phase 28's kernel records."""
+    records = label_cli_phases(card, phase_done)
+    md22_unfused_phase(md22_cfg, card)
+    phase_done("29 (the unfused dense message at MD22 size)")
+    md22_cli_phase(card)
+    phase_done("30 (md22_atat through the command line: training on "
+               "forces)")
+    return records
+
+
 def cli_phases(card, phase_done) -> tuple:
     """Phases 26 and 27; returns each one's two kernel records."""
     from gotennet_tpu_torch.ops import fused_ell, fused_gata, fused_htr
@@ -2332,6 +2627,8 @@ def main() -> int:
 
     # ---- 26.-27. the command line's train and test --------------------------
     qm9_records, large_records = cli_phases(card, phase_done)
+    # ---- 28.-30. the QM9 heads, the unfused dense message, force training --
+    label_records = new_phases(card, phase_done, md22_cfg)
     paths = [(record, "QM9 request"), (bwd_record, "QM9 step"),
              (htr_record, "MD22 request"), (htr_bwd_record, "MD22 step"),
              (ell_records[0], "ELL request"), (ell_bwd_records[0], "ELL step"),
@@ -2342,7 +2639,11 @@ def main() -> int:
              (qm9_records[0], "QM9 cli train and test"),
              (qm9_records[1], "QM9 cli train"),
              (large_records[0], "large_molecule cli train and test"),
-             (large_records[1], "large_molecule cli train")]
+             (large_records[1], "large_molecule cli train"),
+             (label_records[0], "QM9 mu cli train and test"),
+             (label_records[1], "QM9 mu cli train"),
+             (label_records[2], "QM9 r2 cli train and test"),
+             (label_records[3], "QM9 r2 cli train")]
     log(json.dumps({"kernels": [{**r, "path": p} for r, p in paths]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

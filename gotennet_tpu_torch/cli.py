@@ -1,6 +1,9 @@
 """The train and test entry points (``gotennet_tpu/cli.py``).
 
     python -m gotennet_tpu_torch.cli train experiment=qm9_u0_tpu
+    python -m gotennet_tpu_torch.cli train experiment=qm9_u0_tpu label=mu
+    python -m gotennet_tpu_torch.cli train experiment=md22_atat \
+        datamodule.dataset_root=<dir with md22_AT-AT-CG-CG.npz>
     python -m gotennet_tpu_torch.cli test checkpoint=runs/x/ckpt_best
     python -m gotennet_tpu_torch.cli train experiment=... device=cpu
 
@@ -12,11 +15,13 @@ into ``workdir``.  Entry points run on ``cuda`` unless the top-level
 
 Fields the YAML leaves out take the JAX package's defaults, so the same
 experiment builds the same model in both packages (``fused`` absent is
-False, ``layout`` absent is ``"edge"``).  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: the rMD17, MD17, MD22
-and Molecule3D readers (item 4), the unfused dense message (item 2), the
-edge-list layout (item 10), more than one device (item 12), and the
-``sweep`` and ``parity`` modes and reference ``.ckpt`` files (item 13).
+False, ``layout`` absent is ``"edge"``).  The rMD17, MD17 and MD22
+experiments read local trajectories (``data/md17.py``) and train on
+forces, as ``md22_atat`` does on the dense layout with ``fused`` False.
+What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
+item: the Molecule3D reader (item 4), the edge-list layout (item 10), more
+than one device (item 12), and the ``sweep`` and ``parity`` modes and
+reference ``.ckpt`` files (item 13).
 The nvcc build cache under ``build/`` stands in for the JAX package's
 persistent XLA cache.
 """
@@ -55,8 +60,12 @@ def _build_data(cfg: Dict, label: str):
     if dm["dataset"] == "QM9":
         from gotennet_tpu_torch.data.qm9 import load_qm9
         ds = load_qm9(dm["dataset_root"], label=label)
-    elif dm["dataset"] in ("rMD17", "MD17", "MD22", "Molecule3D"):
-        raise not_ported(f"the {dm['dataset']} reader", 4)
+    elif dm["dataset"] in ("rMD17", "MD17", "MD22"):
+        from gotennet_tpu_torch.data.md17 import load_md_dataset
+        ds = load_md_dataset(dm["dataset_root"], label,
+                             max_frames=dm.get("max_frames"))
+    elif dm["dataset"] == "Molecule3D":
+        raise not_ported("the Molecule3D reader", 4)
     elif dm["dataset"] == "synthetic":
         ds = synthetic_molecules(dm.get("n_molecules", 256),
                                  seed=dm.get("seed", 1),

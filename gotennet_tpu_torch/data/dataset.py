@@ -18,31 +18,12 @@ import numpy as np
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch, collate_dense
 from gotennet_tpu_torch.graph.ell_batch import (ELLBatch, collate_ell,
                                                 frame_graph)
+from gotennet_tpu_torch.models.heads import ATOMIC_MASSES
 
 __all__ = ["MoleculeDataset", "DenseLoader", "ELLLoader",
-           "synthetic_molecules", "make_splits", "center_positions",
+           "synthetic_molecules", "synthetic_trajectory", "pair_potential",
+           "make_splits", "center_positions",
            "standardize_energy", "ATOMIC_MASSES"]
-
-# IUPAC 2021 standard atomic weights, index = atomic number (0 = dummy);
-# the JAX package's table (gotennet_tpu/models/heads.py)
-ATOMIC_MASSES = np.asarray([
-    1.008, 1.008, 4.002602, 6.94, 9.0121831, 10.81, 12.011, 14.007, 15.999,
-    18.998403163, 20.1797, 22.98976928, 24.305, 26.9815385, 28.085,
-    30.973761998, 32.06, 35.45, 39.948, 39.0983, 40.078, 44.955908, 47.867,
-    50.9415, 51.9961, 54.938044, 55.845, 58.933194, 58.6934, 63.546, 65.38,
-    69.723, 72.63, 74.921595, 78.971, 79.904, 83.798, 85.4678, 87.62,
-    88.90584, 91.224, 92.90637, 95.95, 97.90721, 101.07, 102.9055, 106.42,
-    107.8682, 112.414, 114.818, 118.71, 121.76, 127.6, 126.90447, 131.293,
-    132.90545196, 137.327, 138.90547, 140.116, 140.90766, 144.242, 144.91276,
-    150.36, 151.964, 157.25, 158.92535, 162.5, 164.93033, 167.259, 168.93422,
-    173.054, 174.9668, 178.49, 180.94788, 183.84, 186.207, 190.23, 192.217,
-    195.084, 196.966569, 200.592, 204.38, 207.2, 208.9804, 208.98243,
-    209.98715, 222.01758, 223.01974, 226.02541, 227.02775, 232.0377,
-    231.03588, 238.02891, 237.04817, 244.06421, 243.06138, 247.07035,
-    247.07031, 251.07959, 252.083, 257.09511, 258.09843, 259.101, 262.11,
-    267.122, 268.126, 271.134, 270.133, 269.1338, 278.156, 281.165, 281.166,
-    285.177, 286.182, 289.19, 289.194, 293.204, 293.208, 294.214,
-], dtype=np.float32)
 
 
 @dataclasses.dataclass
@@ -79,14 +60,30 @@ class MoleculeDataset:
         return out
 
 
+def pair_potential(z: np.ndarray, pos: np.ndarray, forces: bool = False):
+    """The synthetic target: ``0.01 * sum_{i != j} z_i z_j exp(-|r_ij|^2)``
+    (float64 positions), and with ``forces`` its negative gradient
+    ``[n, 3]`` float32 (else None)."""
+    diff = pos[:, None] - pos[None, :]
+    d2 = (diff ** 2).sum(-1)
+    w = z[:, None] * z[None, :]
+    np.fill_diagonal(d2, np.inf)
+    e = float((w * np.exp(-d2)).sum()) * 0.01
+    if not forces:
+        return e, None
+    k = w[..., None] * np.exp(-d2)[..., None] * (-2.0 * diff)
+    g = 0.01 * 2.0 * np.nansum(
+        np.where(np.isfinite(d2)[..., None], k, 0.0), axis=1)
+    return e, (-g).astype(np.float32)
+
+
 def synthetic_molecules(n: int, seed: int = 0, min_atoms: int = 6,
                         max_atoms: int = 24, box: float = 4.0,
                         with_forces: bool = False) -> MoleculeDataset:
     """Random QM9-like molecules: organic atom types, positions spread so
     typical neighbour counts match a 5 A cutoff, and a smooth synthetic
-    target (a sum of Gaussian pair terms); ``with_forces`` adds its
-    negative gradient as force targets (drawing nothing more from the
-    generator)."""
+    target (``pair_potential``); ``with_forces`` adds its negative gradient
+    as force targets (drawing nothing more from the generator)."""
     rng = np.random.default_rng(seed)
     zs, poss, ys, dys = [], [], [], []
     types = np.asarray([1, 6, 7, 8, 9])
@@ -95,21 +92,38 @@ def synthetic_molecules(n: int, seed: int = 0, min_atoms: int = 6,
         m = int(rng.integers(min_atoms, max_atoms + 1))
         z = rng.choice(types, size=m, p=probs).astype(np.int32)
         pos = (rng.random((m, 3)) - 0.5) * box * (m / 12.0) ** (1 / 3)
-        diff = pos[:, None] - pos[None, :]
-        d2 = (diff ** 2).sum(-1)
-        w = z[:, None] * z[None, :]
-        np.fill_diagonal(d2, np.inf)
-        e = float((w * np.exp(-d2)).sum()) * 0.01
+        e, f = pair_potential(z, pos, with_forces)
         zs.append(z)
         poss.append(pos.astype(np.float32))
         ys.append([e])
         if with_forces:
-            k = w[..., None] * np.exp(-d2)[..., None] * (-2.0 * diff)
-            g = 0.01 * 2.0 * np.nansum(
-                np.where(np.isfinite(d2)[..., None], k, 0.0), axis=1)
-            dys.append((-g).astype(np.float32))
+            dys.append(f)
     return MoleculeDataset(z=zs, pos=poss, y=np.asarray(ys, np.float32),
                            dy=dys if with_forces else None)
+
+
+def synthetic_trajectory(n_frames: int, n_atoms: int, seed: int = 0,
+                         box: float = 6.3, jitter: float = 0.1
+                         ) -> MoleculeDataset:
+    """Frames of one molecule, as an MD trajectory gives them: one draw of
+    atom types and positions as ``synthetic_molecules`` makes them (``box``
+    6.3 is its condensed-phase density), then each frame moves every atom
+    by a Gaussian step of ``jitter`` A; energies and forces from
+    ``pair_potential``."""
+    base = synthetic_molecules(1, seed=seed, min_atoms=n_atoms,
+                               max_atoms=n_atoms, box=box)
+    z = base.z[0]
+    rng = np.random.default_rng([seed, 1])
+    poss, ys, dys = [], [], []
+    for _ in range(n_frames):
+        pos = base.pos[0].astype(np.float64) + jitter * rng.standard_normal(
+            (n_atoms, 3))
+        e, f = pair_potential(z, pos, True)
+        poss.append(pos.astype(np.float32))
+        ys.append([e])
+        dys.append(f)
+    return MoleculeDataset(z=[z] * n_frames, pos=poss,
+                           y=np.asarray(ys, np.float32), dy=dys)
 
 
 def make_splits(n: int, train_size, val_size, test_size, seed: int,

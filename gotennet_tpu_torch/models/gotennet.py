@@ -31,13 +31,11 @@ __all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "not_ported",
            "attention_keep_mask", "keep_masks", "run_layer"]
 
 # ROADMAP.md Queue 1 items that port what this package still rejects (item
-# IDs are never reused: 1, 8, 9 and 11 are done)
+# IDs are never reused: 1, 2, 6, 8, 9 and 11 are done)
 ROADMAP_ITEMS = {
-    2: "Unfused dense message",
     3: "Remaining primitives",
     4: "Data",
     5: "Edge-update variants",
-    6: "Dipole and ESE heads",
     10: "Edge-list layout",
     12: "Multi-GPU",
     13: "CLI, configs and tools",
@@ -77,9 +75,9 @@ def parse_edge_updates(edge_updates: Union[bool, str]) -> dict:
 class GotenNetConfig:
     """Hyper-parameters; defaults follow the shipped reference config.
 
-    ``fused`` defaults to True here (False in the JAX package): the dense
-    layout's unfused message is not ported yet (ROADMAP.md Queue 1, item
-    2); the ELL layout takes either."""
+    ``fused`` defaults to True here (False in the JAX package), the path
+    this package serves and trains energies on; both layouts take either,
+    and training on forces takes ``fused=False``."""
 
     n_atom_basis: int = 256
     n_interactions: int = 4

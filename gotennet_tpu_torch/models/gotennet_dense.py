@@ -1,22 +1,28 @@
 """GotenNet in dense-block layout: batched ``[G, M, M]`` pair tensors.
 
-Counterpart of ``gotennet_tpu/models/gotennet_dense.py`` with the fused
-message path: every GATA layer runs its message + aggregation through
+Counterpart of ``gotennet_tpu/models/gotennet_dense.py``.  With ``fused``
+every GATA layer runs its message + aggregation through
 ``ops.fused_gata.fused_gata`` (the CUDA kernels on the card, forward and,
-in training, backward through ``FusedGATA``), and the HTR edge update in
-its expanded-rejection form,
+in training, backward through ``FusedGATA``); without it the message runs
+as plain tensor ops (``GATADense._unfused_message``: any activation,
+``aggr`` add, mean or max), which autograd differentiates to any order, so
+training on forces takes this path.  The HTR edge update runs in its
+expanded-rejection form,
 
     sum_m EQr.EKr = S - pq * pk * (2 - |r_l|^2),
 
 through ``ops.fused_htr.fused_htr`` (its CUDA kernels, ``FusedHTR`` in
-training) when ``fused_htr`` is set, as plain tensor ops otherwise.
-Attention dropout in training folds each layer's ``[G, M, M, H]`` keep
-mask into the kernel's per-head scale; ``remat`` recomputes each layer in
-the backward pass (``models.gotennet.run_layer``).
+training) with ``fused`` and ``fused_htr``, as plain tensor ops otherwise.
+Attention dropout in training takes each layer's ``[G, M, M, H]`` keep
+mask: the fused message folds it into the kernel's per-head scale, the
+unfused one drops the attention with it, as flax's ``Dropout`` does;
+``remat`` recomputes each layer in the backward pass
+(``models.gotennet.run_layer``).
 
 Parameters carry the reference state-dict names
-(``gata_list.{i}.W_q.weight`` ...).  ``pair_dtype`` and ``node_dtype``
-cast where the JAX package casts; every reduction accumulates in f32.
+(``gata_list.{i}.W_q.weight`` ...), the same for both message paths.
+``pair_dtype`` and ``node_dtype`` cast where the JAX package casts; every
+reduction accumulates in f32.
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ from gotennet_tpu_torch.ops.rbf import get_rbf
 from gotennet_tpu_torch.ops.spherical import degree_slices, spherical_harmonics
 
 __all__ = ["GotenNetDense", "PairGeometry", "pair_geometry"]
+
+_NEG = -1e30          # masked logit; exp(_NEG - max) is exactly 0 in f32
+_SOFTMAX_EPS = 1e-16  # the reference softmax's denominator guard
 
 
 class PairGeometry(NamedTuple):
@@ -79,6 +88,13 @@ def pair_geometry(pos: torch.Tensor, mask: torch.Tensor, cutoff: float,
 
 def _node_dtype(cfg: GotenNetConfig) -> Optional[torch.dtype]:
     return None if cfg.node_dtype == torch.float32 else cfg.node_dtype
+
+
+def _fused_update(cfg: GotenNetConfig) -> bool:
+    """Whether the HTR update runs through the fused kernel: with both
+    ``fused`` and ``fused_htr``, as the JAX package chooses."""
+    return (cfg.fused and cfg.fused_htr
+            and (cfg.evec_dim or cfg.n_atom_basis) == cfg.n_atom_basis)
 
 
 class NodeInitDense(nn.Module):
@@ -149,8 +165,11 @@ class GATADense(nn.Module):
         self.gamma_v = nn.ModuleList([
             Dense(D, D, activation=act, **kw, dtype=nd),
             Dense(D, mult * D, **kw, dtype=nd)])
-        self.W_re = Dense(D, D, **kw)
-        self.W_rs = Dense(D, mult * D, **kw)
+        # no activation here: the fused kernel applies silu to W_re's
+        # product itself, the unfused message applies ``act``; their
+        # forward (the unfused message) computes in the pair type
+        self.W_re = Dense(D, D, **kw, dtype=cfg.pair_dtype)
+        self.W_rs = Dense(D, mult * D, **kw, dtype=cfg.pair_dtype)
         if not last_layer:
             E = cfg.evec_dim or D
             self.gamma_t = MLP([D, D], activation=act, last_activation=act,
@@ -208,16 +227,10 @@ class GATADense(nn.Module):
                               for l, (lo, hi)
                               in enumerate(degree_slices(cfg.lmax))], dim=2)
 
-    def forward(self, h, X, t_ij, rl_ij, dist, pair_mask, n_edges,
-                keep: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``keep``: the layer's ``[G, M, M, H]`` attention keep mask, or
-        None (no dropout)."""
+    def _fused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist, pair_mask,
+                       n_edges, keep):
         cfg = self.cfg
         D = cfg.n_atom_basis
-        pd = cfg.pair_dtype
-
-        q, k, x_g, v = self._node_projections(h)
         # the sign of env_signed carries the pair mask
         env_signed = torch.where(pair_mask, cosine_cutoff(dist, cfg.cutoff),
                                  torch.full_like(dist, -1.0))
@@ -230,14 +243,102 @@ class GATADense(nn.Module):
             scale = (scale[..., None] * keep.to(scale.dtype)
                      / (1.0 - cfg.attn_dropout))
         # through FusedGATA (kernel backward) when a gradient is wanted
-        d_h, dX = fused_gata.fused_gata(
+        return fused_gata.fused_gata(
             t_ij.contiguous(), q.contiguous(), k.contiguous(),
             x_g.contiguous(), v.contiguous(), rl_ij, X, env_signed, scale,
             self.W_re.weight.t().contiguous(), self.W_re.bias,
             self.W_rs.weight.t().contiguous(), self.W_rs.bias,
             lmax=cfg.lmax, num_heads=cfg.num_heads, sep_dir=cfg.sep_dir,
-            sep_tensor=cfg.sep_tensor, pair_dtype=pd,
+            sep_tensor=cfg.sep_tensor, pair_dtype=cfg.pair_dtype,
             pos_grads=cfg.pos_grads is not False)
+
+    def _unfused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist,
+                         pair_mask, n_edges, keep):
+        """The message as plain tensor ops (JAX gotennet_dense.py:395-489),
+        the pair tensors in ``pair_dtype`` and every sum over j in f32.
+        Returns ``(d_h [G, M, D], dX [G, M, L, D])``."""
+        cfg = self.cfg
+        D, H = cfg.n_atom_basis, cfg.num_heads
+        C = cfg.multiplier * D
+        pd = cfg.pair_dtype
+        G, M = q.shape[:2]
+        t_attn = self.W_re(t_ij)                          # [G, M, M, D]
+        if self.act is not None:
+            t_attn = self.act(t_attn)
+        t_filter = self.W_rs(t_ij)                        # [G, M, M, C]
+        # attention: SDDMM logits (a head's channels summed in f32), masked
+        # softmax over the sources j
+        p_qk = (t_attn * q.to(pd)[:, :, None, :]) * k.to(pd)[:, None, :, :]
+        logit = torch.sum(p_qk.float().reshape(G, M, M, H, D // H), dim=-1)
+        real = pair_mask[..., None]
+        logit = torch.where(real, logit, torch.full_like(logit, _NEG))
+        top = torch.amax(logit, dim=2, keepdim=True).detach()
+        expd = torch.exp(logit - top) * real
+        attn = expd / (torch.sum(expd, dim=2, keepdim=True) + _SOFTMAX_EPS)
+        if cfg.scale_edge:
+            attn = attn * (torch.sqrt(n_edges)[..., None] / math.sqrt(D))
+        else:
+            attn = attn / math.sqrt(D)
+        if keep is not None:
+            # flax's Dropout: kept entries divided by the keep rate
+            attn = torch.where(keep, attn / (1.0 - cfg.attn_dropout),
+                               torch.zeros_like(attn))
+        # o[g, i, j] = spatial + sea; channel c takes head c // (C / H)
+        env = (cosine_cutoff(dist, cfg.cutoff) * pair_mask).to(pd)
+        attn_full = attn.to(pd).repeat_interleave(C // H, dim=-1)
+        o = (t_filter * x_g.to(pd)[:, None, :, :] * env[..., None]
+             + attn_full * v.to(pd)[:, None, :, :])
+        counts = torch.sum(pair_mask.float(), dim=2)[..., None]   # [G, i, 1]
+
+        def aggr_j(contrib):
+            """``[G, i, j, D]`` pair contributions -> ``[G, i, D]``: max
+            over the real pairs (a row without one gives zeros; amax shares
+            the gradient among equal maxima, as jnp.max does), else the sum
+            (over the count for mean)."""
+            if cfg.aggr == "max":
+                masked = torch.where(real, contrib.float(),
+                                     torch.full_like(contrib, -3e38,
+                                                     dtype=torch.float32))
+                out = torch.amax(masked, dim=2)
+                return torch.where(counts > 0, out, torch.zeros_like(out))
+            s = torch.sum(contrib.float(), dim=2)
+            return s / torch.clamp(counts, min=1.0) if cfg.aggr == "mean" \
+                else s
+
+        d_h = aggr_j(o[..., :D])
+        # per SH component m: the direction and tensor terms, summed apart
+        # for add and mean (linear), jointly for max, as the reference's
+        # scatter-max over whole messages
+        rl_p, X_p = rl_ij.to(pd), X.to(pd)
+        linear = cfg.aggr in ("add", "mean")
+        off_d = D
+        off_t = off_d + (cfg.lmax if cfg.sep_dir else 1) * D
+        cols = []
+        for l, (lo, hi) in enumerate(degree_slices(cfg.lmax)):
+            a = off_d + (l * D if cfg.sep_dir else 0)
+            b = off_t + (l * D if cfg.sep_tensor else 0)
+            o_d, o_t = o[..., a:a + D], o[..., b:b + D]
+            for m in range(lo, hi):
+                dir_c = rl_p[..., m:m + 1] * o_d
+                ten_c = X_p[:, None, :, m, :] * o_t
+                cols.append(aggr_j(dir_c) + aggr_j(ten_c) if linear
+                            else aggr_j(dir_c + ten_c))
+        return d_h, torch.stack(cols, dim=2)
+
+    def forward(self, h, X, t_ij, rl_ij, dist, pair_mask, n_edges,
+                keep: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``keep``: the layer's ``[G, M, M, H]`` attention keep mask, or
+        None (no dropout)."""
+        cfg = self.cfg
+        pd = cfg.pair_dtype
+        q, k, x_g, v = self._node_projections(h)
+        if cfg.fused:
+            d_h, dX = self._fused_message(t_ij, q, k, x_g, v, rl_ij, X, dist,
+                                          pair_mask, n_edges, keep)
+        else:
+            d_h, dX = self._unfused_message(t_ij, q, k, x_g, v, rl_ij, X,
+                                            dist, pair_mask, n_edges, keep)
         h = h + d_h
         X = X + dX
         if self.last_layer:
@@ -245,7 +346,7 @@ class GATADense(nn.Module):
 
         # ---- HTR edge update (expanded rejection), in pair_dtype --------
         EQ, EK = self._htr_projections(X)
-        if cfg.fused_htr and (cfg.evec_dim or D) == D:
+        if _fused_update(cfg):
             # one kernel over the pairs: z, gt, S, pq, pk and w stay on
             # chip (ops/fused_htr.py); gamma_t's single layer in [in, out]
             info = parse_edge_updates(cfg.edge_updates)
@@ -285,11 +386,8 @@ class GotenNetDense(nn.Module):
     def __init__(self, cfg: GotenNetConfig):
         super().__init__()
         D = cfg.n_atom_basis
-        if not cfg.fused:
-            raise not_ported("fused=False (the unfused dense message)", 2)
         info = parse_edge_updates(cfg.edge_updates)
-        if ((info["gated"] or not info["rej"])
-                and not (cfg.fused_htr and (cfg.evec_dim or D) == D)):
+        if (info["gated"] or not info["rej"]) and not _fused_update(cfg):
             raise not_ported(f"edge_updates={cfg.edge_updates!r} without the "
                              "fused HTR update on the dense layout", 5)
         self.cfg = cfg

@@ -1,13 +1,15 @@
 """Representation + output head (``gotennet_tpu/models/model.py``),
 dense and ELL layouts, with forces by autograd through the positions.
 
-``GotenModel`` returns ``{'property': [G, n_out], 'contributions',
+``GotenModel`` returns ``{'property': [G, n_out], ...,
 'representation': [N, D], 'vector_representation': [N, L, D]}`` like the
-JAX model, with ``N = G*M`` node slots in the dense layout.  It is built on
-``cuda`` unless ``device`` says otherwise, from a seeded init or, through
-``load_state_dict``, from weights converted by
+JAX model, with ``N = G*M`` node slots in the dense layout; the head
+(Atomwise, Dipole or ElectronicSpatialExtent) sees that flat node set.
+It is built on ``cuda`` unless ``device`` says otherwise, from a seeded
+init or, through ``load_state_dict``, from weights converted by
 ``utils.convert.state_dict_from_jax_params``.  ``apply_with_forces`` adds
-``forces = -dE/dpos`` for a head with ``derivative``.
+``forces = -dE/dpos`` for a head with ``derivative``, differentiable when
+the caller trains on them.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from gotennet_tpu_torch.graph.ell_batch import ELLBatch
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
 from gotennet_tpu_torch.models.gotennet_dense import GotenNetDense
 from gotennet_tpu_torch.models.gotennet_ell import GotenNetELL
-from gotennet_tpu_torch.models.heads import Atomwise
+from gotennet_tpu_torch.models.heads import (Atomwise, Dipole,
+                                            ElectronicSpatialExtent)
 from gotennet_tpu_torch.nn.dense import Dense
 from gotennet_tpu_torch.utils.device import resolve_device
 
@@ -87,11 +90,6 @@ class GotenModel(nn.Module):
         if layout not in ("dense", "ell"):
             raise ValueError(f"unknown layout {layout!r}; choose dense or "
                              "ell")
-        if head.kind != "atomwise":
-            raise not_ported(f"head kind {head.kind!r}", 6)
-        if head.aggregation != "sum":
-            raise ValueError(f"aggregation {head.aggregation!r}: the port's "
-                             "Atomwise head sums per graph")
         device = resolve_device(device)
         # pos_grads=None follows the head: only force heads differentiate
         # positions (the JAX package resolves it the same way)
@@ -102,10 +100,8 @@ class GotenModel(nn.Module):
         self.layout = layout
         self.representation = (GotenNetDense(cfg) if layout == "dense"
                                else GotenNetELL(cfg))
-        self.output_modules = nn.ModuleList([Atomwise(
-            n_in=cfg.n_atom_basis, n_out=head.n_out, n_layers=head.n_layers,
-            n_hidden=head.n_hidden, activation=head.activation,
-            mean=head.mean, stddev=head.stddev, atomref=head.atomref)])
+        self.output_modules = nn.ModuleList([_build_head(cfg.n_atom_basis,
+                                                         head)])
         init_parameters_(self, torch.Generator().manual_seed(seed))
         self.to(device)
         # attention dropout's keep masks (training with attn_dropout > 0);
@@ -119,36 +115,64 @@ class GotenModel(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         h, X = self.representation(batch, self.dropout_generator)
         if self.layout == "dense":
+            # the flat [G*M] node set, as the JAX package's flatten_nodes
             G, M = h.shape[:2]
             h = h.reshape(G * M, -1)
             X = X.reshape(G * M, X.shape[2], X.shape[3])
             node_graph = torch.arange(G, device=h.device).repeat_interleave(M)
-            out = self.output_modules[0](batch.z.reshape(-1), h,
-                                         batch.mask.reshape(-1), node_graph,
-                                         G)
+            out = self.output_modules[0](
+                batch.z.reshape(-1), batch.pos.reshape(-1, 3), h, X,
+                batch.mask.reshape(-1), node_graph, G)
         else:
-            out = self.output_modules[0](batch.z, h, batch.node_mask,
-                                         batch.node_graph, batch.num_graphs)
+            out = self.output_modules[0](batch.z, batch.pos, h, X,
+                                         batch.node_mask, batch.node_graph,
+                                         batch.num_graphs)
         out["representation"] = h
         out["vector_representation"] = X
         return out
 
 
-def apply_with_forces(model: GotenModel, batch: DenseBatch | ELLBatch
+def _build_head(n_in: int, head: HeadConfig) -> nn.Module:
+    if head.kind == "atomwise":
+        return Atomwise(n_in=n_in, n_out=head.n_out, n_layers=head.n_layers,
+                        n_hidden=head.n_hidden, activation=head.activation,
+                        aggregation=head.aggregation, mean=head.mean,
+                        stddev=head.stddev, atomref=head.atomref)
+    if head.kind == "dipole":
+        return Dipole(n_in=n_in, n_hidden=head.n_hidden,
+                      activation=head.activation,
+                      predict_magnitude=head.predict_magnitude,
+                      mean=head.mean, stddev=head.stddev)
+    if head.kind == "electronic_spatial_extent":
+        return ElectronicSpatialExtent(n_in=n_in, n_layers=head.n_layers,
+                                       n_hidden=head.n_hidden,
+                                       activation=head.activation)
+    raise ValueError(f"unknown head kind {head.kind!r}")
+
+
+def apply_with_forces(model: GotenModel, batch: DenseBatch | ELLBatch,
+                      create_graph: Optional[bool] = None
                       ) -> Dict[str, torch.Tensor]:
     """Run the model and, when the head asks for derivatives, add
     ``forces = -dE/dpos`` (the sign flipped unless ``negative_dr`` is
     False), the gradient of ``property.sum()`` with respect to
     ``batch.pos`` alone, zero on padded atoms: ``[G, M, 3]`` on the dense
     layout, ``[N, 3]`` on the ELL one, as the JAX package's
-    ``apply_with_forces``.  The forces carry no graph: training on them
-    (a gradient of the gradient) is not ported."""
+    ``apply_with_forces``.  With ``create_graph`` the forces keep their
+    graph, so a loss of them can be differentiated (training on forces);
+    None means so in training (``model.training``, gradients enabled and a
+    parameter that requires one).  Serving and evaluation take the forces
+    without one, so a request's memory does not grow."""
     if not model.head.derivative:
         return model(batch)
+    if create_graph is None:
+        create_graph = (model.training and torch.is_grad_enabled()
+                        and any(p.requires_grad for p in model.parameters()))
     pos = batch.pos.detach().requires_grad_(True)
     with torch.enable_grad():
         out = model(dataclasses.replace(batch, pos=pos))
-        dy, = torch.autograd.grad(out["property"].sum(), pos)
+        dy, = torch.autograd.grad(out["property"].sum(), pos,
+                                  create_graph=create_graph)
     sign = -1.0 if model.head.negative_dr else 1.0
     out["forces"] = sign * dy * batch.node_mask[..., None].to(dy.dtype)
     return out

@@ -2,9 +2,9 @@
 (``gotennet_tpu/tasks/force_task.py``).
 
 The loss is the weighted sum ``rho_E * L(E) + rho_F * L(F)``, with the
-forces ``-dE/dpos`` from ``models.model.apply_with_forces``.  Serving and the
-loss's value are ported; training on the force loss is not (see
-``train.trainer.train_steps``).
+forces ``-dE/dpos`` from ``models.model.apply_with_forces``; training on it
+differentiates the forces, on the unfused paths (``fused=False``, see
+``train.trainer.check_force_training``).
 """
 
 from __future__ import annotations

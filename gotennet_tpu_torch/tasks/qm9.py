@@ -1,7 +1,6 @@
 """QM9 task (``gotennet_tpu/tasks/qm9.py``): 12 molecular targets in the
-PyG column order.  'mu' (Dipole) and 'r2' (ESE) build heads this package
-does not port yet (ROADMAP.md Queue 1, item 6); the model raises on
-them."""
+PyG column order.  'mu' builds the Dipole head (its magnitude), 'r2' the
+electronic-spatial-extent head, every other target the Atomwise head."""
 
 from __future__ import annotations
 

@@ -15,11 +15,14 @@ per-stage loss EMA (and ``use_ema_in_loss``'s gradient rescale), early
 stopping, ``ckpt_best`` / ``ckpt_last`` checkpoints and a full-state
 ``resume``; ``Trainer.evaluate`` gives the loss and the task's metrics,
 summed in float64.  One device only: ``data_parallel``, ``edge_parallel``
-and ``distributed`` raise (ROADMAP.md Queue 1, item 12).  A force loss (a
-head with ``derivative``) has a value here but does not train: it needs
-the gradient of the forces, a gradient of a gradient, which the fused
-kernels' backward does not give (the JAX package trains forces on its
-unfused message, ROADMAP.md Queue 1, item 2).
+and ``distributed`` raise (ROADMAP.md Queue 1, item 12).
+
+A force loss (a head with ``derivative``, ``MD17Task`` / ``MD22Task``)
+trains through the gradient of the forces, a gradient of a gradient.  The
+unfused paths give it (plain tensor ops, ``fused=False``); the fused
+kernels' backward is differentiable once only, as the JAX package's Pallas
+VJP is, so a force head on a path that would launch a fused kernel raises
+``ValueError`` before its first step (``check_force_training``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
+from gotennet_tpu_torch.models.gotennet_ell import fused_paths
 from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
                                              apply_with_forces)
 from gotennet_tpu_torch.tasks.base import Task
@@ -48,17 +52,20 @@ from gotennet_tpu_torch.train.optim import (PlateauState, clip_by_global_norm,
                                             warmup_scale)
 
 __all__ = ["make_loss_fn", "make_chunks", "accum_grads", "train_step",
-           "train_steps", "TrainerConfig", "Trainer"]
+           "train_steps", "check_force_training", "TrainerConfig", "Trainer"]
 
 
 def make_loss_fn(model: GotenModel, task: Task) -> Callable:
     """``loss_fn(batch) -> (total, logs, out)``: the weighted sum of the
     task's losses on one batch, the model run through
-    ``apply_with_forces`` (so a force task's loss has its force term)."""
+    ``apply_with_forces`` (so a force task's loss has its force term, and
+    its forces keep their graph where gradients are enabled: the loss is
+    then differentiated)."""
     specs = task.get_losses()
 
     def loss_fn(batch: DenseBatch | ELLBatch):
-        out = apply_with_forces(model, batch)
+        out = apply_with_forces(model, batch,
+                                create_graph=torch.is_grad_enabled())
         targets = task.get_targets(batch)
         total = torch.zeros((), dtype=torch.float32, device=batch.z.device)
         logs = {}
@@ -73,11 +80,29 @@ def make_loss_fn(model: GotenModel, task: Task) -> Callable:
     return loss_fn
 
 
-def _refuse_force_training(head: HeadConfig) -> None:
-    if head.derivative:
-        raise not_ported("training on forces (a head with derivative=True: "
-                         "the gradient of the forces, through the unfused "
-                         "message)", 2)
+def check_force_training(cfg: GotenNetConfig, head: HeadConfig,
+                         layout: str, chunks: Sequence = ()) -> None:
+    """Raise ``ValueError`` where a force loss (``head.derivative``) would
+    train through a fused kernel: the dense layout with ``fused``, or an ELL
+    chunk for which ``fused_paths`` picks the fused message or update.  The
+    kernels' backward is differentiable once only (``once_differentiable``),
+    as the JAX package's Pallas VJP is: its ``jax.value_and_grad`` of a force
+    loss fails there too, which is why its force experiments leave ``fused``
+    at False."""
+    if not head.derivative:
+        return
+    if layout == "dense":
+        fused = cfg.fused
+    else:
+        fused = any(any(fused_paths(cfg, b.nbr.shape[0], b.nbr.shape[0],
+                                    b.gather_halo)) for b in chunks)
+    if fused:
+        raise ValueError(
+            f"training on forces (a head with derivative=True) through the "
+            f"fused kernels on the {layout} layout: their backward is "
+            "differentiable once only, and the force loss needs the "
+            "gradient of the forces; set fused=False (the unfused message "
+            "and update)")
 
 
 def make_chunks(molecules: Sequence[dict], chunk: int,
@@ -93,12 +118,15 @@ def make_chunks(molecules: Sequence[dict], chunk: int,
     batch's largest molecule (rounded up to a multiple of 8).  ELL
     (``bench.py``'s large mode): in order, atoms spatially sorted, 64-row
     gather windows, every chunk at the batch's node and neighbour capacity,
-    as ``Predictor(layout="ell")`` cuts a request."""
+    as ``Predictor(layout="ell")`` cuts a request.  Molecules that all
+    carry force targets (``dy``) give chunks that carry them."""
     ds = MoleculeDataset(
         z=[np.asarray(m["z"], np.int32) for m in molecules],
         pos=[np.asarray(m["pos"], np.float32) for m in molecules],
         y=np.asarray([np.asarray(m["y"], np.float32).reshape(-1)
-                      for m in molecules]))
+                      for m in molecules]),
+        dy=([np.asarray(m["dy"], np.float32) for m in molecules]
+            if all("dy" in m for m in molecules) else None))
     if layout == "ell":
         loader = ELLLoader(ds, batch_size=chunk, cutoff=cutoff,
                            max_num_neighbors=max_num_neighbors,
@@ -116,8 +144,9 @@ def accum_grads(model: GotenModel, loss_fn: Callable,
     without a real graph add zero and are left out of the divisor, as in
     the JAX package's ``_accum_grads``.  Returns the mean loss (a tensor
     on the model's device); ``logs``, when given, receives the per-loss
-    values of a single chunk.  A head with ``derivative`` raises."""
-    _refuse_force_training(model.head)
+    values of a single chunk.  A force head on a fused path raises before
+    any forward (``check_force_training``)."""
+    check_force_training(model.cfg, model.head, model.layout, chunks)
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         p.grad = None
@@ -169,22 +198,27 @@ def train_steps(cfg: GotenNetConfig, head: HeadConfig,
                 lr: float = 1e-4, seed: int = 0,
                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
                 device: Optional[str | torch.device] = None,
-                bucket: bool = True, layout: str = "dense") -> List[float]:
+                bucket: bool = True, layout: str = "dense",
+                task: Optional[Task] = None) -> List[float]:
     """Train a model from a seeded init (or ``state_dict``) for
     ``n_steps`` steps on one batch of ``molecules`` (dicts with ``z``,
     ``pos`` and ``y``), cut into ``chunk``-graph accumulation chunks
     (see ``make_chunks``; ``bucket`` applies to the dense layout), with
     AdamW(lr, eps=1e-7, no weight decay) after a global-norm clip at 5.0.
     ``layout`` is "dense" or "ell".  ``device=None`` means ``cuda``.
-    Returns the loss of each step.  A head with ``derivative`` raises."""
-    _refuse_force_training(head)
+    Returns the loss of each step.  ``task`` gives the loss (None: the
+    base task's L1 loss on the property); a force task's molecules carry
+    ``dy``, and a force head on a fused path raises before the first
+    step."""
+    check_force_training(cfg, head, layout)
     model = GotenModel(cfg, head, layout, seed=seed, device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     chunks = make_chunks(molecules, chunk, next(model.parameters()).device,
                          bucket, layout, cfg.cutoff, cfg.max_num_neighbors)
+    check_force_training(cfg, head, layout, chunks)
     optimizer = make_optimizer(model.parameters(), lr)
-    loss_fn = make_loss_fn(model, Task(None))
+    loss_fn = make_loss_fn(model, task or Task(None))
     return [train_step(model, optimizer, chunks, optimizer.grad_clip,
                        loss_fn=loss_fn) for _ in range(n_steps)]
 
@@ -328,6 +362,9 @@ class Trainer:
         from gotennet_tpu_torch.train.checkpoint import (load_checkpoint,
                                                          load_train_state)
         cfg, model = self.cfg, self.model
+        # a force loss on the dense fused path raises before anything runs
+        # (an ELL batch's path is checked as its step starts)
+        check_force_training(model.cfg, model.head, model.layout)
         model.load_state_dict(state_dict)
         optimizer = make_optimizer(model.parameters(), cfg.lr,
                                    cfg.weight_decay, cfg.grad_clip)

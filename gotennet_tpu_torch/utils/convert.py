@@ -7,10 +7,13 @@ dict, whose keys are the reference checkpoint's
 transposed from JAX's ``[in, out]`` to torch's ``[out, in]``.  The
 mapping is a local copy of ``_mapping`` / ``head_mapping`` in
 ``gotennet_tpu/utils/torch_convert.py``, restricted to the options this
-package ports; the head's mean, stddev and atomref come from the
-``HeadConfig``.  ``jax_params_from_state_dict`` is its inverse: a state
-dict back to the JAX package's parameter tree (``{'params': {...}}`` of
-numpy arrays), which is what a checkpoint of either package stores.
+package ports; the head's mean, stddev and atomref (Atomwise) and mass
+table (ESE) come from the ``HeadConfig``.  ``jax_params_from_state_dict``
+is its inverse: a state dict back to the JAX package's parameter tree
+(``{'params': {...}}`` of numpy arrays), which is what a checkpoint of
+either package stores; the head it maps is the one
+``head_config_from_state_dict`` reads off the state dict's keys and
+shapes.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ import numpy as np
 import torch
 
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+from gotennet_tpu_torch.models.heads import ATOMIC_MASSES
 from gotennet_tpu_torch.models.model import HeadConfig
 
-__all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict"]
+__all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict",
+           "head_config_from_state_dict"]
 
 Entry = Tuple[str, tuple, bool]   # (torch key, flax path, transpose)
 
@@ -90,12 +95,71 @@ def _get(tree, path):
     return tree
 
 
-def _head_entries(n_layers: int) -> List[Entry]:
-    out = []
+_HEAD = "output_modules.0."
+
+
+def _head_entries(kind: str, n_layers: int) -> List[Entry]:
+    """The head's entries (torch keys with their prefix, flax paths from
+    the model tree): the Atomwise and ESE MLP, or the Dipole's two gated
+    blocks."""
+    out: List[Entry] = []
+    if kind == "dipole":
+        for k in range(2):
+            g, j = f"{_HEAD}equivariant_layers.{k}", ("head", f"eq_{k}")
+            out += _dense(f"{g}.mix_vectors", j + ("mix_vectors",),
+                          bias=False)
+            out += _dense(f"{g}.scalar_net.0", j + ("scalar_net_0",))
+            out += _dense(f"{g}.scalar_net.1", j + ("scalar_net_1",))
+        return out
+    if kind not in ("atomwise", "electronic_spatial_extent"):
+        raise ValueError(f"unknown head kind {kind!r}")
     for i in range(n_layers):
-        out += _dense(f"output_modules.0.out_net.1.out_net.{i}",
+        out += _dense(f"{_HEAD}out_net.1.out_net.{i}",
                       ("head", "out_net", f"dense_{i}"))
     return out
+
+
+def head_config_from_state_dict(state_dict: Dict) -> HeadConfig:
+    """The ``HeadConfig`` a state dict's head was built with, as far as its
+    keys and shapes tell (the JAX package's ``head_config_from_state_dict``):
+    the kind from its parameters (the Dipole's ``equivariant_layers``, the
+    ESE's ``atomic_mass``), the MLP's depth and widths, the Atomwise
+    standardisation and atomref; activations as the QM9 task wires them
+    (silu, shifted softplus for the ESE)."""
+    pre = _HEAD
+    key = f"{pre}equivariant_layers.0.mix_vectors.weight"
+    if key in state_dict:
+        return HeadConfig(kind="dipole",
+                          n_hidden=int(state_dict[key].shape[0]) // 2,
+                          activation="silu")
+    kind = ("electronic_spatial_extent" if f"{pre}atomic_mass" in state_dict
+            else "atomwise")
+    widths = []
+    while f"{pre}out_net.1.out_net.{len(widths)}.weight" in state_dict:
+        widths.append(int(state_dict[
+            f"{pre}out_net.1.out_net.{len(widths)}.weight"].shape[0]))
+    if not widths:
+        raise ValueError("the state dict has no recognisable output head")
+    n_in = int(state_dict[f"{pre}out_net.1.out_net.0.weight"].shape[1])
+    # pyramidal (n_hidden=None) where each hidden width halves the input
+    pyramidal = all(w == n_in // 2 ** (j + 1)
+                    for j, w in enumerate(widths[:-1]))
+    hidden = None if pyramidal else tuple(widths[:-1])
+
+    def scalar(name, default):
+        t = state_dict.get(f"{pre}{name}")
+        return default if t is None else float(np.asarray(
+            t.detach().cpu() if isinstance(t, torch.Tensor) else t)[0])
+
+    atomref = state_dict.get(f"{pre}atomref.weight")
+    if isinstance(atomref, torch.Tensor):
+        atomref = atomref.detach().cpu().numpy()
+    return HeadConfig(
+        kind=kind, n_out=widths[-1], n_layers=len(widths), n_hidden=hidden,
+        mean=scalar("standardize.mean", 0.0),
+        stddev=scalar("standardize.stddev", 1.0),
+        atomref=None if atomref is None else np.asarray(atomref, np.float32),
+        activation="silu" if kind == "atomwise" else "ssp")
 
 
 def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
@@ -112,15 +176,19 @@ def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
 
     for key, path, tr in _mapping(cfg):
         put("representation." + key, _get(tree["representation"], path), tr)
-    pre = "output_modules.0."
-    for key, path, tr in _head_entries(len(tree["head"]["out_net"])):
+    head_tree = tree["head"]
+    n_layers = len(head_tree["out_net"]) if "out_net" in head_tree else 0
+    for key, path, tr in _head_entries(head.kind, n_layers):
         put(key, _get(tree, path), tr)
-    put(f"{pre}standardize.mean", [head.mean], False)
-    put(f"{pre}standardize.stddev", [head.stddev], False)
-    if head.atomref is not None:
-        table = np.asarray(head.atomref, np.float32)
-        put(f"{pre}atomref.weight", table[:, None] if table.ndim == 1
-            else table, False)
+    if head.kind == "atomwise":
+        put(f"{_HEAD}standardize.mean", [head.mean], False)
+        put(f"{_HEAD}standardize.stddev", [head.stddev], False)
+        if head.atomref is not None:
+            table = np.asarray(head.atomref, np.float32)
+            put(f"{_HEAD}atomref.weight", table[:, None] if table.ndim == 1
+                else table, False)
+    elif head.kind == "electronic_spatial_extent":
+        put(f"{_HEAD}atomic_mass", ATOMIC_MASSES, False)
     return out
 
 
@@ -129,7 +197,8 @@ def jax_params_from_state_dict(state_dict: Dict[str, torch.Tensor],
     """This package's ``GotenModel`` state dict -> the JAX package's
     parameter tree ``{'params': {'representation': ..., 'head': ...}}`` of
     float32 numpy arrays (kernels transposed back to ``[in, out]``).  The
-    head's buffers (mean, stddev, atomref) are not parameters there."""
+    head's buffers (mean, stddev, atomref, the mass table) are not
+    parameters there."""
     tree: Dict = {}
 
     def put(path, key, transpose):
@@ -141,8 +210,7 @@ def jax_params_from_state_dict(state_dict: Dict[str, torch.Tensor],
 
     for key, path, tr in _mapping(cfg):
         put(("representation",) + path, "representation." + key, tr)
-    n_head = len({k.split(".")[5] for k in state_dict
-                  if k.startswith("output_modules.0.out_net.1.out_net.")})
-    for key, path, tr in _head_entries(n_head):
+    head = head_config_from_state_dict(state_dict)
+    for key, path, tr in _head_entries(head.kind, head.n_layers):
         put(path, key, tr)
     return {"params": tree}

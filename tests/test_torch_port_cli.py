@@ -123,13 +123,44 @@ def test_composed_config_and_model_config_match_jax(experiment, monkeypatch):
     assert got == want
 
 
+def test_md22_atat_composes_the_force_recipe(monkeypatch):
+    """``experiment=md22_atat`` composes to JAX's config and builds the
+    force recipe: dense layout, ``fused`` absent (False, as JAX's default),
+    bf16 pairs, MSE at energy 0.05 / force 0.95, standardised energies, an
+    MD22 force head."""
+    from gotennet_tpu_torch.tasks import TASK_DICT
+    monkeypatch.setenv("DATA_DIR", "/data/here")
+    cfg = load_config(cli.CONFIG_DIR, "train.yaml", ["experiment=md22_atat"])
+    assert cfg == j_load_config(jcli.CONFIG_DIR, "train.yaml",
+                                ["experiment=md22_atat"])
+    mc, dm = cfg["model"], cfg["datamodule"]
+    assert (cfg["task"], cfg["label"]) == ("MD22", "AT-AT-CG-CG")
+    assert mc["layout"] == "dense" and "fused" not in mc["representation"]
+    gcfg = cli.model_config(cfg)
+    assert not gcfg.fused and gcfg.pair_dtype == torch.bfloat16
+    assert (gcfg.n_atom_basis, gcfg.n_interactions, gcfg.n_rbf) == (256, 4,
+                                                                    64)
+    assert mc["task_loss"] == "MSELoss" and mc["task_config"] == {
+        "energy_weight": 0.05, "force_weight": 0.95}
+    assert dm["dataset"] == "MD22" and dm["standardize"] is True
+    assert dm["dataset_root"] == "/data/here/md22"
+    task = TASK_DICT[cfg["task"]](cfg["label"], {"mean": 0.0, "std": 1.0},
+                                  {"task_loss": mc["task_loss"],
+                                   **mc["task_config"]})
+    assert task.build_head().derivative
+    assert [(s["name"], s["loss_weight"]) for s in task.get_losses()] == [
+        ("energy_MSELoss", 0.05), ("force_MSELoss", 0.95)]
+
+
 @pytest.mark.parametrize("argv,item", [
     (["train", "experiment=smoke"], 10),          # layout absent: "edge"
     (["train", "experiment=qm9_u0", "datamodule.dataset=synthetic"], 10),
     (["train", "experiment=qm9_u0", "datamodule.dataset=synthetic",
-      "model.layout=dense"], 2),                  # fused absent: False
-    (["train", "experiment=md17_aspirin"], 4),
-    (["train", "experiment=md22_atat"], 4),
+      "model.layout=dense", "model.representation.edge_updates=gated"],
+     5),                                          # fused absent: False
+    (["train", "experiment=md17_aspirin", "datamodule.dataset=synthetic"],
+     10),                                         # layout: "edge"
+    (["train", "experiment=md22_atat", "datamodule.dataset=Molecule3D"], 4),
     (["train", "experiment=molecule3d"], 4),
     (["train", "experiment=smoke", "model.layout=ell",
       "trainer.data_parallel=2"], 12),

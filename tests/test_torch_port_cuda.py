@@ -838,3 +838,44 @@ def test_trainer_fit_epoch_with_dropout_on_card(card, tmp_path, layout):
         workdir=str(tmp_path / "cpu"))).evaluate(state, val)
     for key, value in cpu.items():
         assert abs(on_card[key] - value) <= 1e-4 * max(abs(value), 1.0), key
+
+
+@pytest.mark.parametrize("layout", ["dense", "ell"])
+def test_force_training_step_on_card_matches_cpu(card, layout):
+    """One MD22Task step (energy 0.05, force 0.95, MSE; the gradient of the
+    forces) on the unfused paths, fused=False, card against CPU from the
+    same weights: no kernel launches, the loss and every parameter's
+    gradient within 1e-4 of its scale (float32, sums in another order)."""
+    from gotennet_tpu_torch.data.dataset import DenseLoader, ELLLoader
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.ops import fused_ell
+    from gotennet_tpu_torch.tasks.force_task import MD22Task
+    from gotennet_tpu_torch.train.trainer import accum_grads, make_loss_fn
+
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, fused=False)
+    task = MD22Task("x", {"mean": 0.0, "std": 1.0},
+                    {"task_loss": "MSELoss"})
+    ds = synthetic_molecules(4, seed=5, min_atoms=20, max_atoms=40,
+                             box=5.0, with_forces=True)
+    loader = (DenseLoader(ds, 2) if layout == "dense" else ELLLoader(ds, 2))
+    grads, losses = [], []
+    counters = (fused_gata_forward, fused_gata_backward,
+                fused_ell.fused_ell_forward, fused_ell.fused_ell_backward)
+    before = [c.launches for c in counters]
+    for device in ("cuda", "cpu"):
+        model = GotenModel(cfg, task.build_head(), layout, seed=4,
+                           device=device)
+        model.train()
+        chunks = [b.to(device) for b in loader]
+        losses.append(float(accum_grads(model, make_loss_fn(model, task),
+                                        chunks)))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert [c.launches for c in counters] == before
+    assert math.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for name, want in grads[1].items():
+        got = grads[0][name]
+        assert torch.isfinite(got).all(), name
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * max(want.abs().max().item(), 1e-30), name

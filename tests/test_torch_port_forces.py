@@ -461,18 +461,20 @@ def test_position_gradient_with_pos_grads_false_raises():
 
 
 def test_force_training_and_energy_heads_raise():
-    """Training on a force loss waits for the unfused message (item 2);
+    """Training on a force loss through the fused kernels raises a
+    ValueError naming fused=False (their backward is differentiable once;
+    tests/test_torch_port_force_train.py trains with fused=False);
     predict_with_forces needs a derivative head."""
     mols = synthetic_molecules(2, seed=0, with_forces=True,
                                **SMALL_MOLS).graph_dicts(range(2))
     head = MD22Task("energy", META).build_head()
     cfg = GotenNetConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="fused=False"):
         train_steps(cfg, head, mols, 1, device="cpu")
     model = GotenModel(cfg, head, device="cpu")
     batch = next(iter(DenseLoader(synthetic_molecules(
         2, seed=0, with_forces=True, **SMALL_MOLS), 2)))
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="fused=False"):
         accum_grads(model, make_loss_fn(model, MD22Task("energy", META)),
                     [batch])
     with pytest.raises(ValueError, match="derivative"):

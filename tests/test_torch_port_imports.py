@@ -25,6 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(gotennet_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+print(" ".join(names))
 print(len(names))
 """ % (BLOCKED,)
 
@@ -34,8 +35,12 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # ops, nn, graph, data, models, tasks, train, utils and their modules,
-    # the command line among them
-    assert int(out.stdout.split()[-1]) >= 40
+    # the command line, the heads and the MD readers among them
+    assert int(out.stdout.split()[-1]) >= 41
+    names = set(out.stdout.split())
+    for module in ("cli", "data.md17", "models.heads", "utils.convert",
+                   "train.trainer"):
+        assert f"gotennet_tpu_torch.{module}" in names, module
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

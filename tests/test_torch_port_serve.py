@@ -69,16 +69,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         GotenModel(CFG, HEAD, device="cuda")
 
 
-# the unfused message, other aggregations and the update's gates run on the
-# ELL layout; the dense model refuses them (items 2 and 5), the config the
-# rest
+# the update's gates and norej run on both ELL update paths; the dense model
+# takes them only with the fused HTR update, and refuses them on its plain
+# update (item 5), with the fused message or the unfused one; the config
+# refuses the rest
 @pytest.mark.parametrize("kw,item", [
-    (dict(fused=False), "item 2"), (dict(fused=False, aggr="mean"), "item 2"),
+    (dict(fused=False, edge_updates="gated"), "item 5"),
+    (dict(fused=False, aggr="mean", edge_updates="norej"), "item 5"),
     (dict(layernorm="pre"), "item 3"), (dict(steerable_norm="pre"), "item 3"),
     (dict(trainable_rbf=True), "item 3"), (dict(edge_updates="gated"),
                                            "item 5"),
     (dict(edge_updates=False), "item 5"),
-    (dict(fused=False, aggr="max"), "item 2"),
+    (dict(fused=False, fused_htr=True, edge_updates="gatedt"), "item 5"),
     (dict(scan_layers=True), "item 13"), (dict(edge_ln="layer"), "item 5"),
     (dict(edge_updates="mlp"), "item 5")])
 def test_unported_options_raise(kw, item):
@@ -103,8 +105,14 @@ def test_unported_layouts_heads_and_training_dropout_raise():
                                max_atoms=9).graph_dicts(range(2))
     with pytest.raises(NotImplementedError, match="item 10"):
         train_steps(CFG, HEAD, mols, 1, device="cpu", layout="edge")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        GotenModel(CFG, HeadConfig(kind="dipole"), device="cpu")
+    # the Dipole and ESE heads are ported (item 6): they build and answer
+    for kind in ("dipole", "electronic_spatial_extent"):
+        model = GotenModel(CFG, HeadConfig(kind=kind), device="cpu")
+        with torch.no_grad():
+            out = model(collate_dense([{"z": [6, 1], "pos": [[0, 0, 0],
+                                                             [1, 0, 0]]}],
+                                      1, 8))["property"]
+        assert out.shape == (1, 1) and torch.isfinite(out).all()
     cfg = GotenNetConfig(n_atom_basis=32, n_interactions=1, num_heads=4,
                          n_rbf=8, attn_dropout=0.1)
     model = GotenModel(cfg, HEAD, device="cpu")
