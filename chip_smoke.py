@@ -196,7 +196,34 @@ Phases, in order; any failure exits non-zero before the result line:
      card against the same step on the CPU (the same weights, batch and
      dropout masks) within ``TOL_TRAIN``, then ``cli test`` against the run
      within 1e-5; epoch seconds, optimizer steps/s, frames/s, a step's time,
-     busy share and peak memory, evaluation and checkpoint times.
+     busy share and peak memory, evaluation and checkpoint times;
+ 31. the edge-list layout (no kernel): the flagship model in float32
+     answers phase 4's 256 molecules through ``Predictor(layout="edge")``
+     in 8-graph chunks, held against the dense layout's plain float32 model
+     at one state dict within ``TOL_EDGE`` and against the CPU within
+     ``TOL_F32``; one step of ``train_steps(layout="edge")`` on 256
+     molecules in 16-graph chunks; the request and a step timed, profiled
+     and their peak memory;
+ 32. ``cli train`` / ``cli test`` of ``experiment=qm9_u0`` as the yaml sets
+     it (edge layout, batch 32, MSE, warm-up and plateau) on phase 26's
+     synthetic molecules for one epoch, and of ``experiment=smoke`` as it
+     is: no kernel launch, finite losses, ``cli test`` against the run
+     within 1e-5, epoch seconds, optimizer steps/s, molecules/s and
+     evaluation seconds;
+ 33. ``cli train`` / ``cli test`` of ``experiment=md17_aspirin`` as the
+     yaml sets it (edge layout, batch 16, MSE energy 0.05 / force 0.95,
+     standardised) on an rMD17 NPZ of 1,100 synthetic 21-atom frames the
+     script writes under ``build/`` (950 / 50 / 100), one epoch: the first
+     force step on the card against the CPU within ``TOL_TRAIN``, a step's
+     time, busy share and peak memory;
+ 34. every remaining option (``layernorm``, ``steerable_norm``,
+     ``trainable_rbf``, ``edge_updates="gated_mlpa_linwa_postln"``,
+     ``edge_ln="layer"``, ``evec_dim=128``) on phase 10's 32 frames on the
+     edge, dense and ELL layouts at one state dict: the dense (the fused
+     message: row 1) and ELL (row 5) energies within ``TOL_OPTIONS`` of the
+     edge layout's, 32 launches each and nothing else, each request timed
+     and profiled, rows 1 and 5 held against their plain versions and
+     timed on these inputs.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -2383,6 +2410,391 @@ def new_phases(card, phase_done, md22_cfg) -> list:
     return records
 
 
+# ---- phases 31-34: the edge-list layout and the remaining model options ----
+# phase 33: md17_aspirin as its yaml sets it, on an rMD17 NPZ of 1,100
+# synthetic frames of one 21-atom topology (950 / 50 / 100), one epoch
+MD17_CLI_FRAMES, MD17_CLI_ATOMS = 1100, 21
+# phase 31: the edge layout against the dense layout's plain float32 model
+# at one state dict: the same nearest-32 graph, f32 sums in another order
+# (and segment sums by atomics on the card) -> 1e-4 of the scale
+TOL_EDGE = 1e-4
+# phase 34: every remaining option on three layouts at one state dict; the
+# dense and ELL runs round their pair tensors to bf16, the edge one does not
+TOL_OPTIONS = 1e-2
+
+
+def peak_gib(run) -> float:
+    """Peak device memory (GiB, torch.cuda.max_memory_allocated) of one
+    ``run()``, counted from what the process held before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def no_launches(what) -> None:
+    """Fail unless every kernel counter reads 0 (the edge layout and the
+    plain paths launch no kernel)."""
+    got = [c.launches for c in kernel_counters()]
+    log(f"[{what}] kernel launches {got} (none expected)")
+    if any(got):
+        raise AssertionError(f"{what} launched a kernel: {got}")
+
+
+def reset_counters() -> None:
+    for c in kernel_counters():
+        c.launches = 0
+
+
+def edge_flagship():
+    """Phase 31's model: the flagship width in float32, the edge layout
+    (which has no pair type), and the QM9 U0 head."""
+    from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+    cfg = GotenNetConfig(n_atom_basis=D, n_interactions=N_LAYERS, lmax=LMAX,
+                         n_rbf=64, num_heads=H, remat=False)
+    return cfg, QM9Task("U0", dataset_meta={"mean": 0.0,
+                                            "std": 1.0}).build_head()
+
+
+def edge_serve_phase(card) -> None:
+    """Phase 31, serving: phase 4's 256 molecules through
+    ``Predictor(layout="edge")`` in 8-graph chunks (no kernel launch);
+    against the dense layout's plain float32 model at one state dict within
+    TOL_EDGE, and against the CPU within TOL_F32; latency, busy share, real
+    edges/s, device ops a request and peak memory."""
+    from gotennet_tpu_torch.data.dataset import (MoleculeDataset,
+                                                 synthetic_molecules)
+    from gotennet_tpu_torch.serve import Predictor
+
+    cfg, head = edge_flagship()
+    ds = synthetic_molecules(sum(REQUESTS), seed=0, min_atoms=12,
+                             max_atoms=29)
+    mols = ds.graph_dicts(range(len(ds)))[-REQUESTS[-1]:]
+    pred = Predictor(cfg, head, seed=0, chunk=CHUNK, layout="edge")
+    reset_counters()
+    got = pred.predict(mols)
+    torch.cuda.synchronize()
+    no_launches("edge request")
+    state = pred.model.state_dict()
+    dense = Predictor(dataclasses.replace(cfg, fused=False), head, state,
+                      chunk=CHUNK)
+    for what, want in (("dense plain float32 model",
+                        dense.predict(mols)),
+                       ("CPU", Predictor(cfg, head, state, chunk=CHUNK,
+                                         layout="edge",
+                                         device="cpu").predict(mols))):
+        tol = TOL_EDGE if what.startswith("dense") else TOL_F32
+        err, rel = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+        log(f"[edge request] {len(mols)} energies vs the {what}: max abs err "
+            f"{err:.4e} (rel {rel:.3e}, tol {tol:g})")
+        if (got.shape != (len(mols), 1) or rel > tol
+                or not torch.isfinite(torch.from_numpy(got)).all()):
+            raise AssertionError(f"edge energies disagree with the {what}")
+    chunks = [b for _, b in pred.loader(MoleculeDataset(
+        z=[m["z"] for m in mols], pos=[m["pos"] for m in mols])).batches()]
+    real = sum(int(b.edge_mask.sum()) for b in chunks)
+    slots = sum(b.num_edges for b in chunks)
+    req_ms, host_ms, _ = time_run(lambda: pred.predict(mols), 2, 5)
+    log(f"[time] 256-molecule edge request: {req_ms:.3f} ms (CUDA events), "
+        f"{host_ms:.3f} ms (host clock); real edges {real} (self-loops "
+        f"included) in {slots} edge slots; {real / (req_ms / 1e3):.1f} real "
+        f"edges/s | {card}")
+    profile(lambda: pred.predict(mols), req_ms, "256-molecule edge request",
+            card)
+    log(f"[edge request] peak memory {peak_gib(lambda: pred.predict(mols)):.3f}"
+        f" GiB (torch.cuda.max_memory_allocated) | {card}")
+
+
+def edge_train_phase(card) -> None:
+    """Phase 31, training: one step of ``train_steps(layout="edge")`` on 256
+    molecules in 16-graph chunks (no kernel launch), then a step timed,
+    profiled and its peak memory."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (make_chunks, make_loss_fn,
+                                                  train_step, train_steps)
+
+    cfg, head = edge_flagship()
+    mols = synthetic_molecules(TRAIN_MOLS, seed=1, min_atoms=12,
+                               max_atoms=29).graph_dicts(range(TRAIN_MOLS))
+    reset_counters()
+    losses = train_steps(cfg, head, mols, 1, chunk=TRAIN_CHUNK, lr=LR, seed=0,
+                         layout="edge")
+    torch.cuda.synchronize()
+    log(f"[edge step] one step on {TRAIN_MOLS} molecules in {TRAIN_CHUNK}-"
+        f"graph chunks: loss {losses[0]:.6f}")
+    no_launches("edge step")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("edge training loss is not finite")
+    model = GotenModel(cfg, head, "edge", seed=0)
+    chunks = make_chunks(mols, TRAIN_CHUNK, "cuda", layout="edge")
+    opt = make_optimizer(model.parameters(), LR)
+    loss_fn = make_loss_fn(model, Task(None))
+
+    def step():
+        return train_step(model, opt, chunks, opt.grad_clip, loss_fn=loss_fn)
+
+    step_ms, host_ms, step_losses = time_run(step, 2, 3)
+    if not all(math.isfinite(x) for x in step_losses):
+        raise AssertionError("edge training loss is not finite")
+    real = sum(int(b.edge_mask.sum()) for b in chunks)
+    log(f"[time] edge training step: {step_ms:.3f} ms (CUDA events), "
+        f"{host_ms:.3f} ms (host clock); real edges {real}; "
+        f"{real / (step_ms / 1e3):.1f} real edges/s; losses "
+        f"{[round(x, 6) for x in step_losses]} | {card}")
+    profile(step, step_ms, "edge training step", card)
+    log(f"[edge step] peak memory {peak_gib(step):.3f} GiB "
+        f"(torch.cuda.max_memory_allocated) | {card}")
+
+
+def edge_cli_run(card, what, overrides, n_train, steps_per_epoch) -> tuple:
+    """``cli train`` with ``overrides`` on the edge layout (no kernel
+    launch), every loss finite, the files written; the epochs' seconds,
+    optimizer steps/s, molecules/s and evaluation seconds; then ``cli test``
+    of ``ckpt_best`` against the run within TOL_CLI_TEST.  Returns the run's
+    directory and the loaded config."""
+    from gotennet_tpu_torch import cli
+    from gotennet_tpu_torch.utils.config import load_config
+
+    root = CLI_DIR / what.replace(" ", "_")
+    shutil.rmtree(root, ignore_errors=True)
+    run = root / "run"
+    reset_counters()
+    with trainer_timings() as times:
+        t0 = time.perf_counter()
+        cli.main(["train", *overrides, f"workdir={run}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"[{what}] cli train: {wall:.2f} s on the wall")
+    no_launches(what)
+    meta = json.loads((run / "ckpt_best" / "meta.json").read_text())
+    if meta["layout"] != "edge":
+        raise AssertionError(f"{what} trained on the {meta['layout']} layout")
+    for name in ("ckpt_best", "ckpt_last", "splits.npz", "metrics.jsonl",
+                 "test_results.json"):
+        if not (run / name).exists():
+            raise AssertionError(f"{what}: {name} was not written")
+    recs = read_jsonl(run / "metrics.jsonl")
+    steps = [r for r in recs if r["phase"] == "train"]
+    epochs = [r for r in recs if r["phase"] == "val_epoch"]
+    numbers = [r["loss"] for r in steps] + [
+        r[k] for r in epochs for k in ("val_loss", "train_loss")]
+    log(f"[{what}] {len(steps)} optimizer steps, losses "
+        f"{[round(r['loss'], 6) for r in steps][:8]}...")
+    if not steps or not all(math.isfinite(x) for x in numbers):
+        raise AssertionError(f"{what}: a loss is not finite")
+    vals = [s for p, s in times["evaluate"] if p == "validation"]
+    for rec, val_s in zip(epochs, vals):
+        train_s = rec["epoch_time_s"] - val_s
+        log(f"[time] {what} epoch {rec['epoch']}: {rec['epoch_time_s']:.3f}"
+            f" s, of which training {train_s:.3f} s ("
+            f"{steps_per_epoch / train_s:.3f} optimizer steps/s, "
+            f"{n_train / train_s:.1f} training molecules/s) and validation "
+            f"{val_s:.3f} s | {card}")
+    test_s = [s for p, s in times["evaluate"] if p == "test"]
+    log(f"[time] {what}: test evaluation pass {test_s[0]:.3f} s, checkpoint "
+        f"writes {[round(s, 3) for s in times['save']]} s | {card}")
+    with trainer_timings() as times:
+        cli.main(["test", f"checkpoint={run / 'ckpt_best'}", *overrides,
+                  f"workdir={root / 'test'}"])
+    log(f"[time] {what}: cli test evaluation pass "
+        f"{times['evaluate'][0][1]:.3f} s | {card}")
+    hold_results(f"{what} cli test",
+                 json.loads((root / "test" / "test_results.json").read_text()),
+                 json.loads((run / "test_results.json").read_text()),
+                 TOL_CLI_TEST)
+    return run, load_config(cli.CONFIG_DIR, "train.yaml",
+                            [*overrides, f"workdir={root / 'again'}"])
+
+
+def write_md17_npz(root) -> pathlib.Path:
+    """An rMD17-format ``rmd17_aspirin.npz`` of MD17_CLI_FRAMES frames of one
+    MD17_CLI_ATOMS-atom topology (a QM9-like spread), with the synthetic
+    pair-potential energies and forces."""
+    import numpy as np
+    from gotennet_tpu_torch.data.dataset import synthetic_trajectory
+    t = synthetic_trajectory(MD17_CLI_FRAMES, MD17_CLI_ATOMS, seed=0,
+                             box=4.0)
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / "rmd17_aspirin.npz"
+    np.savez(path, nuclear_charges=t.z[0], coords=np.stack(t.pos),
+             energies=t.y[:, 0].astype(np.float64), forces=np.stack(t.dy))
+    return path
+
+
+def md17_cli_phase(card) -> None:
+    """Phase 33: ``cli train experiment=md17_aspirin`` as the yaml sets it
+    (edge layout, 256 channels, 4 layers, 64 RBFs, batch 16, MSE energy 0.05
+    / force 0.95, standardised, dropout 0.1, remat) for one epoch, then
+    ``cli test``; the first optimizer step's gradients on the card against
+    the same step on the CPU (the same weights, batch and dropout masks)
+    within TOL_TRAIN; a step's time, busy share and peak memory."""
+    from gotennet_tpu_torch import cli
+    from gotennet_tpu_torch.models import gotennet
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (accum_grads, make_loss_fn,
+                                                  train_step)
+
+    path = write_md17_npz(CLI_DIR / "md17_aspirin_data")
+    overrides = ["experiment=md17_aspirin",
+                 f"datamodule.dataset_root={path.parent}",
+                 "trainer.max_epochs=1", "trainer.log_every=1"]
+    run, cfg = edge_cli_run(card, "md17_aspirin cli", overrides, 950,
+                            math.ceil(950 / 16))
+    steps = [r for r in read_jsonl(run / "metrics.jsonl")
+             if r["phase"] == "train"]
+    log(f"[md17_aspirin cli] force losses "
+        f"{[round(r['force_MSELoss'], 6) for r in steps][:8]}...")
+    train_loader, _, _, meta = cli._build_data(cfg, cfg["label"])
+    train_loader.set_epoch(0)
+    batch = next(iter(train_loader))
+    grads, models = [], []
+    keep = torch.Generator()
+    real_mask = gotennet.attention_keep_mask
+
+    def same_masks(shape, rate, generator, device):
+        return real_mask(shape, rate, keep, torch.device("cpu")).to(device)
+
+    for device in ("cuda", "cpu"):
+        model, task, _ = cli._build_model_and_trainer(cfg, meta,
+                                                      torch.device(device))
+        model.train()
+        keep.manual_seed(0)
+        t0 = time.perf_counter()
+        with mock.patch.object(gotennet, "attention_keep_mask", same_masks):
+            loss = accum_grads(model, make_loss_fn(model, task),
+                               [batch.to(device)])
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+        log(f"[md17_aspirin cli] first step on {device}: loss "
+            f"{float(loss):.6f}, {time.perf_counter() - t0:.1f} s")
+        models.append((model, task))
+    errs = {n: rel_err(grads[0][n], g) for n, g in grads[1].items()}
+    worst = max(errs, key=lambda n: errs[n][1])
+    log(f"[md17_aspirin cli] first-step gradients, card vs CPU: {len(errs)} "
+        f"tensors, worst {worst} abs {errs[worst][0]:.3e} rel "
+        f"{errs[worst][1]:.3e} (tol {TOL_TRAIN:g} rel)")
+    if errs[worst][1] > TOL_TRAIN or not all(
+            torch.isfinite(g).all() for g in grads[0].values()):
+        raise AssertionError("md17_aspirin gradients on the card disagree "
+                             "with the CPU's")
+    model, task = models[0]
+    chunks = [batch.to("cuda")]
+    opt = make_optimizer(model.parameters(), cfg["model"]["lr"])
+    loss_fn = make_loss_fn(model, task)
+
+    def step():
+        return train_step(model, opt, chunks, opt.grad_clip, loss_fn=loss_fn)
+
+    peak = peak_gib(step)
+    step_ms, host_ms, _ = time_run(step, 1, 3)
+    log(f"[time] md17_aspirin force-training step ({batch.num_graphs} frames, "
+        f"{batch.num_edges} edge slots, double backward): {step_ms:.3f} ms "
+        f"(CUDA events), {host_ms:.3f} ms (host clock); peak memory "
+        f"{peak:.3f} GiB (torch.cuda.max_memory_allocated) | {card}")
+    profile(step, step_ms, "md17_aspirin force-training step", card)
+
+
+def options_phase(card) -> list:
+    """Phase 34: every remaining option (``layernorm``, ``steerable_norm``,
+    ``trainable_rbf``, ``edge_updates="gated_mlpa_linwa_postln"``,
+    ``edge_ln``, ``evec_dim=128``) at full width on phase 10's 32 frames,
+    on the edge, dense and ELL layouts (the fused message, the plain update)
+    at one state dict: energies within TOL_OPTIONS of the edge layout's;
+    rows 1 and 5 launch 32 times each, no other kernel; each request timed
+    and profiled.  Returns rows 1 and 5's records on these inputs."""
+    from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+    from gotennet_tpu_torch.ops import fused_ell, fused_gata
+    from gotennet_tpu_torch.serve import Predictor
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+
+    bf16 = torch.bfloat16
+    cfg = GotenNetConfig(
+        n_atom_basis=D, n_interactions=N_LAYERS, lmax=LMAX, n_rbf=64,
+        num_heads=H, pair_dtype=bf16, node_dtype=bf16, remat=False,
+        layernorm="pre", steerable_norm="pre", trainable_rbf=True,
+        edge_updates="gated_mlpa_linwa_postln", edge_ln="layer",
+        evec_dim=128)
+    head = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0}).build_head()
+    mols = md22_frames()
+    edge = Predictor(cfg, head, seed=0, chunk=MD22_CHUNK, layout="edge")
+    state = edge.model.state_dict()
+    preds = {"edge": edge,
+             "dense": Predictor(cfg, head, state, chunk=MD22_CHUNK,
+                                bucket=False),
+             "ELL": Predictor(cfg, head, state, chunk=MD22_CHUNK,
+                              layout="ell")}
+    n = math.ceil(MD22_FRAMES / MD22_CHUNK) * N_LAYERS
+    expected = {"edge": [0] * 8, "dense": [n, 0, 0, 0, 0, 0, 0, 0],
+                "ELL": [0, 0, 0, 0, n, 0, 0, 0]}
+    answers = {}
+    for what, pred in preds.items():
+        reset_counters()
+        answers[what] = pred.predict(mols)
+        torch.cuda.synchronize()
+        got = [c.launches for c in kernel_counters()]
+        log(f"[options] {what}: launches {got} (expected {expected[what]})")
+        if got != expected[what]:
+            raise AssertionError(f"options, {what}: launches {got}")
+    want = torch.from_numpy(answers["edge"])
+    for what in ("dense", "ELL"):
+        err, rel = rel_err(torch.from_numpy(answers[what]), want)
+        log(f"[options] {what} vs edge energies: max abs err {err:.4e} (rel "
+            f"{rel:.3e}, tol {TOL_OPTIONS:g})")
+        if rel > TOL_OPTIONS or not torch.isfinite(want).all():
+            raise AssertionError(f"options: {what} disagrees with the edge "
+                                 "layout")
+    for what, pred in preds.items():
+        ms, host_ms, _ = time_run(lambda: pred.predict(mols), 2, 3)
+        log(f"[time] {MD22_FRAMES}-frame options request, {what} layout: "
+            f"{ms:.3f} ms (CUDA events), {host_ms:.3f} ms (host clock) | "
+            f"{card}")
+        profile(lambda: pred.predict(mols), ms,
+                f"{MD22_FRAMES}-frame options request, {what} layout", card)
+    records = []
+    for what, module, fn_name, plain, bound, name, replaces in (
+            ("dense", fused_gata, "fused_gata_forward",
+             fused_gata.fused_gata_forward_reference, fwd_bound_ms,
+             "fused_gata_fwd", "gotennet_tpu/ops/pallas/fused_gata.py:108"),
+            ("ELL", fused_ell, "fused_ell_forward",
+             fused_ell.fused_ell_forward_reference, ell_fwd_bound_ms,
+             "fused_ell_fwd", "gotennet_tpu/ops/pallas/fused_ell.py:77")):
+        captured = capture(module, fn_name,
+                           lambda: preds[what].predict(mols))
+        record = kernel_record(
+            {"name": name, "route": "cuda",
+             "source": f"gotennet_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces}, captured, getattr(module, fn_name),
+            plain, bound, card)
+        record["launches"] = n
+        records.append(record)
+    return records
+
+
+def edge_phases(card, phase_done) -> list:
+    """Phases 31-34; returns phase 34's kernel records."""
+    edge_serve_phase(card)
+    edge_train_phase(card)
+    phase_done("31 (the edge layout: QM9 request and step)")
+    edge_cli_run(card, "qm9_u0 cli", [
+        "experiment=qm9_u0", "datamodule.dataset=synthetic",
+        "datamodule.n_molecules=1280", "datamodule.min_atoms=12",
+        "datamodule.max_atoms=29", "datamodule.train_size=1024",
+        "datamodule.val_size=128", "datamodule.test_size=128",
+        "trainer.max_epochs=1", "trainer.log_every=1"], 1024, 1024 // 32)
+    edge_cli_run(card, "smoke cli", ["experiment=smoke"], 48, 6)
+    phase_done("32 (qm9_u0 and smoke through the command line)")
+    md17_cli_phase(card)
+    phase_done("33 (md17_aspirin through the command line: forces)")
+    records = options_phase(card)
+    phase_done("34 (every remaining option on three layouts)")
+    return records
+
+
 def cli_phases(card, phase_done) -> tuple:
     """Phases 26 and 27; returns each one's two kernel records."""
     from gotennet_tpu_torch.ops import fused_ell, fused_gata, fused_htr
@@ -2629,6 +3041,8 @@ def main() -> int:
     qm9_records, large_records = cli_phases(card, phase_done)
     # ---- 28.-30. the QM9 heads, the unfused dense message, force training --
     label_records = new_phases(card, phase_done, md22_cfg)
+    # ---- 31.-34. the edge-list layout and the remaining model options ------
+    option_records = edge_phases(card, phase_done)
     paths = [(record, "QM9 request"), (bwd_record, "QM9 step"),
              (htr_record, "MD22 request"), (htr_bwd_record, "MD22 step"),
              (ell_records[0], "ELL request"), (ell_bwd_records[0], "ELL step"),
@@ -2643,7 +3057,9 @@ def main() -> int:
              (label_records[0], "QM9 mu cli train and test"),
              (label_records[1], "QM9 mu cli train"),
              (label_records[2], "QM9 r2 cli train and test"),
-             (label_records[3], "QM9 r2 cli train")]
+             (label_records[3], "QM9 r2 cli train"),
+             (option_records[0], "MD22 options request, dense"),
+             (option_records[1], "MD22 options request, ELL")]
     log(json.dumps({"kernels": [{**r, "path": p} for r, p in paths]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,10 @@
 """The train and test entry points (``gotennet_tpu/cli.py``).
 
+    python -m gotennet_tpu_torch.cli train experiment=smoke
+    python -m gotennet_tpu_torch.cli train experiment=qm9_u0 \
+        datamodule.dataset_root=<dir with gdb9.sdf>
+    python -m gotennet_tpu_torch.cli train experiment=md17_aspirin \
+        datamodule.dataset_root=<dir with rmd17_aspirin.npz>
     python -m gotennet_tpu_torch.cli train experiment=qm9_u0_tpu
     python -m gotennet_tpu_torch.cli train experiment=qm9_u0_tpu label=mu
     python -m gotennet_tpu_torch.cli train experiment=md22_atat \
@@ -15,13 +20,14 @@ into ``workdir``.  Entry points run on ``cuda`` unless the top-level
 
 Fields the YAML leaves out take the JAX package's defaults, so the same
 experiment builds the same model in both packages (``fused`` absent is
-False, ``layout`` absent is ``"edge"``).  The rMD17, MD17 and MD22
-experiments read local trajectories (``data/md17.py``) and train on
-forces, as ``md22_atat`` does on the dense layout with ``fused`` False.
-What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-item: the Molecule3D reader (item 4), the edge-list layout (item 10), more
-than one device (item 12), and the ``sweep`` and ``parity`` modes and
-reference ``.ckpt`` files (item 13).
+False, ``layout`` absent is ``"edge"``, the edge-list layout and its
+``BatchLoader``).  The rMD17, MD17 and MD22 experiments read local
+trajectories (``data/md17.py``) and train on forces, with ``fused`` False
+on the dense and ELL layouts.  What is not ported raises
+``NotImplementedError`` naming its ROADMAP.md item: the Molecule3D reader
+and packed dense batches (item 4), more than one device (item 12), and the
+``sweep`` and ``parity`` modes, reference ``.ckpt`` files and
+``scan_layers`` (item 13).
 The nvcc build cache under ``build/`` stands in for the JAX package's
 persistent XLA cache.
 """
@@ -48,8 +54,8 @@ CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
 
 def _build_data(cfg: Dict, label: str):
     """``(train_loader, val_loader, test_loader, dataset_meta)``."""
-    from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
-                                                 center_positions,
+    from gotennet_tpu_torch.data.dataset import (BatchLoader, DenseLoader,
+                                                 ELLLoader, center_positions,
                                                  make_splits,
                                                  standardize_energy,
                                                  synthetic_molecules)
@@ -103,7 +109,10 @@ def _build_data(cfg: Dict, label: str):
                   bucket=dm.get("bucket", False), pack=dm.get("pack", False))
         make = DenseLoader
     else:
-        raise not_ported(f"layout={layout!r} (the edge-list loader)", 10)
+        mk = dict(cutoff=cfg["model"]["representation"]["cutoff"],
+                  max_num_neighbors=dm.get("max_num_neighbors", 32),
+                  neighbor_probe=dm.get("neighbor_probe", 64))
+        make = BatchLoader
     infer_bs = dm.get("inference_batch_size", dm["batch_size"])
     train_loader = make(ds.subset(idx_train), dm["batch_size"], shuffle=True,
                         seed=dm.get("seed", 1), **mk)

@@ -1,10 +1,9 @@
-"""In-memory molecular datasets, the dense- and ELL-batch loaders and the
-split and standardisation helpers.
+"""In-memory molecular datasets, the edge-list, dense- and ELL-batch
+loaders and the split and standardisation helpers.
 
-Counterpart of ``gotennet_tpu/data/dataset.py`` for the dense and ELL
-layouts: the same seed gives the same molecules (numpy ``default_rng``),
-the same splits and, epoch by epoch (``set_epoch``), the same batches as
-the JAX package.
+Counterpart of ``gotennet_tpu/data/dataset.py``: the same seed gives the
+same molecules (numpy ``default_rng``), the same splits and, epoch by epoch
+(``set_epoch``), the same batches as the JAX package.
 """
 
 from __future__ import annotations
@@ -15,12 +14,14 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from gotennet_tpu_torch.graph.batch import GraphBatch
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch, collate_dense
 from gotennet_tpu_torch.graph.ell_batch import (ELLBatch, collate_ell,
                                                 frame_graph)
+from gotennet_tpu_torch.graph.neighborlist import collate_graphs
 from gotennet_tpu_torch.models.heads import ATOMIC_MASSES
 
-__all__ = ["MoleculeDataset", "DenseLoader", "ELLLoader",
+__all__ = ["MoleculeDataset", "BatchLoader", "DenseLoader", "ELLLoader",
            "synthetic_molecules", "synthetic_trajectory", "pair_potential",
            "make_splits", "center_positions",
            "standardize_energy", "ATOMIC_MASSES"]
@@ -199,6 +200,109 @@ def set_epoch(loader, epoch: int) -> None:
     """Make the loader's shuffle a pure function of ``(seed, epoch)``, so a
     resumed run repeats the uninterrupted run's batch order."""
     loader.rng = np.random.default_rng([loader.seed, epoch])
+
+
+class BatchLoader:
+    """Iterates fixed-capacity ``GraphBatch``es (the edge-list layout) over a
+    dataset, ``batch_size`` molecules each, in order or, with ``shuffle``,
+    in an order drawn from ``seed`` (and the epoch, ``set_epoch``);
+    ``drop_last`` leaves out a short last batch, which is otherwise padded
+    with empty graph slots.
+
+    Capacities, unless given: nodes for the ``batch_size`` largest
+    molecules plus 8, rounded up to 8; edges for that many nodes at the
+    largest edges-per-node ratio over the molecules ``neighbor_probe`` names
+    (every one with ``"full"``, else that many spread evenly over the
+    dataset, with 15 % slack), plus 16, rounded up to 128, as the JAX loader
+    sets them.  A batch that still overflows its edges grows the capacity
+    to 1.5x + 128 (rounded up to 128), logs a warning and is collated
+    again; the larger capacity stays."""
+
+    def __init__(self, ds: MoleculeDataset, batch_size: int,
+                 cutoff: float = 5.0, shuffle: bool = False, seed: int = 0,
+                 max_num_neighbors: int = 32, loop: bool = True,
+                 node_capacity: Optional[int] = None,
+                 edge_capacity: Optional[int] = None,
+                 drop_last: bool = False,
+                 neighbor_probe: "int | str" = 64):
+        from gotennet_tpu_torch.graph.native import build_edges
+        self.ds = ds
+        self.batch_size = batch_size
+        self.cutoff = cutoff
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.max_num_neighbors = max_num_neighbors
+        self.loop = loop
+        self.drop_last = drop_last
+        if node_capacity is None or edge_capacity is None:
+            sizes = np.asarray([len(z) for z in ds.z])
+            full = neighbor_probe == "full"
+            probe = (np.arange(len(ds)) if full else np.linspace(
+                0, len(ds) - 1, min(len(ds), int(neighbor_probe))
+            ).astype(int))
+            e_per_node = [
+                len(build_edges(ds.pos[i], cutoff, loop,
+                                max_num_neighbors)[0]) / max(len(ds.z[i]), 1)
+                for i in probe]
+            deg = max(e_per_node) if e_per_node else 8.0
+            n_cap = int(np.sort(sizes)[-min(batch_size, len(sizes)):].sum())
+            node_capacity = node_capacity or _round_up(n_cap + 8, 8)
+            slack = 1.0 if full else 1.15
+            edge_capacity = edge_capacity or _round_up(
+                int(node_capacity * deg * slack) + 16, 128)
+        self.node_capacity = node_capacity
+        self.edge_capacity = edge_capacity
+        self.with_forces = ds.dy is not None
+
+    def __len__(self) -> int:
+        n = len(self.ds)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    set_epoch = set_epoch
+
+    def set_shard(self, world: int, rank: int, pad: bool = False) -> None:
+        from gotennet_tpu_torch.models.gotennet import not_ported
+        raise not_ported("BatchLoader.set_shard (loaders sharded over "
+                         "processes)", 12)
+
+    def batches(self) -> Iterator[Tuple[np.ndarray, GraphBatch]]:
+        """Yield ``(dataset indices, batch)``; graph g of the batch holds
+        molecule ``indices[g]``."""
+        from gotennet_tpu_torch.utils.logging import get_logger
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        bs = self.batch_size
+        stop = len(order) - (len(order) % bs if self.drop_last else 0)
+        y_dim = self.ds.y.shape[1] if self.ds.y is not None else 1
+        for off in range(0, stop, bs):
+            idx = order[off:off + bs]
+            graphs = self.ds.graph_dicts(idx)
+            while True:
+                try:
+                    batch = collate_graphs(
+                        graphs, self.node_capacity, self.edge_capacity, bs,
+                        cutoff=self.cutoff, loop=self.loop,
+                        max_num_neighbors=self.max_num_neighbors,
+                        y_dim=y_dim, with_forces=self.with_forces)
+                    break
+                except ValueError as e:
+                    if "edge capacity" not in str(e):
+                        raise
+                    new_cap = _round_up(int(self.edge_capacity * 1.5) + 128,
+                                        128)
+                    get_logger().warning(
+                        "edge capacity %d overflowed at batch offset %d; "
+                        "rebucketing to %d", self.edge_capacity, off,
+                        new_cap)
+                    self.edge_capacity = new_cap
+            yield idx, batch
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        return (b for _, b in self.batches())
 
 
 class DenseLoader:

@@ -1,7 +1,8 @@
-"""Radius graph of one molecule on the host, and the spatial atom order.
+"""Radius graph of one molecule on the host, the spatial atom order, and
+the collation of molecules into an edge-list batch.
 
-Counterpart of ``build_edges_np`` and ``spatial_order`` in
-``gotennet_tpu/graph/neighborlist.py`` (same arrays for the same input):
+Counterpart of ``build_edges_np``, ``spatial_order`` and ``collate_graphs``
+in ``gotennet_tpu/graph/neighborlist.py`` (same arrays for the same input):
 a cutoff-radius neighbourhood capped to the nearest ``max_num_neighbors``
 sources, destination-sorted, with each node's self-loop appended last.
 ``build_edges_np`` is the plain all-pairs version, O(N^2); the loaders call
@@ -10,11 +11,14 @@ the native cell list of ``graph/native.py``, which gives the same arrays.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["build_edges_np", "spatial_order"]
+from gotennet_tpu_torch.graph.batch import GraphBatch
+
+__all__ = ["build_edges_np", "spatial_order", "collate_graphs"]
 
 
 def spatial_order(pos: np.ndarray, cell: float) -> np.ndarray:
@@ -55,3 +59,58 @@ def build_edges_np(pos: np.ndarray, cutoff: float, loop: bool = True,
         src_list.append(nbrs.astype(np.int32))
         dst_list.append(np.full(len(nbrs), i, np.int32))
     return np.concatenate(src_list), np.concatenate(dst_list)
+
+
+def collate_graphs(graphs: Sequence[dict], num_nodes: int, num_edges: int,
+                   num_graphs: int, cutoff: float = 5.0, loop: bool = True,
+                   max_num_neighbors: int = 32, y_dim: int = 1,
+                   with_forces: bool = False) -> GraphBatch:
+    """Pack molecules (dicts with ``z [M]``, ``pos [M, 3]`` and optionally
+    ``y [T]`` and ``dy [M, 3]``) into one fixed-capacity ``GraphBatch``, each
+    molecule's edges from the native cell list (``graph/native.py``), sorted
+    by destination.  Raises ``ValueError`` when a capacity is exceeded (the
+    loader grows its edge capacity on "edge capacity")."""
+    from gotennet_tpu_torch.graph.native import build_edges
+
+    if len(graphs) > num_graphs:
+        raise ValueError(f"{len(graphs)} graphs > capacity {num_graphs}")
+    z = np.zeros(num_nodes, np.int32)
+    pos = np.zeros((num_nodes, 3), np.float32)
+    node_graph = np.zeros(num_nodes, np.int32)
+    node_mask = np.zeros(num_nodes, bool)
+    src = np.zeros(num_edges, np.int32)
+    dst = np.zeros(num_edges, np.int32)
+    edge_mask = np.zeros(num_edges, bool)
+    graph_mask = np.zeros(num_graphs, bool)
+    y = np.zeros((num_graphs, y_dim), np.float32)
+    dy = np.zeros((num_nodes, 3), np.float32) if with_forces else None
+    n_off = e_off = 0
+    for g_idx, g in enumerate(graphs):
+        gz = np.asarray(g["z"], np.int32)
+        gpos = np.asarray(g["pos"], np.float32)
+        m = gz.shape[0]
+        es, ed = build_edges(gpos, cutoff, loop, max_num_neighbors)
+        ne = es.shape[0]
+        if n_off + m > num_nodes:
+            raise ValueError("node capacity exceeded")
+        if e_off + ne > num_edges:
+            raise ValueError("edge capacity exceeded")
+        z[n_off:n_off + m] = gz
+        pos[n_off:n_off + m] = gpos
+        node_graph[n_off:n_off + m] = g_idx
+        node_mask[n_off:n_off + m] = True
+        src[e_off:e_off + ne] = es + n_off
+        dst[e_off:e_off + ne] = ed + n_off
+        edge_mask[e_off:e_off + ne] = True
+        graph_mask[g_idx] = True
+        if g.get("y") is not None:
+            y[g_idx] = np.asarray(g["y"], np.float32).reshape(-1)[:y_dim]
+        if with_forces and g.get("dy") is not None:
+            dy[n_off:n_off + m] = np.asarray(g["dy"], np.float32)
+        n_off += m
+        e_off += ne
+    t = torch.from_numpy
+    return GraphBatch(z=t(z), pos=t(pos), node_graph=t(node_graph),
+                      edge_src=t(src), edge_dst=t(dst), node_mask=t(node_mask),
+                      edge_mask=t(edge_mask), graph_mask=t(graph_mask),
+                      y=t(y), dy=None if dy is None else t(dy))

@@ -1,42 +1,58 @@
-"""GotenNet configuration, the equivariant feed-forward block and the
-attention-dropout keep masks.
+"""GotenNet on the edge-list layout, the configuration, and what the three
+layouts' layers share.
 
-Counterpart of ``gotennet_tpu/models/gotennet.py``: ``GotenNetConfig``
-keeps the JAX package's field names and defaults, with ``pair_dtype``
-and ``node_dtype`` as ``torch.dtype``s.  Options whose code is not
-ported yet raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+Counterpart of ``gotennet_tpu/models/gotennet.py``.  ``GotenNetConfig``
+keeps the JAX package's field names and defaults, with ``pair_dtype`` and
+``node_dtype`` as ``torch.dtype``s; an option whose code is not ported yet
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+
+``GotenNet`` (with ``NodeInit``, ``EdgeInit`` and ``GATA``) runs over a
+``GraphBatch``'s flat edge list: gathers by ``edge_src`` / ``edge_dst`` and
+masked segment reductions (``graph/segment.py``), as the JAX package does
+with XLA gathers and ``jax.ops.segment_*``; it reaches no kernel, and
+ignores ``fused``, ``fused_htr`` and ``pair_dtype`` as the JAX edge layer
+does.  ``GATALayer`` is what the edge, dense and ELL interaction layers
+share: their parameters under the reference state-dict names, the optional
+pre-norms (``layernorm``, ``steerable_norm``) and the tail of the plain HTR
+update (``gamma_t``, the ``gamma_w`` chain, the gates; ``update_tail``).
 
 Attention dropout (``attn_dropout > 0``, in training only) draws one
 Bernoulli keep mask per interaction layer from an explicit
 ``torch.Generator`` (``keep_masks``, through ``attention_keep_mask``, which
-a test may replace to hand in a mask of its own).  The layers fold it into
-the post-softmax scale, ``scale * keep / (1 - p)``, as the JAX package
-does.
+a test may replace to hand in a mask of its own).  The fused layers fold it
+into the post-softmax scale, ``scale * keep / (1 - p)``, the plain ones
+drop the attention with it, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
-from gotennet_tpu_torch.nn.dense import Dense
+from gotennet_tpu_torch.graph.batch import GraphBatch
+from gotennet_tpu_torch.graph.segment import (segment_max, segment_mean,
+                                              segment_softmax, segment_sum)
+from gotennet_tpu_torch.nn.dense import MLP, Dense
+from gotennet_tpu_torch.nn.norms import TensorLayerNorm
 from gotennet_tpu_torch.ops.activations import get_activation, is_silu_like
-from gotennet_tpu_torch.ops.spherical import num_sh_components
+from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
+from gotennet_tpu_torch.ops.rbf import RadialBasis
+from gotennet_tpu_torch.ops.spherical import (degree_slices, num_sh_components,
+                                              spherical_harmonics)
 
 __all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "not_ported",
-           "attention_keep_mask", "keep_masks", "run_layer"]
+           "attention_keep_mask", "keep_masks", "run_layer", "GATALayer",
+           "htr_pair_sum", "degree_index", "NodeInit", "EdgeInit", "GATA",
+           "GotenNet"]
 
 # ROADMAP.md Queue 1 items that port what this package still rejects (item
-# IDs are never reused: 1, 2, 6, 8, 9 and 11 are done)
+# IDs are never reused: 1, 2, 3, 5, 6, 8, 9, 10 and 11 are done)
 ROADMAP_ITEMS = {
-    3: "Remaining primitives",
     4: "Data",
-    5: "Edge-update variants",
-    10: "Edge-list layout",
     12: "Multi-GPU",
     13: "CLI, configs and tools",
 }
@@ -76,8 +92,9 @@ class GotenNetConfig:
     """Hyper-parameters; defaults follow the shipped reference config.
 
     ``fused`` defaults to True here (False in the JAX package), the path
-    this package serves and trains energies on; both layouts take either,
-    and training on forces takes ``fused=False``."""
+    this package serves and trains energies on; the dense and ELL layouts
+    take either, training on forces takes ``fused=False``, and the edge
+    layout ignores it."""
 
     n_atom_basis: int = 256
     n_interactions: int = 4
@@ -137,7 +154,7 @@ class GotenNetConfig:
                 "multiplier * n_atom_basis must be divisible by num_heads")
         if self.aggr not in ("add", "mean", "max"):
             raise ValueError(f"unknown aggr {self.aggr!r}")
-        info = parse_edge_updates(self.edge_updates)
+        parse_edge_updates(self.edge_updates)   # validates the string
         for name in ("pair_dtype", "node_dtype"):
             if getattr(self, name) not in (torch.float32, torch.bfloat16):
                 raise ValueError(f"{name} must be torch.float32 or "
@@ -150,19 +167,6 @@ class GotenNetConfig:
                     "any activation)")
             if self.aggr != "add":
                 raise ValueError("fused=True supports aggr='add' only")
-        if self.layernorm:
-            raise not_ported("layernorm", 3)
-        if self.steerable_norm:
-            raise not_ported("steerable_norm (TensorLayerNorm)", 3)
-        if self.trainable_rbf:
-            raise not_ported("trainable_rbf", 3)
-        # the update grammar both HTR paths take: rej on or off and the
-        # gates; no MLP or linear variants, no edge LayerNorm
-        if (self.edge_updates is False or info["mlp"] or info["mlpa"]
-                or info["lin_w"] or info["lin_ln"]):
-            raise not_ported(f"edge_updates={self.edge_updates!r}", 5)
-        if self.edge_ln:
-            raise not_ported(f"edge_ln={self.edge_ln!r}", 5)
         if self.scan_layers:
             raise not_ported("scan_layers (layer-stacked parameter trees)",
                              13)
@@ -242,3 +246,353 @@ class EQFF(nn.Module):
         m = self.gamma_m[1](self.gamma_m[0](torch.cat([h, X_pn], dim=-1)))
         m1, m2 = m[..., :D], m[..., D:]
         return h + m1, X + m2[..., None, :].to(X.dtype) * X_p
+
+
+# ---- what the three layouts' interaction layers share ----------------------
+def degree_index(lmax: int, device) -> torch.Tensor:
+    """The degree block (l - 1) of each spherical-harmonic component."""
+    return torch.tensor([l - 1 for l in range(1, lmax + 1)
+                         for _ in range(2 * l + 1)], device=device)
+
+
+def htr_pair_sum(EQ_i: torch.Tensor, EK_j: torch.Tensor, rl: torch.Tensor,
+                 lmax: int, sep_htr: bool, rej: bool) -> torch.Tensor:
+    """The HTR update's per-pair inner products ``w_ij``, the m axis being
+    the second last of ``EQ_i`` / ``EK_j`` (which broadcast) and the last of
+    ``rl``: with ``rej`` each side's projection on ``r_l`` (``-r_l``) is
+    rejected first; with ``sep_htr`` per degree block, summed, else over all
+    components at once (JAX gotennet.py:457-476)."""
+    def reject(rep, r):
+        proj = torch.sum(rep * r[..., None], dim=-2, keepdim=True)
+        return rep - proj * r[..., None]
+
+    if sep_htr:
+        # the degree sums add up in float32, as JAX's float32 zeros do
+        w_ij = 0.0
+        for lo, hi in degree_slices(lmax):
+            eq_l, ek_l = EQ_i[..., lo:hi, :], EK_j[..., lo:hi, :]
+            if rej:
+                r_l = rl[..., lo:hi]
+                eq_l, ek_l = reject(eq_l, r_l), reject(ek_l, -r_l)
+            w_ij = w_ij + torch.sum(eq_l * ek_l, dim=-2).float()
+        return w_ij
+    if not rej:
+        return torch.sum(EQ_i * EK_j, dim=-2)
+    return torch.sum(reject(EQ_i.expand_as(EK_j), rl) * reject(EK_j, -rl),
+                     dim=-2)
+
+
+class GATALayer(nn.Module):
+    """The parameters of one interaction layer under the reference
+    state-dict names (``gamma_s``, ``W_q``, ``W_k``, ``gamma_v``, ``W_re``,
+    ``W_rs``, ``layernorm``; except in the last layer and with
+    ``edge_updates``, ``gamma_t``, ``W_vq``, ``W_vk``, ``gamma_w`` and
+    ``W_edp``), the optional pre-norms, and the tail of the plain HTR
+    update, which the edge, dense and ELL layers share.
+
+    ``node_dtype`` is the compute type of the node projections (q, k, x_g,
+    v, EQ, EK) and ``pair_dtype`` that of ``W_re``, ``W_rs``, ``gamma_t``
+    and ``W_edp``, as each layout's JAX layer casts them (None: float32).
+    ``W_re`` carries no activation: the fused kernels apply silu to its
+    product themselves, the plain messages ``act``."""
+
+    def __init__(self, cfg: GotenNetConfig, last_layer: bool,
+                 node_dtype: Optional[torch.dtype] = None,
+                 pair_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        D, mult = cfg.n_atom_basis, cfg.multiplier
+        act = get_activation(cfg.activation)
+        kw = dict(weight_init=cfg.weight_init, bias_init=cfg.bias_init)
+        nd, pd = node_dtype, pair_dtype
+        self.cfg = cfg
+        self.act = act
+        self.last_layer = last_layer
+        self.info = parse_edge_updates(cfg.edge_updates)
+        self.gamma_s = nn.ModuleList([
+            Dense(D, D, activation=act, **kw, dtype=nd),
+            Dense(D, mult * D, **kw, dtype=nd)])
+        self.W_q = Dense(D, D, **kw, dtype=nd)
+        self.W_k = Dense(D, D, **kw, dtype=nd)
+        self.gamma_v = nn.ModuleList([
+            Dense(D, D, activation=act, **kw, dtype=nd),
+            Dense(D, mult * D, **kw, dtype=nd)])
+        self.W_re = Dense(D, D, **kw, dtype=pd)
+        self.W_rs = Dense(D, mult * D, **kw, dtype=pd)
+        self.updates = bool(cfg.edge_updates) and not last_layer
+        if self.updates:
+            info = self.info
+            E = cfg.evec_dim or D
+            if info["mlp"] or info["mlpa"]:
+                self.gamma_t = MLP(
+                    [D, cfg.emlp_dim or D, D], activation=act,
+                    last_activation=None if info["mlp"] else act,
+                    norm=cfg.edge_ln, **kw, dtype=pd)
+            else:
+                self.gamma_t = MLP([D, D], activation=act, last_activation=act,
+                                   norm=cfg.edge_ln, **kw, dtype=pd)
+            self.W_vq = Dense(D, E, use_bias=False, **kw, dtype=nd)
+            if cfg.sep_htr:
+                self.W_vk = nn.ModuleList(
+                    Dense(D, E, use_bias=False, **kw, dtype=nd)
+                    for _ in range(cfg.lmax))
+            else:
+                self.W_vk = Dense(D, E, use_bias=False, **kw, dtype=nd)
+            if info["lin_w"]:
+                # the reference's gamma_w Sequential: its LayerNorm at 0
+                if info["lin_ln"] == 1:
+                    self.gamma_w = nn.ModuleList([nn.LayerNorm(E, eps=1e-5)])
+                self.W_edp = Dense(E, D, norm="layer" if info["lin_ln"] == 2
+                                   else "", **kw, dtype=pd)
+        self.layernorm = (nn.LayerNorm(D, eps=1e-5) if cfg.layernorm
+                          else None)
+        self.tensor_layernorm = (TensorLayerNorm(D, cfg.lmax)
+                                 if cfg.steerable_norm else None)
+
+    def pre_norm(self, h: torch.Tensor, X: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``layernorm`` on h and ``steerable_norm`` on X, each when set;
+        the residual updates of the layer add to the normed values."""
+        if self.layernorm is not None:
+            h = self.layernorm(h)
+        if self.tensor_layernorm is not None:
+            X = self.tensor_layernorm(X)
+        return h, X
+
+    def htr_tables(self, X: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """EQ = X W_vq and EK (X W_vk_l per degree block with ``sep_htr``),
+        ``[..., L, evec_dim]`` in the node compute type."""
+        if not self.cfg.sep_htr:
+            return self.W_vq(X), self.W_vk(X)
+        return self.W_vq(X), torch.cat(
+            [self.W_vk[l](X[..., lo:hi, :])
+             for l, (lo, hi) in enumerate(degree_slices(self.cfg.lmax))],
+            dim=-2)
+
+    def update_tail(self, t_ij: torch.Tensor, w_ij: torch.Tensor
+                    ) -> torch.Tensor:
+        """``t_ij + gamma_t(t_ij) * gate(gamma_w(w_ij))`` (JAX
+        gotennet.py:478-509): ``gamma_t`` one layer, or two with ``mlp`` /
+        ``mlpa`` (``edge_ln`` normalising the hidden one); with ``linw`` /
+        ``linwa`` the inner products in float32 through ``ln``'s LayerNorm,
+        ``act`` (``linwa``) and ``W_edp`` (normed with ``postln``); then the
+        ``gated`` / ``gatedt`` / ``act`` gate.  The product is added in
+        ``t_ij``'s type."""
+        info = self.info
+        gt = self.gamma_t(t_ij)
+        gw = w_ij
+        if info["lin_w"]:
+            gw = gw.float()
+            if info["lin_ln"] == 1:
+                gw = self.gamma_w[0](gw)
+            if info["lin_w"] == 2:
+                gw = self.act(gw)
+            gw = self.W_edp(gw)
+        gate = {"gatedt": torch.tanh, "gated": torch.sigmoid,
+                "act": torch.nn.functional.silu}.get(info["gated"])
+        if gate is not None:
+            gw = gate(gw)
+        return t_ij + (gt * gw).to(t_ij.dtype)
+
+
+# ---- the edge-list layout ---------------------------------------------------
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows of ``x`` at ``idx`` (int64): an ``index_select``, whose
+    backward is an ``index_add_`` (the scatter-add JAX's gather transposes
+    to); advanced indexing's backward sorts the indices instead, some 20x
+    slower at the flagship width on the card."""
+    return x.index_select(0, idx)
+
+
+def _segment_aggregate(aggr: str, data: torch.Tensor, seg: torch.Tensor,
+                       n: int, mask: torch.Tensor) -> torch.Tensor:
+    """Masked segment reduction; a segment without a real row gives zeros,
+    also under ``max``."""
+    if aggr == "add":
+        return segment_sum(data, seg, n, mask)
+    if aggr == "mean":
+        return segment_mean(data, seg, n, mask)
+    if aggr == "max":
+        out = segment_max(data, seg, n, mask)
+        c = segment_sum(mask.to(torch.int32), seg, n)
+        while c.dim() < out.dim():
+            c = c[..., None]
+        return torch.where(c > 0, out, torch.zeros_like(out))
+    raise ValueError(f"Unknown aggr {aggr!r}")
+
+
+class NodeInit(nn.Module):
+    """Neighbour atom-type embeddings gated by a radial filter under the
+    cosine cutoff, summed over the non-loop edges, fused with the centre
+    embedding (JAX gotennet.py:287-318)."""
+
+    def __init__(self, cfg: GotenNetConfig):
+        super().__init__()
+        d = cfg.n_atom_basis
+        kw = dict(weight_init=cfg.weight_init, bias_init=cfg.bias_init)
+        self.cutoff = cfg.cutoff
+        self.A_nbr = nn.Embedding(cfg.max_z, d)
+        # the reference's W_ndp is a one-layer MLP
+        self.W_ndp = MLP([cfg.n_rbf, d], **kw)
+        self.W_nrd_nru = MLP([2 * d, d, d],
+                             activation=get_activation(cfg.activation),
+                             norm="layer", **kw)
+
+    def forward(self, z, h, edge_src, edge_dst, edge_dist, phi, edge_mask
+                ) -> torch.Tensor:
+        r_feat = self.W_ndp(phi) * cosine_cutoff(edge_dist,
+                                                 self.cutoff)[:, None]
+        # self-loops add nothing
+        msg_mask = edge_mask & (edge_src != edge_dst)
+        msg = take(self.A_nbr(z), edge_src.long()) * r_feat
+        m_i = segment_sum(msg, edge_dst, h.shape[0], msg_mask)
+        return self.W_nrd_nru(torch.cat([h, m_i], dim=-1))
+
+
+class EdgeInit(nn.Module):
+    """t_ij = (h_i + h_j) * W_erp(phi_ij)."""
+
+    def __init__(self, cfg: GotenNetConfig):
+        super().__init__()
+        self.W_erp = Dense(cfg.n_rbf, cfg.n_atom_basis,
+                           weight_init="xavier_uniform", bias_init="zeros")
+
+    def forward(self, phi, h, edge_src, edge_dst) -> torch.Tensor:
+        return ((take(h, edge_dst.long()) + take(h, edge_src.long()))
+                * self.W_erp(phi))
+
+
+class GATA(GATALayer):
+    """One interaction over the edge list (JAX gotennet.py:335-511): the
+    SDDMM attention logits, a softmax per destination over its real edges,
+    the spatial filter path, the steerable message, segment aggregation,
+    then (except in the last layer) the HTR update.  The node projections
+    compute in ``node_dtype``; everything else in float32."""
+
+    def __init__(self, cfg: GotenNetConfig, last_layer: bool = False):
+        nd = None if cfg.node_dtype == torch.float32 else cfg.node_dtype
+        super().__init__(cfg, last_layer, node_dtype=nd)
+
+    def forward(self, h, X, t_ij, rl_ij, edge_dist, edge_src, edge_dst,
+                edge_mask, n_edges, keep: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``keep``: the layer's ``[E, H]`` attention keep mask, or None (no
+        dropout)."""
+        cfg = self.cfg
+        D, H, lmax = cfg.n_atom_basis, cfg.num_heads, cfg.lmax
+        Dh, C = D // H, cfg.multiplier * D
+        N, E = h.shape[0], edge_src.shape[0]
+        src, dst = edge_src.long(), edge_dst.long()
+        h, X = self.pre_norm(h, X)
+        q = self.W_q(h).reshape(N, H, Dh)
+        k = self.W_k(h).reshape(N, H, Dh)
+        x_g = self.gamma_s[1](self.gamma_s[0](h))
+        v = self.gamma_v[1](self.gamma_v[0](h))
+        t_attn = self.W_re(t_ij)
+        if self.act is not None:
+            t_attn = self.act(t_attn)
+        t_filter = self.W_rs(t_ij)
+
+        logit = torch.sum(take(q, dst) * take(k, src)
+                          * t_attn.reshape(E, H, Dh), dim=-1,
+                          keepdim=True)                          # [E, H, 1]
+        attn = segment_softmax(logit, edge_dst, N, edge_mask)
+        if cfg.scale_edge:
+            attn = attn * (torch.sqrt(n_edges)[:, None, None] / math.sqrt(D))
+        else:
+            attn = attn * (1.0 / math.sqrt(D))
+        if keep is not None:
+            # flax's Dropout: kept entries divided by the keep rate
+            attn = torch.where(keep[..., None],
+                               attn / (1.0 - cfg.attn_dropout),
+                               torch.zeros_like(attn))
+        sea = (attn * take(v, src).reshape(E, H, C // H)).reshape(E, C)
+        spatial = t_filter * take(x_g, src) * cosine_cutoff(
+            edge_dist, cfg.cutoff)[:, None]
+        chunks = list(torch.split(spatial + sea, D, dim=-1))
+        o_s, rest = chunks[0], chunks[1:]
+        deg = degree_index(lmax, h.device)
+        if cfg.sep_dir:
+            o_d, rest = torch.stack(rest[:lmax], dim=1), rest[lmax:]
+            dX_R = rl_ij[:, :, None] * o_d[:, deg]
+        else:
+            o_d, rest = rest[0], rest[1:]
+            dX_R = rl_ij[:, :, None] * o_d[:, None, :]
+        X_j = take(X, src)                                        # [E, L, D]
+        if cfg.sep_tensor:
+            dX_X = X_j * torch.stack(rest[:lmax], dim=1)[:, deg]
+        else:
+            dX_X = X_j * rest[0][:, None, :]
+        h = h + _segment_aggregate(cfg.aggr, o_s, edge_dst, N, edge_mask)
+        X = X + _segment_aggregate(cfg.aggr, dX_R + dX_X, edge_dst, N,
+                                   edge_mask)
+        if not self.updates:
+            return h, X, t_ij
+        EQ, EK = self.htr_tables(X)
+        w_ij = htr_pair_sum(take(EQ, dst), take(EK, src), rl_ij, lmax,
+                            cfg.sep_htr, self.info["rej"])
+        return h, X, self.update_tail(t_ij, w_ij)
+
+
+def edge_geometry(pos: torch.Tensor, edge_src: torch.Tensor,
+                  edge_dst: torch.Tensor, edge_mask: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(vec [E, 3], dist [E], nonloop [E])`` of an edge list, ``vec`` =
+    pos_src - pos_dst.  A self-loop's or padded edge's distance is 0, under
+    a double ``where`` so that second derivatives there stay finite."""
+    vec = take(pos, edge_src.long()) - take(pos, edge_dst.long())
+    nonloop = edge_mask & (edge_src != edge_dst)
+    sq = torch.sum(vec ** 2, dim=-1)
+    dist = torch.where(nonloop, torch.sqrt(torch.where(
+        nonloop, sq, torch.ones_like(sq))), torch.zeros_like(sq))
+    return vec, dist, nonloop
+
+
+class GotenNet(nn.Module):
+    """The edge-list representation stack (JAX gotennet.py:543-611):
+    ``(h [N, D], X [N, L, D])`` from a ``GraphBatch``, edge geometry
+    computed from the positions (differentiable: force heads)."""
+
+    def __init__(self, cfg: GotenNetConfig):
+        super().__init__()
+        D = cfg.n_atom_basis
+        self.cfg = cfg
+        self.A_na = nn.Embedding(cfg.max_z, D)
+        self.radial_basis = RadialBasis(cfg.radial_basis, cfg.n_rbf,
+                                        cfg.cutoff, cfg.trainable_rbf)
+        self.node_init = NodeInit(cfg)
+        self.edge_init = EdgeInit(cfg)
+        n = cfg.n_interactions
+        self.gata_list = nn.ModuleList(
+            GATA(cfg, last_layer=(i == n - 1)) for i in range(n))
+        self.eqff_list = nn.ModuleList(EQFF(cfg) for _ in range(n))
+
+    def forward(self, batch: GraphBatch,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` draws the attention keep masks (training with
+        ``attn_dropout > 0``)."""
+        cfg = self.cfg
+        src, dst, em = batch.edge_src, batch.edge_dst, batch.edge_mask
+        N, E = batch.num_nodes, batch.num_edges
+        vec, dist, nonloop = edge_geometry(batch.pos, src, dst, em)
+        z = batch.z.long()
+        h = self.A_na(z)
+        phi = self.radial_basis(dist)                             # [E, R]
+        h = self.node_init(z, h, src, dst, dist, phi, em)
+        t_ij = self.edge_init(phi, h, src, dst)
+        # unit vectors on real non-loop edges; the rest keep theirs (zero)
+        safe_d = torch.where(nonloop, dist, torch.ones_like(dist))
+        vec_n = torch.where(nonloop[:, None], vec / safe_d[:, None], vec)
+        rl_ij = spherical_harmonics(vec_n, cfg.lmax)              # [E, L]
+        # per-source real-edge counts
+        n_edges = take(segment_sum(em.to(h.dtype), src, N), src.long())
+        X = torch.zeros(N, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
+                        device=h.device)
+        masks = keep_masks(cfg, self.training, (E, cfg.num_heads), generator,
+                           h.device)
+        for gata, eqff, keep in zip(self.gata_list, self.eqff_list, masks):
+            h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
+                                   rl_ij, dist, src, dst, em, n_edges, keep)
+            h, X = eqff(h, X)
+        return h, X

@@ -22,7 +22,12 @@ unfused one drops the attention with it, as flax's ``Dropout`` does;
 Parameters carry the reference state-dict names
 (``gata_list.{i}.W_q.weight`` ...), the same for both message paths.
 ``pair_dtype`` and ``node_dtype`` cast where the JAX package casts; every
-reduction accumulates in f32.
+reduction accumulates in f32.  ``layernorm`` and ``steerable_norm`` norm h
+and X in front of each layer, for either message; an update variant the
+fused HTR kernel does not compute (an MLP or linear ``gamma_w`` part,
+``edge_ln``, ``evec_dim != n_atom_basis``) takes the plain update, as in the
+JAX package, with its tail shared with the other layouts
+(``models.gotennet.GATALayer.update_tail``).
 """
 
 from __future__ import annotations
@@ -34,14 +39,14 @@ import torch
 from torch import nn
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
-from gotennet_tpu_torch.models.gotennet import (EQFF, GotenNetConfig,
-                                               keep_masks, not_ported,
+from gotennet_tpu_torch.models.gotennet import (EQFF, GATALayer,
+                                               GotenNetConfig, keep_masks,
                                                parse_edge_updates, run_layer)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.ops import fused_gata, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
 from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
-from gotennet_tpu_torch.ops.rbf import get_rbf
+from gotennet_tpu_torch.ops.rbf import RadialBasis
 from gotennet_tpu_torch.ops.spherical import degree_slices, spherical_harmonics
 
 __all__ = ["GotenNetDense", "PairGeometry", "pair_geometry"]
@@ -91,9 +96,15 @@ def _node_dtype(cfg: GotenNetConfig) -> Optional[torch.dtype]:
 
 
 def _fused_update(cfg: GotenNetConfig) -> bool:
-    """Whether the HTR update runs through the fused kernel: with both
-    ``fused`` and ``fused_htr``, as the JAX package chooses."""
-    return (cfg.fused and cfg.fused_htr
+    """Whether the HTR update runs through the fused kernel, as the JAX
+    package chooses (gotennet_dense.py:318-321): with ``fused`` and
+    ``fused_htr``, for the grammar the kernel computes (rejection on or
+    off, the gates; no MLP or linear ``gamma_w`` part, no ``edge_ln``,
+    ``evec_dim`` at ``n_atom_basis``)."""
+    info = parse_edge_updates(cfg.edge_updates)
+    return (cfg.fused and cfg.fused_htr and not info["mlp"]
+            and not info["mlpa"] and info["lin_w"] == 0
+            and info["lin_ln"] == 0 and cfg.edge_ln == ""
             and (cfg.evec_dim or cfg.n_atom_basis) == cfg.n_atom_basis)
 
 
@@ -144,43 +155,14 @@ class EdgeInitDense(nn.Module):
         return ((hp[:, :, None, :] + hp[:, None, :, :]) * w).float()
 
 
-class GATADense(nn.Module):
-    """One interaction: fused message + aggregation, then (except in the
-    last layer) the HTR edge update."""
+class GATADense(GATALayer):
+    """One interaction: the message + aggregation (fused or plain), then
+    (except in the last layer) the HTR update (fused or plain)."""
 
     def __init__(self, cfg: GotenNetConfig, last_layer: bool = False):
-        super().__init__()
-        D, mult = cfg.n_atom_basis, cfg.multiplier
-        act = get_activation(cfg.activation)
-        nd = _node_dtype(cfg)
-        kw = dict(weight_init=cfg.weight_init, bias_init=cfg.bias_init)
-        self.cfg = cfg
-        self.act = act
-        self.last_layer = last_layer
-        self.gamma_s = nn.ModuleList([
-            Dense(D, D, activation=act, **kw, dtype=nd),
-            Dense(D, mult * D, **kw, dtype=nd)])
-        self.W_q = Dense(D, D, **kw, dtype=nd)
-        self.W_k = Dense(D, D, **kw, dtype=nd)
-        self.gamma_v = nn.ModuleList([
-            Dense(D, D, activation=act, **kw, dtype=nd),
-            Dense(D, mult * D, **kw, dtype=nd)])
-        # no activation here: the fused kernel applies silu to W_re's
-        # product itself, the unfused message applies ``act``; their
-        # forward (the unfused message) computes in the pair type
-        self.W_re = Dense(D, D, **kw, dtype=cfg.pair_dtype)
-        self.W_rs = Dense(D, mult * D, **kw, dtype=cfg.pair_dtype)
-        if not last_layer:
-            E = cfg.evec_dim or D
-            self.gamma_t = MLP([D, D], activation=act, last_activation=act,
-                               **kw, dtype=cfg.pair_dtype)
-            self.W_vq = Dense(D, E, use_bias=False, **kw, dtype=nd)
-            if cfg.sep_htr:
-                self.W_vk = nn.ModuleList(
-                    Dense(D, E, use_bias=False, **kw, dtype=nd)
-                    for _ in range(cfg.lmax))
-            else:
-                self.W_vk = Dense(D, E, use_bias=False, **kw, dtype=nd)
+        # the plain message computes W_re and W_rs in the pair type
+        super().__init__(cfg, last_layer, node_dtype=_node_dtype(cfg),
+                         pair_dtype=cfg.pair_dtype)
 
     def _node_projections(self, h):
         """q, k, x_g, v in the node compute type."""
@@ -208,14 +190,9 @@ class GATADense(nn.Module):
     def _htr_projections(self, X):
         """EQ, EK [G, M, L, E] in the node compute type."""
         cfg = self.cfg
-        W_vk = list(self.W_vk) if cfg.sep_htr else [self.W_vk]
         if not cfg.merge_proj:
-            EQ = self.W_vq(X)
-            if not cfg.sep_htr:
-                return EQ, self.W_vk(X)
-            return EQ, torch.cat([W_vk[l](X[..., lo:hi, :]) for l, (lo, hi)
-                                  in enumerate(degree_slices(cfg.lmax))],
-                                 dim=2)
+            return self.htr_tables(X)
+        W_vk = list(self.W_vk) if cfg.sep_htr else [self.W_vk]
         E = self.W_vq.weight.shape[0]
         cd = cfg.node_dtype
         wall = torch.cat([self.W_vq.weight] + [w.weight for w in W_vk]).to(cd)
@@ -332,6 +309,7 @@ class GATADense(nn.Module):
         None (no dropout)."""
         cfg = self.cfg
         pd = cfg.pair_dtype
+        h, X = self.pre_norm(h, X)
         q, k, x_g, v = self._node_projections(h)
         if cfg.fused:
             d_h, dX = self._fused_message(t_ij, q, k, x_g, v, rl_ij, X, dist,
@@ -341,15 +319,15 @@ class GATADense(nn.Module):
                                             dist, pair_mask, n_edges, keep)
         h = h + d_h
         X = X + dX
-        if self.last_layer:
+        if not self.updates:
             return h, X, t_ij
 
         # ---- HTR edge update (expanded rejection), in pair_dtype --------
         EQ, EK = self._htr_projections(X)
+        info = self.info
         if _fused_update(cfg):
             # one kernel over the pairs: z, gt, S, pq, pk and w stay on
             # chip (ops/fused_htr.py); gamma_t's single layer in [in, out]
-            info = parse_edge_updates(cfg.edge_updates)
             layer = self.gamma_t.dense_layers[0]
             return h, X, fused_htr.fused_htr(
                 t_ij, EQ.contiguous(), EK.contiguous(), rl_ij,
@@ -364,10 +342,13 @@ class GATADense(nn.Module):
             for m in range(hi - lo):
                 eq_m = eq[:, :, None, m, :]        # [G, i, 1, E]
                 ek_m = ek[:, None, :, m, :]        # [G, 1, j, E]
-                r_m = rl_ij[..., lo + m:lo + m + 1].to(pd)
                 S = S + eq_m * ek_m
-                pq = pq + eq_m * r_m
-                pk = pk + ek_m * r_m
+                if info["rej"]:
+                    r_m = rl_ij[..., lo + m:lo + m + 1].to(pd)
+                    pq = pq + eq_m * r_m
+                    pk = pk + ek_m * r_m
+            if not info["rej"]:
+                return S
             r2 = torch.sum(rl_ij[..., lo:hi] ** 2, dim=-1)[..., None].to(pd)
             return S - pq * pk * (2.0 - r2)
 
@@ -375,8 +356,7 @@ class GATADense(nn.Module):
             w_ij = sum(pair_terms(lo, hi) for lo, hi in degree_slices(cfg.lmax))
         else:
             w_ij = pair_terms(0, rl_ij.shape[-1])
-        gt = self.gamma_t(t_ij)
-        return h, X, t_ij + (gt * w_ij).to(t_ij.dtype)
+        return h, X, self.update_tail(t_ij, w_ij)
 
 
 class GotenNetDense(nn.Module):
@@ -386,13 +366,10 @@ class GotenNetDense(nn.Module):
     def __init__(self, cfg: GotenNetConfig):
         super().__init__()
         D = cfg.n_atom_basis
-        info = parse_edge_updates(cfg.edge_updates)
-        if (info["gated"] or not info["rej"]) and not _fused_update(cfg):
-            raise not_ported(f"edge_updates={cfg.edge_updates!r} without the "
-                             "fused HTR update on the dense layout", 5)
         self.cfg = cfg
         self.A_na = nn.Embedding(cfg.max_z, D)
-        self.rbf = get_rbf(cfg.radial_basis, cfg.n_rbf, cfg.cutoff)
+        self.radial_basis = RadialBasis(cfg.radial_basis, cfg.n_rbf,
+                                        cfg.cutoff, cfg.trainable_rbf)
         self.node_init = NodeInitDense(cfg)
         self.edge_init = EdgeInitDense(cfg)
         n = cfg.n_interactions
@@ -411,7 +388,7 @@ class GotenNetDense(nn.Module):
                             cfg.max_num_neighbors)
         z = batch.z.long()
         h = self.A_na(z)
-        phi = self.rbf(geo.dist)                              # [G, M, M, R]
+        phi = self.radial_basis(geo.dist)                     # [G, M, M, R]
         h = self.node_init(z, h, geo.dist, phi, geo.adj.to(h.dtype))
         t_ij = self.edge_init(phi, h)
         rl_ij = spherical_harmonics(geo.vec_n, cfg.lmax).contiguous()

@@ -9,7 +9,9 @@ and batch (``fused_paths``):
   forward and backward);
 - otherwise each runs as plain tensor ops (``_unfused_message``,
   ``_unfused_update``): any activation, ``aggr`` add, mean or max, the
-  update's ``rej`` and gates.
+  update's every variant (``rej``, the gates, an MLP or linear ``gamma_w``
+  part, ``edge_ln``, any ``evec_dim``), its tail shared with the other
+  layouts (``models.gotennet.GATALayer.update_tail``).
 A node table above ``fused_table_rows`` is where the JAX package runs its
 fused kernels chunked over halo windows, to fit the TPU's on-chip memory.
 Where it finds such a chunking (``ops.fused_ell.pick_chunking``) the port
@@ -21,8 +23,8 @@ shared by every fused layer.  Attention dropout in training takes each
 layer's ``[N, K, H]`` keep mask: the fused message folds it into its
 per-head scale, the unfused one drops the attention with it, as the JAX
 package's ``attn_dropout`` does; ``remat`` recomputes each layer in the
-backward pass.  The update variants the fused update does not take raise
-``NotImplementedError`` (ROADMAP.md Queue 1, item 5).
+backward pass.  ``layernorm`` and ``steerable_norm`` norm h and X in front
+of each layer, for either message.
 
 Types follow the JAX layer, not the dense one: the node projections (q,
 k, x_g, v, EQ, EK), ``W_ndp`` and ``W_erp`` compute in float32, only EQFF
@@ -43,15 +45,16 @@ import torch
 from torch import nn
 
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
-from gotennet_tpu_torch.models.gotennet import (EQFF, GotenNetConfig,
-                                               keep_masks, not_ported,
+from gotennet_tpu_torch.models.gotennet import (EQFF, GATALayer,
+                                               GotenNetConfig, degree_index,
+                                               htr_pair_sum, keep_masks,
                                                parse_edge_updates, run_layer)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.ops import fused_ell, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
 from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
-from gotennet_tpu_torch.ops.rbf import get_rbf
-from gotennet_tpu_torch.ops.spherical import degree_slices, spherical_harmonics
+from gotennet_tpu_torch.ops.rbf import RadialBasis
+from gotennet_tpu_torch.ops.spherical import spherical_harmonics
 
 __all__ = ["GotenNetELL", "NodeInitELL", "EdgeInitELL", "GATAELL",
            "fused_paths"]
@@ -137,50 +140,33 @@ def fused_paths(cfg: GotenNetConfig, N: int, NR: int,
                 halo: Optional[int]) -> Tuple[bool, bool]:
     """Whether the message and the HTR update run fused for an ``N``-row
     node table of ``NR`` destination rows, as the JAX package chooses
-    (gotennet_ell.py:306-321, :448-487): with ``fused`` (and ``fused_htr``
-    for the update), unless the table is above ``fused_table_rows`` (0: no
-    limit) and no halo-windowed chunking exists for it (no ``halo``, or
-    ``pick_chunking`` finds no geometry).  Where the JAX package chunks, the
-    port's kernels take the whole table."""
+    (gotennet_ell.py:306-321, :448-487, :512-516): with ``fused`` (and
+    ``fused_htr``, a silu or swish activation and an update grammar the
+    kernel computes for the update), unless the table is above
+    ``fused_table_rows`` (0: no limit) and no halo-windowed chunking exists
+    for it (no ``halo``, or ``pick_chunking`` finds no geometry).  Where the
+    JAX package chunks, the port's kernels take the whole table."""
     fits = (not cfg.fused_table_rows or N <= cfg.fused_table_rows
             or (halo is not None and fused_ell.pick_chunking(
                 NR, N, halo, cfg.fused_table_rows) is not None))
     message = cfg.fused and fits
-    return message, message and cfg.fused_htr
+    info = parse_edge_updates(cfg.edge_updates)
+    update = (message and cfg.fused_htr
+              and cfg.activation in ("swish", "silu")
+              and not info["mlp"] and not info["mlpa"]
+              and info["lin_w"] == 0 and info["lin_ln"] == 0
+              and cfg.edge_ln == ""
+              and (cfg.evec_dim or cfg.n_atom_basis) == cfg.n_atom_basis)
+    return message, update
 
 
-class GATAELL(nn.Module):
+class GATAELL(GATALayer):
     """One interaction: the message + aggregation, then (except in the last
     layer) the HTR update, each fused or unfused as ``fused_paths``
     chose."""
 
     def __init__(self, cfg: GotenNetConfig, last_layer: bool = False):
-        super().__init__()
-        D, mult = cfg.n_atom_basis, cfg.multiplier
-        act = get_activation(cfg.activation)
-        kw = dict(weight_init=cfg.weight_init, bias_init=cfg.bias_init)
-        self.cfg = cfg
-        self.act = act
-        self.last_layer = last_layer
-        self.gamma_s = nn.ModuleList([Dense(D, D, activation=act, **kw),
-                                      Dense(D, mult * D, **kw)])
-        self.W_q = Dense(D, D, **kw)
-        self.W_k = Dense(D, D, **kw)
-        self.gamma_v = nn.ModuleList([Dense(D, D, activation=act, **kw),
-                                      Dense(D, mult * D, **kw)])
-        # no activation here: the fused kernel applies silu to W_re's
-        # product itself, the unfused message applies ``act``
-        self.W_re = Dense(D, D, **kw)
-        self.W_rs = Dense(D, mult * D, **kw)
-        if not last_layer:
-            self.gamma_t = MLP([D, D], activation=act, last_activation=act,
-                               **kw)
-            self.W_vq = Dense(D, D, use_bias=False, **kw)
-            if cfg.sep_htr:
-                self.W_vk = nn.ModuleList(Dense(D, D, use_bias=False, **kw)
-                                          for _ in range(cfg.lmax))
-            else:
-                self.W_vk = Dense(D, D, use_bias=False, **kw)
+        super().__init__(cfg, last_layer)
 
     def forward(self, h, X, t_ij, rl_ij, dist, nbr, nbr_mask, n_edges,
                 gather: Gather, paths: Tuple[bool, bool],
@@ -190,6 +176,7 @@ class GATAELL(nn.Module):
         """``keep``: the layer's ``[N, K, H]`` attention keep mask, or None
         (no dropout)."""
         cfg = self.cfg
+        h, X = self.pre_norm(h, X)
         q, k = self.W_q(h), self.W_k(h)
         x_g = self.gamma_s[1](self.gamma_s[0](h))
         v = self.gamma_v[1](self.gamma_v[0](h))
@@ -202,19 +189,16 @@ class GATAELL(nn.Module):
                                             keep)
         h = h + d_h
         X = X + dX
-        if self.last_layer:
+        if not self.updates:
             return h, X, t_ij
 
-        EQ = self.W_vq(X)
-        if cfg.sep_htr:
-            EK = torch.cat([self.W_vk[l](X[:, lo:hi]) for l, (lo, hi)
-                            in enumerate(degree_slices(cfg.lmax))], dim=1)
-        else:
-            EK = self.W_vk(X)
-        info = parse_edge_updates(cfg.edge_updates)
+        EQ, EK = self.htr_tables(X)
+        info = self.info
         if not paths[1]:
-            return h, X, self._unfused_update(t_ij, rl_ij, EQ, EK, gather,
-                                              info)
+            # the plain update (JAX gotennet_ell.py:523-574)
+            w_ij = htr_pair_sum(EQ[:, None], gather(EK), rl_ij, cfg.lmax,
+                                cfg.sep_htr, info["rej"])
+            return h, X, self.update_tail(t_ij, w_ij)
         layer = self.gamma_t.dense_layers[0]
         return h, X, fused_htr.fused_htr_ell(
             t_ij, EQ, EK, rl_ij, nbr, layer.weight.t().contiguous(),
@@ -278,9 +262,7 @@ class GATAELL(nn.Module):
                    * cosine_cutoff(dist, cfg.cutoff)[..., None])
         chunks = list(torch.split(spatial + sea, D, dim=-1))
         o_s, rest = chunks[0], chunks[1:]
-        # the degree block of each SH component
-        deg = torch.tensor([l - 1 for l in range(1, lmax + 1)
-                            for _ in range(2 * l + 1)], device=t_ij.device)
+        deg = degree_index(lmax, t_ij.device)
         if cfg.sep_dir:
             o_d, rest = torch.stack(rest[:lmax], dim=2), rest[lmax:]
             dX_R = rl_ij[..., None] * o_d[:, :, deg]
@@ -295,49 +277,17 @@ class GATAELL(nn.Module):
         return (_aggr_k(cfg.aggr, o_s, nbr_mask),
                 _aggr_k(cfg.aggr, dX_R + dX_X, nbr_mask))
 
-    def _unfused_update(self, t_ij, rl_ij, EQ, EK, gather: Gather,
-                        info: dict) -> torch.Tensor:
-        """The HTR update as plain tensor ops (JAX gotennet_ell.py:523-574)
-        for the grammar the fused update takes: explicit rejection (or
-        none), per degree with ``sep_htr``, and the gates."""
-        EQ_i = EQ[:, None]                                    # [N, 1, L, D]
-        EK_j = gather(EK)                                     # [N, K, L, D]
-
-        def reject(rep, r):
-            proj = torch.sum(rep * r[..., None], dim=2, keepdim=True)
-            return rep - proj * r[..., None]
-
-        if self.cfg.sep_htr:
-            w_ij = 0.0
-            for lo, hi in degree_slices(self.cfg.lmax):
-                eq_l, ek_l = EQ_i[:, :, lo:hi], EK_j[:, :, lo:hi]
-                if info["rej"]:
-                    r_l = rl_ij[:, :, lo:hi]
-                    eq_l, ek_l = reject(eq_l, r_l), reject(ek_l, -r_l)
-                w_ij = w_ij + torch.sum(eq_l * ek_l, dim=2)
-        elif not info["rej"]:
-            w_ij = torch.sum(EQ_i * EK_j, dim=2)
-        else:
-            w_ij = torch.sum(reject(EQ_i.expand_as(EK_j), rl_ij)
-                             * reject(EK_j, -rl_ij), dim=2)
-        gw = {"gatedt": torch.tanh, "gated": torch.sigmoid,
-              "act": torch.nn.functional.silu}.get(info["gated"],
-                                                   lambda w: w)(w_ij)
-        return t_ij + self.gamma_t(t_ij) * gw
-
-
 class GotenNetELL(nn.Module):
     """The ELL-layout representation stack: ``(h [N, D], X [N, L, D])``
     from an ``ELLBatch``."""
 
     def __init__(self, cfg: GotenNetConfig):
         super().__init__()
-        if (cfg.evec_dim or cfg.n_atom_basis) != cfg.n_atom_basis:
-            raise not_ported("layout='ell' with evec_dim != n_atom_basis", 5)
         D = cfg.n_atom_basis
         self.cfg = cfg
         self.A_na = nn.Embedding(cfg.max_z, D)
-        self.rbf = get_rbf(cfg.radial_basis, cfg.n_rbf, cfg.cutoff)
+        self.radial_basis = RadialBasis(cfg.radial_basis, cfg.n_rbf,
+                                        cfg.cutoff, cfg.trainable_rbf)
         self.node_init = NodeInitELL(cfg)
         self.edge_init = EdgeInitELL(cfg)
         n = cfg.n_interactions
@@ -373,7 +323,7 @@ class GotenNetELL(nn.Module):
 
         z = batch.z.long()
         h = self.A_na(z)
-        phi = self.rbf(dist)                                  # [N, K, R]
+        phi = self.radial_basis(dist)                         # [N, K, R]
         h = self.node_init(z, h, gather, dist, phi, nonloop)
         t_ij = self.edge_init(phi, h, gather)
         # per-source real-edge counts; integers, so the scatter is exact

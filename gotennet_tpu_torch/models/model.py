@@ -1,10 +1,12 @@
-"""Representation + output head (``gotennet_tpu/models/model.py``),
-dense and ELL layouts, with forces by autograd through the positions.
+"""Representation + output head (``gotennet_tpu/models/model.py``) on the
+edge-list, dense and ELL layouts, with forces by autograd through the
+positions.
 
 ``GotenModel`` returns ``{'property': [G, n_out], ...,
 'representation': [N, D], 'vector_representation': [N, L, D]}`` like the
 JAX model, with ``N = G*M`` node slots in the dense layout; the head
 (Atomwise, Dipole or ElectronicSpatialExtent) sees that flat node set.
+The three layouts share one state dict.
 It is built on ``cuda`` unless ``device`` says otherwise, from a seeded
 init or, through ``load_state_dict``, from weights converted by
 ``utils.convert.state_dict_from_jax_params``.  ``apply_with_forces`` adds
@@ -21,9 +23,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from gotennet_tpu_torch.graph.batch import GraphBatch
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
+from gotennet_tpu_torch.models.gotennet import GotenNet, GotenNetConfig
 from gotennet_tpu_torch.models.gotennet_dense import GotenNetDense
 from gotennet_tpu_torch.models.gotennet_ell import GotenNetELL
 from gotennet_tpu_torch.models.heads import (Atomwise, Dipole,
@@ -75,21 +78,22 @@ def init_parameters_(module: nn.Module, generator: torch.Generator,
                     m.weight[0].zero_()
 
 
+_LAYOUTS = {"edge": GotenNet, "dense": GotenNetDense, "ell": GotenNetELL}
+
+
 class GotenModel(nn.Module):
-    """GotenNet representation + one output head; ``layout`` is "dense"
-    (``DenseBatch``) or "ell" (``ELLBatch``).  ``dropout_generator`` (on
-    the model's device, seeded with ``seed``) draws the attention keep
-    masks in training."""
+    """GotenNet representation + one output head; ``layout`` is "edge"
+    (``GraphBatch``), "dense" (``DenseBatch``) or "ell" (``ELLBatch``).
+    ``dropout_generator`` (on the model's device, seeded with ``seed``)
+    draws the attention keep masks in training."""
 
     def __init__(self, cfg: GotenNetConfig, head: HeadConfig,
                  layout: str = "dense", *, seed: int = 0,
                  device: Optional[str | torch.device] = None):
         super().__init__()
-        if layout == "edge":
-            raise not_ported("layout='edge'", 10)
-        if layout not in ("dense", "ell"):
-            raise ValueError(f"unknown layout {layout!r}; choose dense or "
-                             "ell")
+        if layout not in _LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}; choose edge, dense "
+                             "or ell")
         device = resolve_device(device)
         # pos_grads=None follows the head: only force heads differentiate
         # positions (the JAX package resolves it the same way)
@@ -98,8 +102,7 @@ class GotenModel(nn.Module):
         self.cfg = cfg
         self.head = head
         self.layout = layout
-        self.representation = (GotenNetDense(cfg) if layout == "dense"
-                               else GotenNetELL(cfg))
+        self.representation = _LAYOUTS[layout](cfg)
         self.output_modules = nn.ModuleList([_build_head(cfg.n_atom_basis,
                                                          head)])
         init_parameters_(self, torch.Generator().manual_seed(seed))
@@ -111,7 +114,7 @@ class GotenModel(nn.Module):
         # serving mode after construction; training code calls .train()
         self.eval()
 
-    def forward(self, batch: DenseBatch | ELLBatch
+    def forward(self, batch: GraphBatch | DenseBatch | ELLBatch
                 ) -> Dict[str, torch.Tensor]:
         h, X = self.representation(batch, self.dropout_generator)
         if self.layout == "dense":
@@ -150,14 +153,15 @@ def _build_head(n_in: int, head: HeadConfig) -> nn.Module:
     raise ValueError(f"unknown head kind {head.kind!r}")
 
 
-def apply_with_forces(model: GotenModel, batch: DenseBatch | ELLBatch,
+def apply_with_forces(model: GotenModel,
+                      batch: GraphBatch | DenseBatch | ELLBatch,
                       create_graph: Optional[bool] = None
                       ) -> Dict[str, torch.Tensor]:
     """Run the model and, when the head asks for derivatives, add
     ``forces = -dE/dpos`` (the sign flipped unless ``negative_dr`` is
     False), the gradient of ``property.sum()`` with respect to
     ``batch.pos`` alone, zero on padded atoms: ``[G, M, 3]`` on the dense
-    layout, ``[N, 3]`` on the ELL one, as the JAX package's
+    layout, ``[N, 3]`` on the edge and ELL ones, as the JAX package's
     ``apply_with_forces``.  With ``create_graph`` the forces keep their
     graph, so a loss of them can be differentiated (training on forces);
     None means so in training (``model.training``, gradients enabled and a

@@ -29,11 +29,28 @@ def init_weight_(w: torch.Tensor, name: Optional[str],
 
     ``w`` is ``[out, in]`` for a weight and ``[out]`` for a bias; fan-in
     and fan-out follow the JAX package's ``[in, out]`` reading of the
-    same numbers.  Orthogonal inits are not ported (ROADMAP.md Queue 1,
-    item 3)."""
+    same numbers.  The orthogonal inits draw torch's ``orthogonal_`` on
+    ``[out, in]``, as the JAX package does before it transposes: with
+    ``glo_orthogonal`` rescaled to variance 2 / (fan_in + fan_out), with
+    ``he_orthogonal`` standardised over the input axis and scaled by
+    1 / sqrt(fan_in)."""
     with torch.no_grad():
         if name == "zeros":
             return w.zero_()
+        if name in ("glo_orthogonal", "he_orthogonal"):
+            if w.dim() != 2:
+                raise ValueError(f"{name} initialises a matrix, got shape "
+                                 f"{tuple(w.shape)}")
+            fan_out, fan_in = w.shape
+            q = nn.init.orthogonal_(torch.empty(fan_out, fan_in),
+                                    generator=generator)
+            if name == "glo_orthogonal":
+                q = q * math.sqrt(2.0 / ((fan_in + fan_out)
+                                         * torch.var(q, unbiased=False)))
+            else:
+                q = (q - q.mean(dim=1, keepdim=True)) / torch.sqrt(
+                    q.var(dim=1, keepdim=True) + 1e-6) / math.sqrt(fan_in)
+            return w.copy_(q)
         if name is None or name == "":
             # torch.nn.Linear's default: U(-1/sqrt(fan_in), 1/sqrt(fan_in))
             fan_in = w.shape[-1] if w.dim() == 2 else w.shape[0]
@@ -42,9 +59,7 @@ def init_weight_(w: torch.Tensor, name: Optional[str],
             fan_out, fan_in = w.shape
             bound = (gain or 1.0) * math.sqrt(6.0 / (fan_in + fan_out))
         else:
-            raise NotImplementedError(
-                f"weight init {name!r} is not ported yet "
-                "(ROADMAP.md Queue 1, item 3: Remaining primitives)")
+            raise ValueError(f"Unknown initialization {name!r}")
         w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound)
                 - bound)
         return w

@@ -10,7 +10,10 @@ padded to the request's largest molecule.  In the ELL layout
 (``layout="ell"``, ``bench.py``'s ``BENCH_DATASET=large`` mode) every
 chunk is one ``ELLBatch`` with the request's node capacity and neighbour
 slots (probed over the whole request), atoms spatially sorted and
-``block_rows``-row gather windows.  ``predict_with_forces`` also returns
+``block_rows``-row gather windows.  In the edge-list layout
+(``layout="edge"``, ``bench.py``'s default layout) every chunk is one
+``GraphBatch`` with the capacities ``BatchLoader`` probes over the request,
+as ``bench.py`` cuts them.  ``predict_with_forces`` also returns
 ``forces = -dE/dpos`` for a head with ``derivative`` (``MD22Task``'s), by
 one backward pass through the model with respect to the positions alone.
 
@@ -27,8 +30,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
-                                             MoleculeDataset)
+from gotennet_tpu_torch.data.dataset import (BatchLoader, DenseLoader,
+                                             ELLLoader, MoleculeDataset)
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
                                              apply_with_forces)
@@ -52,7 +55,7 @@ class Predictor:
         seed: seed of the init when no weights are given.
         device: ``None`` means ``cuda``; pass ``"cpu"`` for the plain
             versions on the CPU.
-        layout: "dense" or "ell".
+        layout: "edge", "dense" or "ell".
         spatial_sort, block_rows: (ELL) sort each molecule's atoms by
             spatial cell and measure gather windows over ``block_rows``-row
             blocks (None: no windows).
@@ -77,8 +80,13 @@ class Predictor:
         self.block_rows = block_rows
         self.n_out = head.n_out
 
-    def loader(self, ds: MoleculeDataset) -> DenseLoader | ELLLoader:
+    def loader(self, ds: MoleculeDataset
+               ) -> BatchLoader | DenseLoader | ELLLoader:
         """The loader that cuts one request (``ds``) into chunks."""
+        if self.layout == "edge":
+            return BatchLoader(ds, batch_size=self.chunk,
+                               cutoff=self.cfg.cutoff,
+                               max_num_neighbors=self.cfg.max_num_neighbors)
         if self.layout == "ell":
             return ELLLoader(ds, batch_size=self.chunk, cutoff=self.cfg.cutoff,
                              max_num_neighbors=self.cfg.max_num_neighbors,
@@ -135,8 +143,10 @@ class Predictor:
                 continue
             graph = batch.node_graph.numpy()
             real = batch.node_mask.numpy()
-            atom = batch.atom.numpy()
             for g, i in enumerate(idx):
                 rows = real & (graph == g)
-                forces[i][atom[rows]] = f[rows]
+                if self.layout == "edge":    # atoms in the request's order
+                    forces[i] = f[rows]
+                else:
+                    forces[i][batch.atom.numpy()[rows]] = f[rows]
         return energies.cpu().numpy(), forces

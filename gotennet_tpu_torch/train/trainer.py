@@ -36,8 +36,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
-                                             MoleculeDataset)
+from gotennet_tpu_torch.data.dataset import (BatchLoader, DenseLoader,
+                                             ELLLoader, MoleculeDataset)
+from gotennet_tpu_torch.graph.batch import GraphBatch
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
@@ -63,7 +64,7 @@ def make_loss_fn(model: GotenModel, task: Task) -> Callable:
     then differentiated)."""
     specs = task.get_losses()
 
-    def loss_fn(batch: DenseBatch | ELLBatch):
+    def loss_fn(batch: GraphBatch | DenseBatch | ELLBatch):
         out = apply_with_forces(model, batch,
                                 create_graph=torch.is_grad_enabled())
         targets = task.get_targets(batch)
@@ -84,12 +85,13 @@ def check_force_training(cfg: GotenNetConfig, head: HeadConfig,
                          layout: str, chunks: Sequence = ()) -> None:
     """Raise ``ValueError`` where a force loss (``head.derivative``) would
     train through a fused kernel: the dense layout with ``fused``, or an ELL
-    chunk for which ``fused_paths`` picks the fused message or update.  The
+    chunk for which ``fused_paths`` picks the fused message or update (the
+    edge layout runs no kernel).  The
     kernels' backward is differentiable once only (``once_differentiable``),
     as the JAX package's Pallas VJP is: its ``jax.value_and_grad`` of a force
     loss fails there too, which is why its force experiments leave ``fused``
     at False."""
-    if not head.derivative:
+    if not head.derivative or layout == "edge":
         return
     if layout == "dense":
         fused = cfg.fused
@@ -109,7 +111,7 @@ def make_chunks(molecules: Sequence[dict], chunk: int,
                 device: Optional[str | torch.device] = None,
                 bucket: bool = True, layout: str = "dense",
                 cutoff: float = 5.0, max_num_neighbors: int = 32
-                ) -> List[DenseBatch | ELLBatch]:
+                ) -> List[GraphBatch | DenseBatch | ELLBatch]:
     """The accumulation chunks of one batch, as ``bench.py`` cuts them:
     ``chunk`` graphs each, on ``device``.  Dense: with ``bucket`` the
     molecules are sorted by size over one window spanning the batch and each
@@ -118,7 +120,9 @@ def make_chunks(molecules: Sequence[dict], chunk: int,
     batch's largest molecule (rounded up to a multiple of 8).  ELL
     (``bench.py``'s large mode): in order, atoms spatially sorted, 64-row
     gather windows, every chunk at the batch's node and neighbour capacity,
-    as ``Predictor(layout="ell")`` cuts a request.  Molecules that all
+    as ``Predictor(layout="ell")`` cuts a request.  Edge list: in order,
+    every chunk at the capacities ``BatchLoader`` probes over the batch, as
+    ``bench.py`` cuts them.  Molecules that all
     carry force targets (``dy``) give chunks that carry them."""
     ds = MoleculeDataset(
         z=[np.asarray(m["z"], np.int32) for m in molecules],
@@ -127,7 +131,10 @@ def make_chunks(molecules: Sequence[dict], chunk: int,
                       for m in molecules]),
         dy=([np.asarray(m["dy"], np.float32) for m in molecules]
             if all("dy" in m for m in molecules) else None))
-    if layout == "ell":
+    if layout == "edge":
+        loader = BatchLoader(ds, batch_size=chunk, cutoff=cutoff,
+                             max_num_neighbors=max_num_neighbors)
+    elif layout == "ell":
         loader = ELLLoader(ds, batch_size=chunk, cutoff=cutoff,
                            max_num_neighbors=max_num_neighbors,
                            spatial_sort=True, block_rows=64)
@@ -205,7 +212,8 @@ def train_steps(cfg: GotenNetConfig, head: HeadConfig,
     ``pos`` and ``y``), cut into ``chunk``-graph accumulation chunks
     (see ``make_chunks``; ``bucket`` applies to the dense layout), with
     AdamW(lr, eps=1e-7, no weight decay) after a global-norm clip at 5.0.
-    ``layout`` is "dense" or "ell".  ``device=None`` means ``cuda``.
+    ``layout`` is "edge", "dense" or "ell".  ``device=None`` means
+    ``cuda``.
     Returns the loss of each step.  ``task`` gives the loss (None: the
     base task's L1 loss on the property); a force task's molecules carry
     ``dy``, and a force head on a fused path raises before the first

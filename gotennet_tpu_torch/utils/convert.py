@@ -6,9 +6,12 @@ dict, whose keys are the reference checkpoint's
 (``representation.gata_list.0.W_q.weight``, ...).  Kernels are
 transposed from JAX's ``[in, out]`` to torch's ``[out, in]``.  The
 mapping is a local copy of ``_mapping`` / ``head_mapping`` in
-``gotennet_tpu/utils/torch_convert.py``, restricted to the options this
-package ports; the head's mean, stddev and atomref (Atomwise) and mass
-table (ESE) come from the ``HeadConfig``.  ``jax_params_from_state_dict``
+``gotennet_tpu/utils/torch_convert.py``, every option of the
+representation included (a trainable radial basis, ``layernorm``, the
+update's MLP, ``edge_ln``, ``gamma_w`` and ``W_edp``, any ``evec_dim``);
+one state dict serves the edge, dense and ELL layouts.  The head's mean,
+stddev and atomref (Atomwise) and mass table (ESE) come from the
+``HeadConfig``.  ``jax_params_from_state_dict``
 is its inverse: a state dict back to the JAX package's parameter tree
 (``{'params': {...}}`` of numpy arrays), which is what a checkpoint of
 either package stores; the head it maps is the one
@@ -23,7 +26,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+from gotennet_tpu_torch.models.gotennet import (GotenNetConfig,
+                                               parse_edge_updates)
 from gotennet_tpu_torch.models.heads import ATOMIC_MASSES
 from gotennet_tpu_torch.models.model import HeadConfig
 
@@ -59,8 +63,14 @@ def _mlp(torch_name: str, jax_path: tuple, n_layers: int,
 def _mapping(cfg: GotenNetConfig) -> List[Entry]:
     """Representation entries (keys without the 'representation.'
     prefix, paths from the representation subtree)."""
-    m: List[Entry] = [("A_na.weight", ("A_na",), False),
-                      ("node_init.A_nbr.weight", ("node_init", "A_nbr"), False)]
+    info = parse_edge_updates(cfg.edge_updates)
+    m: List[Entry] = [("A_na.weight", ("A_na",), False)]
+    if cfg.trainable_rbf:
+        key = cfg.radial_basis.lower().replace("-", "").replace("_", "")
+        for f in (("offsets", "widths") if key == "gaussianrbf"
+                  else ("means", "betas")):
+            m.append((f"radial_basis.{f}", ("radial_basis", f), False))
+    m.append(("node_init.A_nbr.weight", ("node_init", "A_nbr"), False))
     m += _dense("node_init.W_ndp.dense_layers.0", ("node_init", "W_ndp"))
     m += _mlp("node_init.W_nrd_nru", ("node_init", "W_nrd_nru"), 2,
               norm_hidden=True)
@@ -73,8 +83,10 @@ def _mapping(cfg: GotenNetConfig) -> List[Entry]:
                                ("gamma_v.1", "gamma_v_1"), ("W_re", "W_re"),
                                ("W_rs", "W_rs")):
             m += _dense(f"{g}.{t_name}", j + (j_name,))
-        if i < cfg.n_interactions - 1:
-            m += _mlp(f"{g}.gamma_t", j + ("gamma_t",), 1)
+        if i < cfg.n_interactions - 1 and cfg.edge_updates:
+            m += _mlp(f"{g}.gamma_t", j + ("gamma_t",),
+                      2 if info["mlp"] or info["mlpa"] else 1,
+                      norm_hidden=bool(cfg.edge_ln))
             m += _dense(f"{g}.W_vq", j + ("W_vq",), bias=False)
             if cfg.sep_htr:
                 for l in range(cfg.lmax):
@@ -82,6 +94,20 @@ def _mapping(cfg: GotenNetConfig) -> List[Entry]:
                                 bias=False)
             else:
                 m += _dense(f"{g}.W_vk", j + ("W_vk",), bias=False)
+            if info["lin_w"]:
+                if info["lin_ln"] == 1:
+                    # the reference's gamma_w Sequential, its LayerNorm at 0
+                    m.append((f"{g}.gamma_w.0.weight",
+                              j + ("gamma_w_ln", "scale"), False))
+                    m.append((f"{g}.gamma_w.0.bias",
+                              j + ("gamma_w_ln", "bias"), False))
+                m += _dense(f"{g}.W_edp", j + ("W_edp",),
+                            norm=info["lin_ln"] == 2)
+        if cfg.layernorm:
+            m.append((f"{g}.layernorm.weight", j + ("layernorm", "scale"),
+                      False))
+            m.append((f"{g}.layernorm.bias", j + ("layernorm", "bias"),
+                      False))
         e, je = f"eqff_list.{i}", (f"eqff_{i}",)
         m += _dense(f"{e}.gamma_m.0", je + ("gamma_m_0",))
         m += _dense(f"{e}.gamma_m.1", je + ("gamma_m_1",))

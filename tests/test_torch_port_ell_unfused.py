@@ -11,6 +11,8 @@ forces against JAX's ``apply_with_forces``.  Sizes are small: D = 32, 2
 layers, frames of 40-60 atoms.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -156,18 +158,28 @@ def test_unfused_paths_are_chosen_as_jax_does():
 
 
 def test_update_variants_the_ell_layout_does_not_take_raise():
-    """An EK/EQ width other than n_atom_basis, and the MLP and linear update
-    variants (JAX's unfused update has them), wait for item 5."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        GotenModel(GotenNetConfig(**SMALL, fused=False, evec_dim=16),
-                   HeadConfig(), layout="ell", device="cpu")
-    for variant in ("mlpa", "linw", "gated_postln"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            GotenNetConfig(**SMALL, fused=False, edge_updates=variant)
+    """An EK/EQ width other than n_atom_basis and the MLP and linear update
+    variants, which item 5 ported: each builds the ELL model, takes the
+    unfused update (with the fused message too) and matches JAX's unfused
+    model at 1e-5 of scale (float32, sums in another order)."""
+    batch, jbatch = _batches(False)
+    for variant in (dict(edge_updates="linw", evec_dim=16),
+                    dict(edge_updates="mlpa"), dict(edge_updates="linw"),
+                    dict(edge_updates="gated_postln")):
+        jcfg = JConfig(**SMALL, fused=False, **variant)
+        jmodel = JModel(jcfg, JHead(), layout="ell")
+        params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jbatch)
+        cfg = GotenNetConfig(**SMALL, fused=False, **variant)
+        assert fused_paths(dataclasses.replace(cfg, fused=True,
+                                               fused_htr=True),
+                           64, 64, None) == (True, False)
+        with torch.inference_mode():
+            pout = _port_model(cfg, params)(batch)
+        _compare(jax.jit(jmodel.apply)(params, jbatch), pout, 1e-5)
 
 
 # ---- the training step against JAX's one_step --------------------------------
-N_FRAMES, LR, N_STEPS = 2, 1e-4, 3
+N_FRAMES, LR, N_STEPS = 1, 1e-4, 3
 LOADER = dict(batch_size=1, spatial_sort=True, block_rows=16)
 
 

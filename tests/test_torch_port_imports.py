@@ -35,11 +35,13 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # ops, nn, graph, data, models, tasks, train, utils and their modules,
-    # the command line, the heads and the MD readers among them
-    assert int(out.stdout.split()[-1]) >= 41
+    # the command line, the heads, the MD readers and the edge-list
+    # layout's batch, segment ops and norms among them
+    assert int(out.stdout.split()[-1]) >= 44
     names = set(out.stdout.split())
     for module in ("cli", "data.md17", "models.heads", "utils.convert",
-                   "train.trainer"):
+                   "train.trainer", "graph.batch", "graph.segment",
+                   "nn.norms"):
         assert f"gotennet_tpu_torch.{module}" in names, module
 
 

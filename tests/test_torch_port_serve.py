@@ -2,16 +2,24 @@
 not change a molecule's prediction, answers come back in request order,
 and the entry points refuse to pick the CPU on their own."""
 
+import jax
 import numpy as np
 import pytest
 import torch
 
-from gotennet_tpu_torch.data.dataset import synthetic_molecules
+from gotennet_tpu.data.dataset import DenseLoader as JDenseLoader
+from gotennet_tpu.data.dataset import synthetic_molecules as j_synthetic
+from gotennet_tpu.models.gotennet import GotenNetConfig as JConfig
+from gotennet_tpu.models.model import GotenModel as JModel
+from gotennet_tpu.models.model import HeadConfig as JHead
+
+from gotennet_tpu_torch.data.dataset import DenseLoader, synthetic_molecules
 from gotennet_tpu_torch.graph.dense_batch import collate_dense
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.serve import Predictor
 from gotennet_tpu_torch.train.trainer import train_steps
+from gotennet_tpu_torch.utils.convert import state_dict_from_jax_params
 
 CFG_KW = dict(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
               n_rbf=8)
@@ -69,10 +77,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         GotenModel(CFG, HEAD, device="cuda")
 
 
-# the update's gates and norej run on both ELL update paths; the dense model
-# takes them only with the fused HTR update, and refuses them on its plain
-# update (item 5), with the fused message or the unfused one; the config
-# refuses the rest
+# each option with the ROADMAP.md item that ported it: the update's gates
+# and norej on the dense plain update, the MLP and linear variants, no
+# update, edge_ln (item 5), the pre-norms and the trainable basis (item 3);
+# only scan_layers (item 13) is still refused
 @pytest.mark.parametrize("kw,item", [
     (dict(fused=False, edge_updates="gated"), "item 5"),
     (dict(fused=False, aggr="mean", edge_updates="norej"), "item 5"),
@@ -84,8 +92,30 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     (dict(scan_layers=True), "item 13"), (dict(edge_ln="layer"), "item 5"),
     (dict(edge_updates="mlp"), "item 5")])
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        GotenModel(GotenNetConfig(**{**CFG_KW, **kw}), HEAD, device="cpu")
+    """The options items 3 and 5 ported build the dense model, which
+    matches JAX's from its init at 1e-5 of the output's scale (float32, the
+    same math with sums in another order; JAX's XLA message, the port's
+    fused one where ``fused`` is left at True); scan_layers raises."""
+    if item == "item 13":
+        with pytest.raises(NotImplementedError, match=item):
+            GotenModel(GotenNetConfig(**{**CFG_KW, **kw}), HEAD,
+                       device="cpu")
+        return
+    jkw = {k: v for k, v in kw.items() if k != "fused"}
+    jmodel = JModel(JConfig(**CFG_KW, **jkw), JHead(mean=0.5, stddev=2.0),
+                    layout="dense")
+    jbatch = next(iter(JDenseLoader(j_synthetic(3, seed=2, min_atoms=4,
+                                                max_atoms=12), 3)))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jbatch)
+    cfg = GotenNetConfig(**{**CFG_KW, **kw})
+    model = GotenModel(cfg, HEAD, device="cpu")
+    model.load_state_dict(state_dict_from_jax_params(params, cfg, HEAD))
+    batch = next(iter(DenseLoader(synthetic_molecules(3, seed=2, min_atoms=4,
+                                                      max_atoms=12), 3)))
+    want = np.asarray(jax.jit(jmodel.apply)(params, jbatch)["property"])
+    with torch.inference_mode():
+        got = model(batch)["property"].numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("kw", [dict(aggr="mean"), dict(aggr="max"),
@@ -98,13 +128,18 @@ def test_fused_message_options_raise_value_error(kw):
 
 
 def test_unported_layouts_heads_and_training_dropout_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        GotenModel(CFG, HEAD, layout="edge", device="cpu")
-    # the edge-list layout neither serves nor trains
+    # the edge-list layout is ported (item 10): it serves and trains, with
+    # the port's default config (fused=True, which the edge layout ignores)
     mols = synthetic_molecules(2, seed=0, min_atoms=4,
                                max_atoms=9).graph_dicts(range(2))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_steps(CFG, HEAD, mols, 1, device="cpu", layout="edge")
+    pred = Predictor(CFG, HEAD, device="cpu", layout="edge")
+    assert pred.model.layout == "edge"
+    out = pred.predict(mols)
+    assert out.shape == (2, 1) and np.isfinite(out).all()
+    losses = train_steps(CFG, HEAD, mols, 1, device="cpu", layout="edge")
+    assert len(losses) == 1 and np.isfinite(losses).all()
+    with pytest.raises(ValueError, match="unknown layout"):
+        GotenModel(CFG, HEAD, layout="csr", device="cpu")
     # the Dipole and ESE heads are ported (item 6): they build and answer
     for kind in ("dipole", "electronic_spatial_extent"):
         model = GotenModel(CFG, HeadConfig(kind=kind), device="cpu")
