@@ -203,11 +203,11 @@ def set_epoch(loader, epoch: int) -> None:
 
 
 class BatchLoader:
-    """Iterates fixed-capacity ``GraphBatch``es (the edge-list layout) over a
-    dataset, ``batch_size`` molecules each, in order or, with ``shuffle``,
-    in an order drawn from ``seed`` (and the epoch, ``set_epoch``);
-    ``drop_last`` leaves out a short last batch, which is otherwise padded
-    with empty graph slots.
+    """Iterates fixed-capacity ``GraphBatch``es (the edge-list layout, each
+    node's self-loop included) over a dataset, ``batch_size`` molecules
+    each, in order or, with ``shuffle``, in an order drawn from ``seed``
+    (and the epoch, ``set_epoch``); ``drop_last`` leaves out a short last
+    batch, which is otherwise padded with empty graph slots.
 
     Capacities, unless given: nodes for the ``batch_size`` largest
     molecules plus 8, rounded up to 8; edges for that many nodes at the
@@ -220,7 +220,7 @@ class BatchLoader:
 
     def __init__(self, ds: MoleculeDataset, batch_size: int,
                  cutoff: float = 5.0, shuffle: bool = False, seed: int = 0,
-                 max_num_neighbors: int = 32, loop: bool = True,
+                 max_num_neighbors: int = 32,
                  node_capacity: Optional[int] = None,
                  edge_capacity: Optional[int] = None,
                  drop_last: bool = False,
@@ -233,7 +233,6 @@ class BatchLoader:
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.max_num_neighbors = max_num_neighbors
-        self.loop = loop
         self.drop_last = drop_last
         if node_capacity is None or edge_capacity is None:
             sizes = np.asarray([len(z) for z in ds.z])
@@ -242,7 +241,7 @@ class BatchLoader:
                 0, len(ds) - 1, min(len(ds), int(neighbor_probe))
             ).astype(int))
             e_per_node = [
-                len(build_edges(ds.pos[i], cutoff, loop,
+                len(build_edges(ds.pos[i], cutoff, True,
                                 max_num_neighbors)[0]) / max(len(ds.z[i]), 1)
                 for i in probe]
             deg = max(e_per_node) if e_per_node else 8.0
@@ -285,7 +284,7 @@ class BatchLoader:
                 try:
                     batch = collate_graphs(
                         graphs, self.node_capacity, self.edge_capacity, bs,
-                        cutoff=self.cutoff, loop=self.loop,
+                        cutoff=self.cutoff, loop=True,
                         max_num_neighbors=self.max_num_neighbors,
                         y_dim=y_dim, with_forces=self.with_forces)
                     break

@@ -9,12 +9,11 @@ first, so padded slots add exact zeros.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional
 
-import numpy as np
 import torch
 
-__all__ = ["GraphBatch", "pad_sizes_for", "pad_stack"]
+__all__ = ["GraphBatch"]
 
 
 @dataclasses.dataclass
@@ -67,44 +66,3 @@ class GraphBatch:
             f.name: (None if getattr(self, f.name) is None
                      else getattr(self, f.name).to(device))
             for f in dataclasses.fields(self)})
-
-
-def pad_stack(batches: Sequence[GraphBatch]) -> GraphBatch:
-    """Stack batches along a new leading axis, each field zero-padded to
-    the largest shape first.  A batch grown by zero padding means the same
-    (padded slots carry zero masks, and src = dst = 0 is the collator's own
-    padding), so batches of a loader that rebucketed stack all the same."""
-    if not batches:
-        raise ValueError("pad_stack: no batches")
-    fields = {}
-    for f in dataclasses.fields(GraphBatch):
-        column = [getattr(b, f.name) for b in batches]
-        if any(x is None for x in column):
-            if not all(x is None for x in column):
-                raise ValueError(f"pad_stack: {f.name} is missing from some "
-                                 "batches")
-            fields[f.name] = None
-            continue
-        target = [max(s) for s in zip(*(x.shape for x in column))]
-        padded = []
-        for x in column:
-            pad = []
-            for s, t in zip(reversed(x.shape), reversed(target)):
-                pad += [0, t - s]
-            padded.append(torch.nn.functional.pad(x, pad) if any(pad) else x)
-        fields[f.name] = torch.stack(padded)
-    return GraphBatch(**fields)
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def pad_sizes_for(n_nodes: Sequence[int], n_edges: Sequence[int],
-                  node_multiple: int = 8, edge_multiple: int = 128,
-                  slack: float = 1.0) -> Tuple[int, int]:
-    """``(node, edge)`` capacities for a batch of molecules of these node
-    and edge counts, times ``slack`` and rounded up to the multiples."""
-    n = max(1, int(np.ceil(sum(n_nodes) * slack)))
-    e = max(1, int(np.ceil(sum(n_edges) * slack)))
-    return _round_up(n, node_multiple), _round_up(e, edge_multiple)

@@ -63,19 +63,17 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, mask: Optional[torch.Tensor] = None,
-                neutral: Optional[float] = None) -> torch.Tensor:
-    """Maximum of the rows per segment.  Masked rows take ``neutral`` (by
-    default the most negative finite value of the type); a segment no row
-    reaches gives -inf for a floating type and the type's minimum for an
-    integer one, as ``jax.ops.segment_max``."""
+                num_segments: int, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Maximum of the rows per segment.  Masked rows take the type's most
+    negative finite value; a segment no row reaches gives -inf for a
+    floating type and the type's minimum for an integer one, as
+    ``jax.ops.segment_max``."""
     floating = data.is_floating_point()
     info = torch.finfo(data.dtype) if floating else torch.iinfo(data.dtype)
-    if neutral is None:
-        neutral = info.min
     if mask is not None:
         data = torch.where(_expand(mask, data), data,
-                           torch.full_like(data, neutral))
+                           torch.full_like(data, info.min))
     out = torch.full((num_segments,) + tuple(data.shape[1:]),
                      -torch.inf if floating else info.min,
                      dtype=data.dtype, device=data.device)

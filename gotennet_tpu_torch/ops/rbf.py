@@ -11,7 +11,7 @@ them out of the state dict otherwise.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +20,7 @@ from torch import nn
 from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
 
 __all__ = ["gaussian_rbf", "bessel_basis", "expnormal_smearing", "get_rbf",
-           "RadialBasis"]
+           "parameter_names", "RadialBasis"]
 
 
 def gaussian_rbf(r: torch.Tensor, offsets, widths) -> torch.Tensor:
@@ -66,6 +66,12 @@ def _initial(key: str, n_rbf: int, cutoff: float) -> dict:
         return {"offsets": offsets,
                 "widths": np.full(n_rbf, width, np.float32)}
     raise ValueError(f"Unknown radial basis {key!r}")
+
+
+def parameter_names(name: str) -> Tuple[str, ...]:
+    """Names of the basis ``name``'s parameters, in the state dict's
+    order."""
+    return tuple(_initial(_key(name), 2, 1.0))
 
 
 def get_rbf(name: str, n_rbf: int,

@@ -28,6 +28,7 @@ import torch
 
 from gotennet_tpu_torch.models.gotennet import (GotenNetConfig,
                                                parse_edge_updates)
+from gotennet_tpu_torch.ops.rbf import parameter_names
 from gotennet_tpu_torch.models.heads import ATOMIC_MASSES
 from gotennet_tpu_torch.models.model import HeadConfig
 
@@ -66,9 +67,7 @@ def _mapping(cfg: GotenNetConfig) -> List[Entry]:
     info = parse_edge_updates(cfg.edge_updates)
     m: List[Entry] = [("A_na.weight", ("A_na",), False)]
     if cfg.trainable_rbf:
-        key = cfg.radial_basis.lower().replace("-", "").replace("_", "")
-        for f in (("offsets", "widths") if key == "gaussianrbf"
-                  else ("means", "betas")):
+        for f in parameter_names(cfg.radial_basis):
             m.append((f"radial_basis.{f}", ("radial_basis", f), False))
     m.append(("node_init.A_nbr.weight", ("node_init", "A_nbr"), False))
     m += _dense("node_init.W_ndp.dense_layers.0", ("node_init", "W_ndp"))

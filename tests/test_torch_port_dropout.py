@@ -44,8 +44,8 @@ def _batches(layout):
                 next(iter(DenseLoader(synthetic_molecules(4, seed=1, **SIZES),
                                       4))))
     kw = dict(neighbor_probe="full")
-    return (next(iter(JELLLoader(j_synthetic(1, seed=1, **FRAMES), 1, **kw))),
-            next(iter(ELLLoader(synthetic_molecules(1, seed=1, **FRAMES), 1,
+    return (next(iter(JELLLoader(j_synthetic(2, seed=1, **FRAMES), 2, **kw))),
+            next(iter(ELLLoader(synthetic_molecules(2, seed=1, **FRAMES), 2,
                                 **kw))))
 
 

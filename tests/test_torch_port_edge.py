@@ -29,8 +29,6 @@ import torch
 from gotennet_tpu.data.dataset import BatchLoader as JBatchLoader
 from gotennet_tpu.data.dataset import synthetic_molecules as j_synthetic
 from gotennet_tpu.graph import segment as jseg
-from gotennet_tpu.graph.batch import pad_sizes_for as j_pad_sizes_for
-from gotennet_tpu.graph.batch import pad_stack as j_pad_stack
 from gotennet_tpu.graph.neighborlist import collate_graphs as j_collate
 from gotennet_tpu.models.gotennet import GotenNetConfig as JConfig
 from gotennet_tpu.models.model import GotenModel as JModel
@@ -43,7 +41,6 @@ from gotennet_tpu.train.trainer import make_loss_fn as j_make_loss_fn
 
 from gotennet_tpu_torch.data.dataset import BatchLoader, synthetic_molecules
 from gotennet_tpu_torch.graph import segment
-from gotennet_tpu_torch.graph.batch import pad_sizes_for, pad_stack
 from gotennet_tpu_torch.graph.neighborlist import collate_graphs
 from gotennet_tpu_torch.models import gotennet
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
@@ -190,19 +187,6 @@ def test_batch_loader_matches_jax(kw):
         assert got.edge_capacity > 128
     with pytest.raises(NotImplementedError, match="item 12"):
         got.set_shard(2, 0)
-
-
-def test_pad_stack_and_pad_sizes_match_jax():
-    ds = synthetic_molecules(4, seed=5, **MOLS)
-    jds = j_synthetic(4, seed=5, **MOLS)
-    sizes = [(24, 256), (32, 384)]
-    got = pad_stack([collate_graphs(ds.graph_dicts([i]), n, e, 1)
-                     for i, (n, e) in enumerate(sizes)])
-    want = j_pad_stack([j_collate(jds.graph_dicts([i]), n, e, 1)
-                        for i, (n, e) in enumerate(sizes)])
-    _same_batch(got, want)
-    for args in (([5, 9], [40, 70]), ([1], [1], 8, 128, 1.3)):
-        assert pad_sizes_for(*args) == j_pad_sizes_for(*args)
 
 
 # ---- the model ---------------------------------------------------------------

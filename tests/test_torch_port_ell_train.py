@@ -344,7 +344,7 @@ def test_htr_backward_source_on_host_matches_plain(
 
 
 # ---- the training step against JAX's one_step --------------------------------
-N_FRAMES, LR, N_STEPS = 1, 1e-4, 3
+N_FRAMES, LR, N_STEPS = 2, 1e-4, 3
 LOADER = dict(batch_size=1, spatial_sort=True, block_rows=16)
 
 
@@ -432,7 +432,7 @@ def test_ell_three_steps_match_jax(jax_run, port):
 
 
 def test_ell_train_steps_entry_point_on_cpu():
-    mols = synthetic_molecules(1, seed=8, **FRAMES).graph_dicts(range(1))
+    mols = synthetic_molecules(2, seed=8, **FRAMES).graph_dicts(range(2))
     cfg = GotenNetConfig(**SMALL, fused_htr=True)
     head = QM9Task("U0", dataset_meta=META).build_head()
     losses = train_steps(cfg, head, mols, 3, chunk=1, device="cpu",

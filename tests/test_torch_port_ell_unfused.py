@@ -179,7 +179,7 @@ def test_update_variants_the_ell_layout_does_not_take_raise():
 
 
 # ---- the training step against JAX's one_step --------------------------------
-N_FRAMES, LR, N_STEPS = 1, 1e-4, 3
+N_FRAMES, LR, N_STEPS = 2, 1e-4, 3
 LOADER = dict(batch_size=1, spatial_sort=True, block_rows=16)
 
 

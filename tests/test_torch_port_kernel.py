@@ -4,9 +4,9 @@
 kernel is held against on the card) is compared with
 ``gotennet_tpu.ops.pallas.fused_gata.fused_gata_message`` run in
 interpret mode, on the same numpy inputs.  A second test compiles the
-CUDA source with the host C++ compiler, one std::thread per CUDA thread
-and a barrier for ``__syncthreads``, and holds its arithmetic against
-the plain version on the CPU.
+CUDA source with the host C++ compiler, one fiber per CUDA thread and a
+switch back to the launcher for ``__syncthreads``, and holds its
+arithmetic against the plain version on the CPU.
 """
 
 import ctypes
@@ -104,15 +104,18 @@ def test_wrapper_rejects_unported_devices():
 
 
 # ---------------------------------------------------------------------
-# The CUDA source on the CPU: stand-in headers map the CUDA built-ins onto
-# std::thread (one per CUDA thread) and std::barrier (__syncthreads).
+# The CUDA source on the CPU: stand-in headers map each CUDA thread of a
+# block onto a fiber (ucontext) of the launching thread and __syncthreads
+# onto a switch back to the launcher, which runs every fiber of the block
+# up to its next barrier before it resumes the first one again.
 _CUDA_RUNTIME_H = r"""
 #pragma once
 #include <math.h>
+#include <sys/mman.h>
+#include <ucontext.h>
 #include <algorithm>
-#include <barrier>
 #include <cstddef>
-#include <thread>
+#include <cstdlib>
 #include <vector>
 #define __global__
 #define __device__
@@ -126,11 +129,21 @@ struct dim3 { unsigned x, y, z;
 struct uint3_ { unsigned x, y, z; };
 inline thread_local uint3_ threadIdx;
 inline thread_local uint3_ blockIdx;
-inline std::barrier<>* g_bar;
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
+struct HostBlock {
+  ucontext_t launcher;
+  std::vector<ucontext_t> fiber;
+  std::vector<char> done;
+  unsigned cur = 0;
+  void (*body)(const void*, const void*) = nullptr;
+  const void* kern = nullptr;
+  const void* args = nullptr;
+};
+inline thread_local HostBlock* g_block;
+inline void __syncthreads() {
+  swapcontext(&g_block->fiber[g_block->cur], &g_block->launcher); }
 // the kernels call it in code every warp of the block runs alike, so the
 // block's barrier stands in for the warp's
-inline void __syncwarp(unsigned = 0xffffffffu) { g_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 namespace { float4 smem4[16384]; }
@@ -150,25 +163,54 @@ template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 using std::max; using std::min;
-// one thread per CUDA thread of a block, walking the blocks in order; a
-// barrier after each block keeps the next one from starting early
+template <class K, class P>
+void host_body(const void* kern, const void* args) {
+  (*static_cast<const K*>(kern))(*static_cast<const P*>(args)); }
+inline void host_fiber() {
+  g_block->body(g_block->kern, g_block->args);
+  g_block->done[g_block->cur] = 1; }
+// the blocks in order; within one, rounds that run each fiber still going
+// up to its next barrier (or its end), thread 0 first
 template <class K, class P>
 void host_launch(K kern, dim3 grid, unsigned nt, const P& p) {
-  std::barrier<> bar(nt);
-  g_bar = &bar;
-  std::vector<std::thread> th;
-  for (unsigned t = 0; t < nt; ++t)
-    th.emplace_back([&, t] {
-      threadIdx = {t, 0, 0};
-      for (unsigned bz = 0; bz < grid.z; ++bz)
-      for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-          blockIdx = {bx, by, bz};
-          kern(p);
-          bar.arrive_and_wait();
+  constexpr size_t kStack = size_t(1) << 20;  // touched pages only
+  char* stacks = static_cast<char*>(mmap(
+      nullptr, kStack * nt, PROT_READ | PROT_WRITE,
+      MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0));
+  if (stacks == MAP_FAILED) abort();
+  HostBlock b;
+  b.fiber.resize(nt);
+  b.done.resize(nt);
+  b.body = host_body<K, P>;
+  b.kern = &kern;
+  b.args = &p;
+  HostBlock* outer = g_block;
+  g_block = &b;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      blockIdx = {bx, by, bz};
+      for (unsigned t = 0; t < nt; ++t) {
+        getcontext(&b.fiber[t]);
+        b.fiber[t].uc_stack.ss_sp = stacks + t * kStack;
+        b.fiber[t].uc_stack.ss_size = kStack;
+        b.fiber[t].uc_link = &b.launcher;
+        makecontext(&b.fiber[t], host_fiber, 0);
+        b.done[t] = 0;
+      }
+      for (bool going = true; going;) {
+        going = false;
+        for (unsigned t = 0; t < nt; ++t) {
+          if (b.done[t]) continue;
+          b.cur = t;
+          threadIdx = {t, 0, 0};
+          swapcontext(&b.launcher, &b.fiber[t]);
+          going = going || !b.done[t];
         }
-    });
-  for (auto& x : th) x.join();
+      }
+    }
+  g_block = outer;
+  munmap(stacks, kStack * nt);
 }
 """
 _CUDA_BF16_H = r"""
@@ -188,7 +230,7 @@ def build_on_host(directory, source, launch):
     """Compile ``csrc/<source>`` with the host C++ compiler into
     ``directory``, its one kernel-launch line ``launch``
     (``kern<<<grid, THREADS, smem, stream>>>(ARGS);``) replaced by a host
-    launch of THREADS std::threads; returns the loaded library with its C
+    launch of THREADS fibers; returns the loaded library with its C
     interface declared.  Skips without g++."""
     cxx = shutil.which("g++")
     if cxx is None:
@@ -204,7 +246,7 @@ def build_on_host(directory, source, launch):
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                     f"-I{directory}", f"-I{_build.CSRC}",
                     "-o", str(directory / "libk.so"),
-                    str(directory / "k.cpp"), "-lpthread"], check=True,
+                    str(directory / "k.cpp")], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(directory / "libk.so"))
     _build._declare(lib, source)

@@ -3,8 +3,8 @@
 ``chip_smoke.PRODUCT_SOURCE`` is a plain C wrapper around the product and
 the column sums of ``csrc/bwd_sums.cuh`` (the code every backward kernel
 of the port shares).  Here it is written into a temporary directory and
-built with g++ (one std::thread per CUDA thread, as the other host builds
-of the CUDA sources), then held against torch products of the same
+built with g++ (one fiber per CUDA thread, as the other host builds of
+the CUDA sources), then held against torch products of the same
 factors, rounded to bf16 for a bf16 pair type, over ragged shapes, both
 layouts of each factor, ``accumulate``, ``bias``, ``round_out`` and the
 split over pairs that forms the weight gradients.  The host build of the
@@ -41,7 +41,7 @@ def host_products(tmp_path_factory):
         "host_launch(kern, grid, kThreads, args); (void)stream; (void)smem;"))
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{d}",
                     f"-I{_build.CSRC}", "-o", str(d / "libp.so"),
-                    str(d / "k.cpp"), "-lpthread"], check=True,
+                    str(d / "k.cpp")], check=True,
                    capture_output=True)
     return chip_smoke.declare_products(ctypes.CDLL(str(d / "libp.so")))
 
