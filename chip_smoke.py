@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
+(``--rank ...`` is how phase 37 starts its ranks.)
+
 Phases, in order; any failure exits non-zero before the result line:
   1. device: the card's name and power limit; build the CUDA kernels
      from ``gotennet_tpu_torch/csrc`` (one nvcc per source, all started
@@ -223,7 +225,45 @@ Phases, in order; any failure exits non-zero before the result line:
      message: row 1) and ELL (row 5) energies within ``TOL_OPTIONS`` of the
      edge layout's, 32 launches each and nothing else, each request timed
      and profiled, rows 1 and 5 held against their plain versions and
-     timed on these inputs.
+     timed on these inputs;
+ 35. packed dense batches: phase 4's 256 molecules through
+     ``DenseLoader(pack=True)`` (32 a batch, several to a slab of the
+     largest molecule's M, the pairs between molecules masked) on phase 4's
+     model and weights: GATA forward launches = batches x layers, energies
+     within ``TOL_SERVE`` of phase 4's bucketed request; one step on phase
+     6's 256 molecules packed 16 a batch (launches = batches x layers each
+     way, gradients against the plain backward within ``TOL_TRAIN``); rows 1
+     and 2 on the packed slabs against their plain versions, rerun to the
+     same bits; both timed, profiled, and their pairs a slab logged beside
+     bucketing's;
+ 36. Molecule3D through the command line: ``cli train
+     experiment=molecule3d`` as its yaml sets it (dense, unfused: no kernel
+     launch) for one epoch, then ``cli test`` within 1e-5 of the run, on an
+     NPZ shard root (four shards by the port's ``save_shards``) and on an
+     SDF root with ``properties.csv``, both of 320 synthetic 12-40-atom
+     molecules the script writes under ``build/``;
+ 37. two ranks on the one card over Gloo (``python3 chip_smoke.py --rank
+     ...``, started after the build, each failure printed): (a)
+     ``data_parallel=2`` on phase 3's model, one step, rank d on batch d:
+     4 + 4 GATA launches a rank, gradients and parameters within
+     ``TOL_TRAIN`` of one process's 2-batch accumulation, parameters equal
+     on both ranks; (b)
+     ``edge_parallel=2`` on the ELL layout, one 600-700-atom frame (N = 704,
+     NR = 352 rows a rank): a request and a step, rows 5-8 launched on each
+     rank at NR = 352, energy and gradients within ``TOL_TRAIN`` of one
+     process's, the four kernels on rank 0's inputs against their plain
+     versions, rerun to the same bits and timed; (c) ``edge_parallel=2`` on
+     the edge layout, one step of 16 molecules, gradients within
+     ``TOL_EDGE`` of one process's; (d) ``cli train experiment=molecule3d
+     trainer.distributed=true trainer.data_parallel=2`` on phase 36's
+     shards: each rank reads its two shards, only rank 0 writes
+     checkpoints, the final parameters are the same bits on both ranks;
+     then NCCL at world size 1 (NCCL refuses two ranks on one card): an
+     all-reduce and a ``distributed=True`` ``Trainer`` step whose gradients
+     are within ``TOL_TRAIN`` of the step's with no group.  (After AdamW's
+     first step a parameter whose gradient is near zero moves by about lr
+     either way, so the other steps hold gradients, and log parameters.)  Gloo copies CUDA tensors
+     through the host: no time here is a multi-GPU number.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -828,11 +868,12 @@ def time_run(run, warmup, reps) -> tuple:
 
 def count_pairs(chunks, cfg) -> tuple:
     """(real edges, self-loops included, as the edge list counts them;
-    padded pairs) of dense chunks on the card."""
+    padded pairs, a packed slab's pairs between molecules among them) of
+    dense chunks on the card."""
     from gotennet_tpu_torch.models.gotennet_dense import pair_geometry
     real = sum(int(pair_geometry(b.pos, b.mask, cfg.cutoff,
-                                 cfg.max_num_neighbors).pair_mask.sum())
-               for b in chunks)
+                                 cfg.max_num_neighbors, b.seg)
+                   .pair_mask.sum()) for b in chunks)
     return real, sum(b.num_graphs * b.max_atoms ** 2 for b in chunks)
 
 
@@ -2551,9 +2592,11 @@ def edge_train_phase(card) -> None:
         f"(torch.cuda.max_memory_allocated) | {card}")
 
 
-def edge_cli_run(card, what, overrides, n_train, steps_per_epoch) -> tuple:
-    """``cli train`` with ``overrides`` on the edge layout (no kernel
-    launch), every loss finite, the files written; the epochs' seconds,
+def edge_cli_run(card, what, overrides, n_train, steps_per_epoch,
+                 layout="edge") -> tuple:
+    """``cli train`` with ``overrides`` on ``layout`` (no kernel launch: the
+    edge layout, or the dense one unfused), every loss finite, the files
+    written; the epochs' seconds,
     optimizer steps/s, molecules/s and evaluation seconds; then ``cli test``
     of ``ckpt_best`` against the run within TOL_CLI_TEST.  Returns the run's
     directory and the loaded config."""
@@ -2572,7 +2615,7 @@ def edge_cli_run(card, what, overrides, n_train, steps_per_epoch) -> tuple:
     log(f"[{what}] cli train: {wall:.2f} s on the wall")
     no_launches(what)
     meta = json.loads((run / "ckpt_best" / "meta.json").read_text())
-    if meta["layout"] != "edge":
+    if meta["layout"] != layout:
         raise AssertionError(f"{what} trained on the {meta['layout']} layout")
     for name in ("ckpt_best", "ckpt_last", "splits.npz", "metrics.jsonl",
                  "test_results.json"):
@@ -2831,7 +2874,688 @@ def cli_phases(card, phase_done) -> tuple:
     return qm9_records, large_records
 
 
+# ---- phases 35-37: packed slabs, Molecule3D, two ranks on the card -----------
+# phase 35: phase 4's 256 molecules packed into slabs of the largest
+# molecule's M, PACK_BATCH molecules a batch (the qm9_u0_tpu batch); the
+# step packs phase 6's molecules TRAIN_CHUNK a batch
+PACK_BATCH = 32
+# phase 36: Molecule3D-format files of M3D_MOLS synthetic 12-40-atom
+# molecules, as SDF (two files and properties.csv) and as NPZ shards of
+# M3D_SHARD molecules (four shards)
+M3D_MOLS, M3D_SHARD = 320, 80
+M3D_SIZES = dict(min_atoms=12, max_atoms=40)
+M3D_DIR = CLI_DIR / "molecule3d"
+# phase 37: the ranks' rendezvous files and outputs, and their time limit
+RANKS_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
+RANK_TIMEOUT = 600
+_SYMBOLS = {1: "H", 6: "C", 7: "N", 8: "O", 9: "F"}
+
+
+def flagship_config():
+    """Phase 3's model: 256 channels, 4 interactions, lmax 2, 64 RBFs, 8
+    heads, bf16 pair and node types, merge_proj, fused, no remat."""
+    from gotennet_tpu_torch.models.gotennet import GotenNetConfig
+    return GotenNetConfig(n_atom_basis=D, n_interactions=N_LAYERS, lmax=LMAX,
+                          n_rbf=64, num_heads=H, pair_dtype=torch.bfloat16,
+                          node_dtype=torch.bfloat16, merge_proj=True,
+                          remat=False)
+
+
+def pack_phase(cfg, head, card) -> list:
+    """Phase 35: phase 4's 256 molecules through ``DenseLoader(pack=True)``
+    on the flagship model at phase 4's weights: a request (GATA forward
+    launches = batches x layers, energies within TOL_SERVE of phase 4's
+    bucketed request) and one step on phase 6's molecules packed
+    TRAIN_CHUNK a batch (forward and backward launches = batches x layers,
+    first-step gradients within TOL_TRAIN of the plain backward's); rows 1
+    and 2 on the packed slabs against their plain versions, rerun to the
+    same bits; both timed, profiled, their pairs a slab logged beside the
+    bucketed ones.  Returns both kernels' records."""
+    import numpy as np
+    from gotennet_tpu_torch.data.dataset import (DenseLoader, MoleculeDataset,
+                                                 synthetic_molecules)
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.ops import fused_gata
+    from gotennet_tpu_torch.serve import Predictor
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (accum_grads, make_chunks,
+                                                  make_loss_fn, train_step)
+
+    fwd, bwd = fused_gata.fused_gata_forward, fused_gata.fused_gata_backward
+    ds = synthetic_molecules(sum(REQUESTS), seed=0, min_atoms=12,
+                             max_atoms=29)
+    mols = ds.graph_dicts(range(len(ds)))[-REQUESTS[-1]:]
+    n = len(mols)
+    pred = Predictor(cfg, head, seed=0, chunk=CHUNK)
+    bucketed = torch.from_numpy(pred.predict(mols))
+    model = pred.model
+    req = MoleculeDataset(z=[m["z"] for m in mols],
+                          pos=[m["pos"] for m in mols])
+
+    @torch.inference_mode()
+    def request():
+        out = torch.empty(n, 1, device="cuda")
+        for idx, b in DenseLoader(req, PACK_BATCH, pack=True).batches():
+            prop = model(b.to("cuda"))["property"]
+            real = np.nonzero(idx >= 0)[0]
+            out[torch.as_tensor(idx[real], device="cuda")] = \
+                prop[torch.as_tensor(real, device="cuda")]
+        return out
+
+    # the main path: one packed request
+    reset_counters()
+    got = request()
+    torch.cuda.synchronize()
+    batches = [b.to("cuda") for b in DenseLoader(req, PACK_BATCH, pack=True)]
+    launches = fwd.launches
+    expected = len(batches) * N_LAYERS
+    log(f"[packed request] {n} molecules in {len(batches)} packed batches "
+        f"of {batches[0].num_graphs} slabs x {batches[0].max_atoms} slots, "
+        f"at most {batches[0].mols_per_slab} molecules a slab: GATA forward "
+        f"launches {launches} (batches x layers = {expected})")
+    if launches != expected:
+        raise AssertionError(f"{launches} launches, expected {expected}")
+    no_other = [c.launches for c in kernel_counters() if c is not fwd]
+    if any(no_other):
+        raise AssertionError(f"packed request launched {no_other}")
+    err, rel = rel_err(got.cpu(), bucketed)
+    log(f"[packed request] energies vs phase 4's bucketed request: max abs "
+        f"err {err:.4e} (rel {rel:.3e}, tol {TOL_SERVE:g})")
+    if not torch.isfinite(got).all() or rel > TOL_SERVE:
+        raise AssertionError("packed energies disagree with the bucketed "
+                             "request")
+    real, padded = count_pairs(batches, cfg)
+    b_real, b_padded = count_pairs([b.to("cuda") for b in DenseLoader(
+        req, batch_size=CHUNK, bucket=True,
+        bucket_window=math.ceil(n / CHUNK))], cfg)
+    n_slabs = sum(b.num_graphs for b in batches)
+    req_ms, host_ms, _ = time_run(request, 2, 5)
+    log(f"[time] 256-molecule packed request: {req_ms:.3f} ms (CUDA "
+        f"events), {host_ms:.3f} ms (host clock); {n_slabs} slabs, real "
+        f"pairs {real} (self-loops included) of {padded} padded pairs "
+        f"({padded / n_slabs:.1f} a slab, {100 * real / padded:.1f} % real); "
+        f"phase 4's bucketing: {b_real} of {b_padded} "
+        f"({100 * b_real / b_padded:.1f} % real) | {card}")
+    profile(request, req_ms, "256-molecule packed request", card)
+    captured = capture(fused_gata, "fused_gata_forward", request)
+    rerun_bits(fwd, captured, "fused_gata_fwd (packed request)")
+    fwd_record = kernel_record(
+        {"name": "fused_gata_fwd", "route": "cuda",
+         "source": "gotennet_tpu_torch/csrc/fused_gata_fwd.cu",
+         "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:108"},
+        captured, fwd, fused_gata.fused_gata_forward_reference, fwd_bound_ms,
+        card)
+    fwd_record["launches"] = launches
+
+    # one step on phase 6's molecules, packed TRAIN_CHUNK a batch
+    train = synthetic_molecules(TRAIN_MOLS, seed=1, min_atoms=12,
+                                max_atoms=29)
+    step_model = GotenModel(cfg, head, "dense", seed=0)
+    chunks = [b.to("cuda") for b in DenseLoader(train, TRAIN_CHUNK,
+                                                pack=True)]
+    opt = make_optimizer(step_model.parameters(), LR)
+    loss_fn = make_loss_fn(step_model, Task(None))
+
+    def step():
+        return train_step(step_model, opt, chunks, opt.grad_clip,
+                          loss_fn=loss_fn)
+
+    reset_counters()
+    loss = step()
+    torch.cuda.synchronize()
+    launches = (fwd.launches, bwd.launches)
+    expected = (len(chunks) * N_LAYERS,) * 2
+    log(f"[packed step] one step on {TRAIN_MOLS} molecules in {len(chunks)} "
+        f"packed batches of {chunks[0].num_graphs} slabs x "
+        f"{chunks[0].max_atoms}: loss {loss:.6f}; GATA forward/backward "
+        f"launches {launches[0]}/{launches[1]} (expected {expected})")
+    if launches != expected or not math.isfinite(loss):
+        raise AssertionError(f"packed step: launches {launches}, loss {loss}")
+    step_model.train()
+    accum_grads(step_model, loss_fn, chunks)
+    grads = {k: p.grad.clone() for k, p in step_model.named_parameters()}
+    with mock.patch.object(fused_gata, "fused_gata_backward",
+                           fused_gata.fused_gata_backward_reference):
+        accum_grads(step_model, loss_fn, chunks)
+    errs = {k: rel_err(grads[k], p.grad)
+            for k, p in step_model.named_parameters()}
+    worst = max(errs, key=lambda k: errs[k][1])
+    log(f"[packed step] gradients, kernel vs plain backward: {len(errs)} "
+        f"tensors, worst {worst} rel {errs[worst][1]:.3e} (tol "
+        f"{TOL_TRAIN:g})")
+    if errs[worst][1] > TOL_TRAIN:
+        raise AssertionError("packed step: gradients disagree with the plain "
+                             "backward")
+    step_ms, host_ms, losses = time_run(step, 2, 3)
+    real, padded = count_pairs(chunks, cfg)
+    b_real, b_padded = count_pairs(make_chunks(
+        train.graph_dicts(range(TRAIN_MOLS)), TRAIN_CHUNK, "cuda"), cfg)
+    log(f"[time] packed training step: {step_ms:.3f} ms (CUDA events), "
+        f"{host_ms:.3f} ms (host clock); real pairs {real} of {padded} "
+        f"padded ({100 * real / padded:.1f} % real; phase 6's bucketing "
+        f"{100 * b_real / b_padded:.1f} %); losses "
+        f"{[round(x, 6) for x in losses]} | {card}")
+    profile(step, step_ms, "packed training step", card)
+    captured = capture(fused_gata, "fused_gata_backward",
+                       lambda: accum_grads(step_model, loss_fn, chunks))
+    rerun_bits(bwd, captured, "fused_gata_bwd (packed step)")
+    bwd_record = kernel_record(
+        {"name": "fused_gata_bwd", "route": "cuda",
+         "source": "gotennet_tpu_torch/csrc/fused_gata_bwd.cu",
+         "replaces": "gotennet_tpu/ops/pallas/fused_gata.py:350"},
+        captured, bwd, fused_gata.fused_gata_backward_reference,
+        bwd_bound_ms, card)
+    bwd_record["launches"] = launches[1]
+    return [fwd_record, bwd_record]
+
+
+def write_molecule3d(root) -> tuple:
+    """Molecule3D's two layouts under ``root``: ``sdf/`` (two V2000 files of
+    M3D_MOLS synthetic molecules and a ``properties.csv`` with their target
+    as ``gap``) and ``shards/`` (the same molecules as NPZ shards of
+    M3D_SHARD, by the port's ``save_shards``).  Returns both paths."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.data.molecule3d import load_molecule3d, save_shards
+    ds = synthetic_molecules(M3D_MOLS, seed=3, **M3D_SIZES)
+    sdf, shards = root / "sdf", root / "shards"
+    shutil.rmtree(root, ignore_errors=True)
+    sdf.mkdir(parents=True)
+    for part, (lo, hi) in enumerate(((0, M3D_MOLS // 2),
+                                     (M3D_MOLS // 2, M3D_MOLS))):
+        with open(sdf / f"combined_mols_{part}.sdf", "w") as f:
+            for i in range(lo, hi):
+                f.write(f"mol\n synthetic\n\n{len(ds.z[i]):3d}{0:3d}  0  0  "
+                        "0  0  0  0  0  0999 V2000\n")
+                for zj, p in zip(ds.z[i], ds.pos[i]):
+                    f.write(f"{p[0]:10.4f}{p[1]:10.4f}{p[2]:10.4f} "
+                            f"{_SYMBOLS[int(zj)]:<3}" + " 0" * 12 + "\n")
+                f.write("M  END\n$$$$\n")
+    with open(sdf / "properties.csv", "w") as f:
+        f.write("index,dipole_x,dipole_y,dipole_z,homo,lumo,gap,scf_energy\n")
+        for i in range(M3D_MOLS):
+            gap = float(ds.y[i, 0])
+            f.write(f"{i},0,0,0,-0.3,{-0.3 + gap},{gap},-40.0\n")
+    paths = save_shards(load_molecule3d(str(sdf), label="gap"), str(shards),
+                        shard_size=M3D_SHARD)
+    log(f"[molecule3d] wrote {M3D_MOLS} synthetic 12-40-atom molecules as "
+        f"SDF (+ properties.csv) and as {len(paths)} NPZ shards")
+    return sdf, shards
+
+
+def molecule3d_phase(card) -> pathlib.Path:
+    """Phase 36: ``cli train experiment=molecule3d`` as the YAML sets it
+    (dense, ``fused`` absent: the unfused message, no kernel; 256 channels,
+    4 layers, dropout 0.1, remat, batch 32, standardised L1), one epoch,
+    then ``cli test``, on an NPZ shard root and on an SDF root.  Returns
+    the shard root."""
+    sdf, shards = write_molecule3d(M3D_DIR)
+    n_train = int(0.8 * M3D_MOLS)
+    for what, root in (("molecule3d shards cli", shards),
+                       ("molecule3d sdf cli", sdf)):
+        edge_cli_run(card, what, [
+            "experiment=molecule3d", f"datamodule.dataset_root={root}",
+            "trainer.max_epochs=1", "trainer.log_every=1"], n_train,
+            math.ceil(n_train / 32), layout="dense")
+    return shards
+
+
+def spawn_ranks(scenario, world, args=()) -> list:
+    """``python3 chip_smoke.py --rank <scenario> <dir> <rank> <world>`` for
+    every rank, started together; waits for all of them (every one killed
+    at RANK_TIMEOUT seconds), logs every rank's output, and fails if any
+    rank failed.  Returns each rank's output, in rank order."""
+    work = RANKS_DIR / scenario
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--rank", scenario, str(work), str(r),
+         str(world), *args], cwd=pathlib.Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + RANK_TIMEOUT
+    outs, failed = [], False
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+            out += f"\n(killed after {RANK_TIMEOUT} s)"
+        failed |= p.returncode != 0
+        outs.append(out)
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.splitlines()
+        for line in (lines[-200:] if failed else lines):
+            if failed or line.startswith("["):
+                print(f"[rank {r}/{world}] {line}", flush=True)
+    if failed:
+        raise AssertionError(f"{scenario}: rank exit codes "
+                             f"{[p.returncode for p in procs]}")
+    return [torch.load(work / f"out_{r}.pt", map_location="cpu",
+                       weights_only=False) for r in range(world)]
+
+
+def cpu_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def cpu_grads(model) -> dict:
+    """The gradients a step left on the parameters (averaged over the ranks
+    and clipped)."""
+    return {k: p.grad.detach().cpu().clone()
+            for k, p in model.named_parameters() if p.grad is not None}
+
+
+def hold_states(what, got, want, tol, kind="parameters") -> None:
+    """Every tensor of ``got`` (a state dict, or gradients by parameter)
+    within ``tol`` of ``want``'s scale."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: {kind} of other names")
+    errs = {k: rel_err(got[k], want[k]) for k in want}
+    worst = max(errs, key=lambda k: errs[k][1])
+    log(f"[{what}] {kind}: {len(errs)} tensors, worst {worst} abs "
+        f"{errs[worst][0]:.3e} rel {errs[worst][1]:.3e} (tol {tol:g})")
+    if errs[worst][1] > tol:
+        raise AssertionError(f"{what}: {kind} disagree")
+
+
+def hold_step(what, got, want, tol) -> None:
+    """A step's gradients within ``tol`` of one process's, each tensor to
+    its scale; its parameters are logged.  (After AdamW's first step a
+    parameter moves by about lr times the sign of its gradient, so an entry
+    whose gradient is near zero can land 2 lr from the other run's: the
+    gradients are what the two runs should share.)"""
+    hold_states(what, got[1], want[1], tol, "gradients")
+    errs = {k: rel_err(got[0][k], want[0][k]) for k in want[0]}
+    worst = max(errs, key=lambda k: errs[k][0])
+    log(f"[{what}] parameters after the step: worst abs {errs[worst][0]:.3e}"
+        f" ({worst}; lr {LR:g})")
+
+
+def capture_many(kernels, run) -> dict:
+    """``capture`` of several wrappers at once: ``{name: calls}``."""
+    with contextlib.ExitStack() as stack:
+        kept = {}
+        for module, name in kernels:
+            kernel = getattr(module, name)
+            kept[name] = []
+
+            def record(*args, _k=kernel, _c=kept[name], **kwargs):
+                _c.append((args, kwargs))
+                return _k(*args, **kwargs)
+
+            stack.enter_context(mock.patch.object(module, name, record))
+        run()
+        torch.cuda.synchronize()
+    return kept
+
+
+def parallel_references(md22_cfg, head) -> dict:
+    """Phase 37's one-process results on the card: (a) one step of the
+    flagship dense model with 2-batch accumulation, (b) the ELL request and
+    step on one 600-700-atom frame, (c) one edge-layout step."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (make_chunks, make_loss_fn,
+                                                  train_step)
+
+    def one_step(cfg, layout, chunks):
+        model = GotenModel(cfg, head, layout, seed=0)
+        opt = make_optimizer(model.parameters(), LR)
+        loss = train_step(model, opt, chunks, opt.grad_clip,
+                          loss_fn=make_loss_fn(model, Task(None)))
+        return loss, (cpu_state(model), cpu_grads(model))
+
+    out = {}
+    qm9 = synthetic_molecules(TRAIN_MOLS, seed=1, min_atoms=12,
+                              max_atoms=29).graph_dicts(range(2 * TRAIN_CHUNK))
+    out["dp"] = one_step(flagship_config(), "dense",
+                         make_chunks(qm9, TRAIN_CHUNK, "cuda"))
+    frame = make_chunks(large_frames()[:1], 1, "cuda", layout="ell",
+                        cutoff=md22_cfg.cutoff,
+                        max_num_neighbors=md22_cfg.max_num_neighbors)
+    model = GotenModel(md22_cfg, head, "ell", seed=0)
+    with torch.inference_mode():
+        out["ell_energy"] = model(frame[0])["property"].cpu()
+    out["ell"] = one_step(md22_cfg, "ell", frame)
+    cfg, _ = edge_flagship()
+    out["edge"] = one_step(cfg, "edge", make_chunks(
+        qm9[:TRAIN_CHUNK], TRAIN_CHUNK, "cuda", layout="edge"))
+    return out
+
+
+def rank_two(work, rank, world) -> dict:
+    """Phase 37 on each of two ranks of a Gloo group on the one card: (a)
+    data_parallel=2 on the flagship dense model, one step, rank d on batch
+    d; (b) edge_parallel=2 on the ELL layout, one 600-700-atom frame (N =
+    704, NR = 352 rows a rank), a request and a step, rows 5-8 captured and
+    (rank 0, the other rank waiting) held against their plain versions and
+    timed; (c) edge_parallel=2 on the edge layout, one step; (d) ``cli
+    train experiment=molecule3d trainer.distributed=true
+    trainer.data_parallel=2`` on phase 36's NPZ shards."""
+    from gotennet_tpu_torch import cli
+    from gotennet_tpu_torch.data import molecule3d
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.models.model import GotenModel, set_edge_axis
+    from gotennet_tpu_torch.ops import fused_ell, fused_gata, fused_htr
+    from gotennet_tpu_torch.parallel import (make_mesh,
+                                             make_parallel_train_step, psum,
+                                             shard_graph_batch)
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+    from gotennet_tpu_torch.train import checkpoint
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (Trainer, make_chunks,
+                                                  make_loss_fn)
+
+    card = card_line()
+    head = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0}).build_head()
+    out = {}
+
+    def parallel_step(model, mesh, chunks):
+        opt = make_optimizer(model.parameters(), LR)
+        run = make_parallel_train_step(
+            model, opt, make_loss_fn(model, Task(None)), mesh, opt.grad_clip)
+        return run(chunks)
+
+    # (a) data parallelism: rank d takes the d-th of the two batches
+    qm9 = synthetic_molecules(TRAIN_MOLS, seed=1, min_atoms=12,
+                              max_atoms=29).graph_dicts(range(2 * TRAIN_CHUNK))
+    mesh = make_mesh((2, 1))
+    model = GotenModel(flagship_config(), head, "dense", seed=0)
+    batch = make_chunks(qm9, TRAIN_CHUNK, "cuda")[mesh.index("data")]
+    reset_counters()
+    loss = parallel_step(model, mesh, [batch])
+    torch.cuda.synchronize()
+    out["dp"] = (loss, (cpu_state(model), cpu_grads(model)), (
+        fused_gata.fused_gata_forward.launches,
+        fused_gata.fused_gata_backward.launches))
+    log(f"[dp rank {rank}] one step on its batch of {TRAIN_CHUNK}: loss "
+        f"{loss:.6f}, GATA launches {out['dp'][2]}")
+
+    # (b) ELL row sharding: the whole frame on both ranks, 352 rows each
+    md22 = dataclasses.replace(flagship_config(), fused_htr=True)
+    mesh = make_mesh((1, 2))
+    frame = make_chunks(large_frames()[:1], 1, "cuda", layout="ell",
+                        cutoff=md22.cutoff,
+                        max_num_neighbors=md22.max_num_neighbors)
+    model = set_edge_axis(GotenModel(md22, head, "ell", seed=0), "edge")
+    names = [(fused_ell, "fused_ell_forward"), (fused_htr,
+                                                "fused_htr_ell_forward"),
+             (fused_ell, "fused_ell_backward"),
+             (fused_htr, "fused_htr_ell_backward")]
+    reset_counters()
+    energy = {}
+
+    def request():
+        with torch.inference_mode():
+            model.eval()
+            energy["e"] = model(frame[0])["property"].cpu()
+
+    served = capture_many(names[:2], request)
+    stepped = capture_many(names[2:], lambda: energy.update(
+        loss=parallel_step(model, mesh, frame)))
+    counts = [getattr(m, n).launches for m, n in names]
+    shapes = sorted({c[0][0].shape[0] for calls in (*served.values(),
+                                                     *stepped.values())
+                     for c in calls})
+    out["ell"] = (energy["e"], energy["loss"],
+                  (cpu_state(model), cpu_grads(model)), counts, shapes)
+    log(f"[ELL row-sharded rank {rank}] N = {frame[0].num_nodes}, rows a "
+        f"rank {shapes}; launches ELL message fwd/bwd {counts[0]}/"
+        f"{counts[2]}, ELL HTR fwd/bwd {counts[1]}/{counts[3]}")
+
+    # (c) edge partitioning: the edge list split between the two ranks
+    cfg, _ = edge_flagship()
+    batch = make_chunks(qm9[:TRAIN_CHUNK], TRAIN_CHUNK, "cuda",
+                        layout="edge")[0]
+    model = set_edge_axis(GotenModel(cfg, head, "edge", seed=0), "edge")
+    loss = parallel_step(model, mesh, [shard_graph_batch(batch, mesh)])
+    out["edge"] = (loss, (cpu_state(model), cpu_grads(model)))
+
+    # rows 5-8 on rank 0's inputs while rank 1 waits at the barrier
+    records = []
+    if rank == 0:
+        for (module, name), calls, what in zip(
+                names, (served[names[0][1]], served[names[1][1]],
+                        stepped[names[2][1]], stepped[names[3][1]]),
+                ("request", "request", "step", "step")):
+            kernel = getattr(module, name)
+            short = {"fused_ell_forward": "fused_ell_fwd",
+                     "fused_htr_ell_forward": "fused_htr_ell_fwd",
+                     "fused_ell_backward": "fused_ell_bwd",
+                     "fused_htr_ell_backward": "fused_htr_ell_bwd"}[name]
+            plain = getattr(module, f"{name}_reference")
+            bound = {"fused_ell_fwd": ell_fwd_bound_ms,
+                     "fused_htr_ell_fwd": htr_ell_fwd_bound_ms,
+                     "fused_ell_bwd": ell_bwd_bound_ms,
+                     "fused_htr_ell_bwd": htr_ell_bwd_bound_ms}[short]
+            replaces = {"fused_ell_fwd": "fused_ell.py:77",
+                        "fused_ell_bwd": "fused_ell.py:256",
+                        "fused_htr_ell_fwd": "fused_htr.py:339",
+                        "fused_htr_ell_bwd": "fused_htr.py:383"}[short]
+            rerun_bits(kernel, calls, f"{short} (row-sharded {what})")
+            record = kernel_record(
+                {"name": short, "route": "cuda",
+                 "source": f"gotennet_tpu_torch/csrc/{short}.cu",
+                 "replaces": f"gotennet_tpu/ops/pallas/{replaces}"},
+                calls, kernel, plain, bound, card)
+            record["launches"] = len(calls)
+            records.append((record, what))
+    psum(torch.zeros(1, device="cuda"), ("data", "edge"))
+    out["records"] = records
+
+    # (d) the command line under distributed, on phase 36's NPZ shards
+    reads, saves, fits = [], [], []
+    load = molecule3d.load_molecule3d
+    save = checkpoint.save_checkpoint
+    fit = Trainer.fit
+
+    def spy_load(root, *a, **kw):
+        ds = load(root, *a, **kw)
+        reads.append((kw.get("host"), kw.get("n_hosts"), len(ds)))
+        return ds
+
+    def spy_save(path, *a, **kw):
+        saves.append(pathlib.Path(path).name)
+        return save(path, *a, **kw)
+
+    def spy_fit(self, *a, **kw):
+        state, history = fit(self, *a, **kw)
+        params = {k for k, _ in self.model.named_parameters()}
+        fits.append(({k: v.cpu() for k, v in state.items() if k in params},
+                     history))
+        return state, history
+
+    with mock.patch.object(molecule3d, "load_molecule3d", spy_load), \
+            mock.patch.object(checkpoint, "save_checkpoint", spy_save), \
+            mock.patch.object(Trainer, "fit", spy_fit):
+        t0 = time.perf_counter()
+        cli.main(["train", "experiment=molecule3d",
+                  f"datamodule.dataset_root={M3D_DIR / 'shards'}",
+                  "trainer.max_epochs=1", "trainer.distributed=true",
+                  "trainer.data_parallel=2",
+                  f"workdir={work / 'molecule3d'}"])
+        torch.cuda.synchronize()
+    out["cli"] = (reads, saves, fits[0], time.perf_counter() - t0)
+    log(f"[molecule3d distributed rank {rank}] read {reads}; checkpoints "
+        f"written {saves}; {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def rank_nccl(work, rank, world) -> dict:
+    """Phase 37's NCCL check at world size 1 (NCCL refuses two ranks on one
+    card): the group through ``initialize_distributed`` with NCCL, an
+    all-reduce, and one ``Trainer`` step with ``distributed=True`` against
+    the same step with no mesh."""
+    import torch.distributed as dist
+    from gotennet_tpu_torch.data.dataset import (DenseLoader,
+                                                 synthetic_molecules)
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.parallel import initialize_distributed
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+    from gotennet_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    info = initialize_distributed(f"file://{work / 'rdv_nccl'}", 1, 0,
+                                  backend="nccl")
+    x = torch.full((4,), 3.0, device="cuda")
+    dist.all_reduce(x)
+    task = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0})
+    ds = synthetic_molecules(2 * TRAIN_CHUNK, seed=1, min_atoms=12,
+                             max_atoms=29)
+    states = []
+    for distributed in (True, False):
+        model = GotenModel(flagship_config(), task.build_head(), "dense",
+                           seed=0)
+        loader = DenseLoader(ds, TRAIN_CHUNK, bucket=True)
+        tr = Trainer(model, task, TrainerConfig(
+            lr=LR, max_epochs=1, distributed=distributed,
+            workdir=str(work / f"nccl_{distributed}")))
+        state, _ = tr.fit(model.state_dict(), loader, loader, max_steps=1)
+        states.append(({k: v.cpu() for k, v in state.items()},
+                       cpu_grads(model)))
+    dist.destroy_process_group()
+    return {"info": info, "all_reduce": x.cpu(), "states": states}
+
+
+RANK_SCENARIOS = {"two": rank_two, "nccl": rank_nccl}
+
+
+def rank_main(argv) -> int:
+    """One rank of ``spawn_ranks``: joins the Gloo group of ``world``
+    ranks on the card through ``file://<dir>/rdv`` (the NCCL scenario
+    starts its own), runs the scenario, writes its output."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    scenario, work, rank, world = (argv[0], pathlib.Path(argv[1]),
+                                   int(argv[2]), int(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        if scenario != "nccl":
+            dist.init_process_group(
+                "gloo", init_method=f"file://{work / 'rdv'}",
+                world_size=world, rank=rank,
+                timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+        out = RANK_SCENARIOS[scenario](work, rank, world)
+        torch.save(out, work / f"out_{rank}.pt")
+    except Exception:
+        traceback.print_exc()
+        return 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(card, md22_cfg, head) -> list:
+    """Phase 37: two ranks on the one card over Gloo (``rank_two``), each
+    held against the one-process result (``parallel_references``); then
+    NCCL at world size 1 (``rank_nccl``).  Gloo copies CUDA tensors through
+    the host: these times are not multi-GPU numbers.  Returns rows 5-8's
+    records on the row-sharded path."""
+    refs = parallel_references(md22_cfg, head)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = spawn_ranks("two", 2)
+    log(f"[two ranks] phase 37 (a)-(d) on two Gloo ranks on the one card in "
+        f"{time.perf_counter() - t0:.1f} s (host-staged collectives: not a "
+        f"multi-GPU time) | {card}")
+    # (a) data parallelism against one process's 2-batch accumulation
+    for r, o in enumerate(outs):
+        loss, state, launches = o["dp"]
+        if launches != (N_LAYERS, N_LAYERS):
+            raise AssertionError(f"dp rank {r}: GATA launches {launches}")
+        hold_step(f"dp=2 rank {r} vs grad_accum=2", state, refs["dp"][1],
+                  TOL_TRAIN)
+        hold_states(f"dp=2 rank {r} vs grad_accum=2", state[0],
+                    refs["dp"][1][0], TOL_TRAIN)
+    if not all(torch.equal(outs[1]["dp"][1][0][k], outs[0]["dp"][1][0][k])
+               for k in outs[0]["dp"][1][0]):
+        raise AssertionError("dp=2: the ranks' parameters differ")
+    # (b) ELL row sharding against one process's request and step
+    n_rows = ELL_N // 2
+    for r, o in enumerate(outs):
+        energy, loss, state, counts, shapes = o["ell"]
+        want = [N_LAYERS, N_LAYERS - 1, N_LAYERS, N_LAYERS - 1]
+        if shapes != [n_rows] or counts != [2 * want[0], 2 * want[1],
+                                             want[2], want[3]]:
+            raise AssertionError(f"ELL rank {r}: rows {shapes}, launches "
+                                 f"{counts}")
+        err, rel = rel_err(energy, refs["ell_energy"])
+        log(f"[ELL row-sharded rank {r}] energy vs one process: abs "
+            f"{err:.3e} rel {rel:.3e} (tol {TOL_TRAIN:g}); loss {loss:.6f} "
+            f"vs {refs['ell'][0]:.6f}")
+        if rel > TOL_TRAIN:
+            raise AssertionError("row-sharded energy disagrees")
+        hold_step(f"ELL ep=2 rank {r} vs one process", state,
+                  refs["ell"][1], TOL_TRAIN)
+    # (c) edge partitioning against one process's step
+    for r, o in enumerate(outs):
+        hold_step(f"edge ep=2 rank {r} vs one process", o["edge"][1],
+                  refs["edge"][1], TOL_EDGE)
+    # (d) the command line under distributed
+    per_rank = M3D_MOLS // 2
+    for r, o in enumerate(outs):
+        reads, saves, _, secs = o["cli"]
+        if reads != [(r, 2, per_rank)]:
+            raise AssertionError(f"molecule3d rank {r} read {reads}")
+        if bool(saves) != (r == 0):
+            raise AssertionError(f"molecule3d rank {r} wrote {saves}")
+        log(f"[molecule3d distributed rank {r}] read shards {r * 2}-"
+            f"{r * 2 + 1} ({per_rank} molecules); wrote {saves or 'nothing'};"
+            f" cli train + test {secs:.2f} s (Gloo) | {card}")
+    # (the head's standardisation buffers differ: each rank standardises by
+    # its own shards' targets, as the JAX package's hosts do)
+    s0, s1 = (o["cli"][2][0] for o in outs)
+    if not s0 or not all(torch.equal(s0[k], s1[k]) for k in s0):
+        raise AssertionError("molecule3d distributed: the ranks' final "
+                             "parameters differ")
+    for key in ("val_loss", "MeanAbsoluteError"):
+        values = [o["cli"][2][1][-1][key] for o in outs]
+        if values[0] != values[1] or not math.isfinite(values[0]):
+            raise AssertionError(f"molecule3d distributed: {key} {values}")
+    log("[molecule3d distributed] final parameters bit-identical on both "
+        f"ranks; val_loss {outs[0]['cli'][2][1][-1]['val_loss']:.6f}")
+    # NCCL at world size 1
+    nccl = spawn_ranks("nccl", 1)[0]
+    log(f"[nccl] {nccl['info']}; all-reduce of 3.0 at world size 1: "
+        f"{nccl['all_reduce'].tolist()}")
+    if nccl["info"]["backend"] != "nccl" or not torch.equal(
+            nccl["all_reduce"], torch.full((4,), 3.0)):
+        raise AssertionError("the NCCL group did not run")
+    hold_step("distributed=True step vs no group", nccl["states"][0],
+              nccl["states"][1], TOL_TRAIN)
+    return outs[0]["records"]
+
+
+def slice_phases(card, phase_done, md22_cfg) -> list:
+    """Phases 35-37; returns their kernel records with their paths."""
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+    head = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0}).build_head()
+    pack_records = pack_phase(flagship_config(), head, card)
+    phase_done("35 (packed dense batches: request and step)")
+    molecule3d_phase(card)
+    phase_done("36 (molecule3d through the command line: shards and SDF)")
+    ell_records = parallel_phase(card, md22_cfg, head)
+    phase_done("37 (two ranks on the card over Gloo; NCCL at world size 1)")
+    return ([(pack_records[0], "QM9 packed request"),
+             (pack_records[1], "QM9 packed step")]
+            + [(r, f"ELL row-sharded {what} (rank 0 of 2, NR = 352)")
+               for r, what in ell_records])
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2840,7 +3564,6 @@ def main() -> int:
     from gotennet_tpu_torch.data.dataset import DenseLoader, MoleculeDataset
     from gotennet_tpu_torch.data.dataset import synthetic_molecules
     from gotennet_tpu_torch.graph import native
-    from gotennet_tpu_torch.models.gotennet import GotenNetConfig
     from gotennet_tpu_torch.ops import _build, fused_gata
     from gotennet_tpu_torch.serve import Predictor
     from gotennet_tpu_torch.tasks.qm9 import QM9Task
@@ -2892,9 +3615,7 @@ def main() -> int:
     # ---- 3. serving path at full width -----------------------------------
     # remat off, as bench.py runs the fused paths (a layer recomputed in
     # the backward pass would launch its forward kernels twice)
-    cfg = GotenNetConfig(n_atom_basis=D, n_interactions=N_LAYERS, lmax=LMAX,
-                         n_rbf=64, num_heads=H, pair_dtype=bf16,
-                         node_dtype=bf16, merge_proj=True, remat=False)
+    cfg = flagship_config()
     head = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0}).build_head()
     pred = Predictor(cfg, head, seed=0, chunk=CHUNK)
     ds = synthetic_molecules(sum(REQUESTS), seed=0, min_atoms=12,
@@ -3043,6 +3764,8 @@ def main() -> int:
     label_records = new_phases(card, phase_done, md22_cfg)
     # ---- 31.-34. the edge-list layout and the remaining model options ------
     option_records = edge_phases(card, phase_done)
+    # ---- 35.-37. packed batches, Molecule3D, two ranks on the card ---------
+    slice_records = slice_phases(card, phase_done, md22_cfg)
     paths = [(record, "QM9 request"), (bwd_record, "QM9 step"),
              (htr_record, "MD22 request"), (htr_bwd_record, "MD22 step"),
              (ell_records[0], "ELL request"), (ell_bwd_records[0], "ELL step"),
@@ -3059,7 +3782,8 @@ def main() -> int:
              (label_records[2], "QM9 r2 cli train and test"),
              (label_records[3], "QM9 r2 cli train"),
              (option_records[0], "MD22 options request, dense"),
-             (option_records[1], "MD22 options request, ELL")]
+             (option_records[1], "MD22 options request, ELL"),
+             *slice_records]
     log(json.dumps({"kernels": [{**r, "path": p} for r, p in paths]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,11 @@
     python -m gotennet_tpu_torch.cli train experiment=qm9_u0_tpu label=mu
     python -m gotennet_tpu_torch.cli train experiment=md22_atat \
         datamodule.dataset_root=<dir with md22_AT-AT-CG-CG.npz>
+    python -m gotennet_tpu_torch.cli train experiment=molecule3d \
+        datamodule.dataset_root=<dir with shard_*.npz, or *.sdf>
+    torchrun --nproc-per-node 2 -m gotennet_tpu_torch.cli train \
+        experiment=molecule3d trainer.distributed=true \
+        trainer.data_parallel=2
     python -m gotennet_tpu_torch.cli test checkpoint=runs/x/ckpt_best
     python -m gotennet_tpu_torch.cli train experiment=... device=cpu
 
@@ -23,9 +28,16 @@ experiment builds the same model in both packages (``fused`` absent is
 False, ``layout`` absent is ``"edge"``, the edge-list layout and its
 ``BatchLoader``).  The rMD17, MD17 and MD22 experiments read local
 trajectories (``data/md17.py``) and train on forces, with ``fused`` False
-on the dense and ELL layouts.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: the Molecule3D reader
-and packed dense batches (item 4), more than one device (item 12), and the
+on the dense and ELL layouts.  Molecule3D reads a local copy
+(``data/molecule3d.py``); ``datamodule.pack=true`` packs dense batches.
+
+``trainer.distributed=true`` starts the process group
+(``parallel.initialize_distributed``: torchrun's variables, NCCL on CUDA)
+before anything else; every rank then reads only its shard of each loader
+(``set_shard`` by its data index), or, where the Molecule3D root holds NPZ
+shards, only its range of shards.  ``trainer.data_parallel`` /
+``edge_parallel`` lay the ranks out as the JAX package's mesh.  What is not
+ported raises ``NotImplementedError`` naming its ROADMAP.md item: the
 ``sweep`` and ``parity`` modes, reference ``.ckpt`` files and
 ``scan_layers`` (item 13).
 The nvcc build cache under ``build/`` stands in for the JAX package's
@@ -46,6 +58,7 @@ import torch
 from gotennet_tpu_torch.models.gotennet import not_ported
 from gotennet_tpu_torch.utils.config import load_config
 from gotennet_tpu_torch.utils.device import resolve_device
+from gotennet_tpu_torch.utils.logging import is_main_process
 
 __all__ = ["train", "test", "main", "main_train", "main_test", "CONFIG_DIR"]
 
@@ -62,6 +75,17 @@ def _build_data(cfg: Dict, label: str):
     dm = cfg["datamodule"]
     workdir = cfg["workdir"]
     os.makedirs(workdir, exist_ok=True)
+    # under distributed, loaders shard by the data index: the ranks of one
+    # edge line share their batches
+    world, rank = 1, 0
+    if cfg["trainer"].get("distributed"):
+        import torch.distributed as dist
+        if dist.is_initialized():
+            world = cfg["trainer"].get("data_parallel", 1)
+            rank = dist.get_rank() // cfg["trainer"].get("edge_parallel", 1)
+    # set when the dataset is split across ranks already (Molecule3D NPZ
+    # shards): the loaders must not split it again
+    host_sharded = False
 
     if dm["dataset"] == "QM9":
         from gotennet_tpu_torch.data.qm9 import load_qm9
@@ -71,7 +95,13 @@ def _build_data(cfg: Dict, label: str):
         ds = load_md_dataset(dm["dataset_root"], label,
                              max_frames=dm.get("max_frames"))
     elif dm["dataset"] == "Molecule3D":
-        raise not_ported("the Molecule3D reader", 4)
+        from gotennet_tpu_torch.data.molecule3d import (is_shard_dir,
+                                                        load_molecule3d)
+        host_sharded = world > 1 and is_shard_dir(dm["dataset_root"])
+        ds = load_molecule3d(dm["dataset_root"], label=label,
+                             max_molecules=dm.get("max_molecules"),
+                             host=rank if host_sharded else 0,
+                             n_hosts=world if host_sharded else 1)
     elif dm["dataset"] == "synthetic":
         ds = synthetic_molecules(dm.get("n_molecules", 256),
                                  seed=dm.get("seed", 1),
@@ -87,7 +117,8 @@ def _build_data(cfg: Dict, label: str):
 
     idx_train, idx_val, idx_test = make_splits(
         len(ds), dm["train_size"], dm["val_size"], dm.get("test_size"),
-        dm.get("seed", 1), os.path.join(workdir, "splits.npz"),
+        dm.get("seed", 1),
+        os.path.join(workdir, "splits.npz") if is_main_process() else None,
         dm.get("splits"))
 
     mean = std = None
@@ -118,6 +149,12 @@ def _build_data(cfg: Dict, label: str):
                         seed=dm.get("seed", 1), **mk)
     val_loader = make(ds.subset(idx_val), infer_bs, **mk)
     test_loader = make(ds.subset(idx_test), infer_bs, **mk)
+    if world > 1 and not host_sharded:
+        # training leaves out the trailing batches that do not fill every
+        # rank; evaluation wraps round (torch's DistributedSampler)
+        train_loader.set_shard(world, rank)
+        val_loader.set_shard(world, rank, pad=True)
+        test_loader.set_shard(world, rank, pad=True)
     meta = {"mean": mean, "std": std, "atomref": ds.atomref}
     return train_loader, val_loader, test_loader, meta
 
@@ -244,8 +281,10 @@ def _print_config(cfg: Dict, indent: int = 0) -> None:
 
 def _write_results(cfg: Dict, results: Dict[str, float]) -> None:
     print("test:", json.dumps(results))
-    with open(os.path.join(cfg["workdir"], "test_results.json"), "w") as f:
-        json.dump(results, f, indent=1)
+    if is_main_process():
+        with open(os.path.join(cfg["workdir"], "test_results.json"),
+                  "w") as f:
+            json.dump(results, f, indent=1)
 
 
 def train(cfg: Dict) -> Dict[str, float]:
@@ -253,14 +292,22 @@ def train(cfg: Dict) -> Dict[str, float]:
     (``cfg['test']``); returns the test results."""
     from gotennet_tpu_torch.train.checkpoint import load_checkpoint
 
+    if cfg["trainer"].get("distributed"):
+        # before anything else: the loaders shard by the rank
+        from gotennet_tpu_torch.parallel import initialize_distributed
+        info = initialize_distributed()
+        print(f"distributed: process {info['process_index']}/"
+              f"{info['process_count']} ({info['backend']})")
     _print_config(cfg)
     device = resolve_device(cfg.get("device"))
     label = cfg["label"]
     train_loader, val_loader, test_loader, meta = _build_data(cfg, label)
     model, task, trainer = _build_model_and_trainer(cfg, meta, device)
 
-    with open(os.path.join(cfg["workdir"], "config.json"), "w") as f:
-        json.dump({k: v for k, v in cfg.items()}, f, indent=1, default=str)
+    if is_main_process():
+        with open(os.path.join(cfg["workdir"], "config.json"), "w") as f:
+            json.dump({k: v for k, v in cfg.items()}, f, indent=1,
+                      default=str)
     n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
     print(f"model parameters: {n_params:,}")
 

@@ -15,7 +15,9 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from gotennet_tpu_torch.graph.batch import GraphBatch
-from gotennet_tpu_torch.graph.dense_batch import DenseBatch, collate_dense
+from gotennet_tpu_torch.graph.dense_batch import (DenseBatch, collate_dense,
+                                                  collate_dense_packed,
+                                                  pack_molecules)
 from gotennet_tpu_torch.graph.ell_batch import (ELLBatch, collate_ell,
                                                 frame_graph)
 from gotennet_tpu_torch.graph.neighborlist import collate_graphs
@@ -202,6 +204,32 @@ def set_epoch(loader, epoch: int) -> None:
     loader.rng = np.random.default_rng([loader.seed, epoch])
 
 
+def set_shard(loader, world: int, rank: int, pad: bool = False) -> None:
+    """Keep only every ``world``-th batch from the ``rank``-th on (torch's
+    ``DistributedSampler`` at batch granularity).  Every rank draws the
+    same global batch order (the same seed and ``set_epoch``), so the shards
+    are the JAX package's device groups.  ``pad=False`` (training) leaves
+    out the trailing batches that do not fill every rank, so all ranks take
+    the same number of steps; ``pad=True`` (evaluation) wraps round to the
+    start, so every rank evaluates as many batches (a wrapped batch is
+    counted twice in the metrics)."""
+    if world < 1 or not (0 <= rank < world):
+        raise ValueError(f"bad shard ({world=}, {rank=})")
+    loader.world, loader.rank, loader.pad_shard = world, rank, pad
+
+
+def _shard_batch_indices(loader, n_batches: int) -> List[int]:
+    """The global batch indices this loader's shard yields."""
+    if loader.world == 1:
+        return list(range(n_batches))
+    if loader.pad_shard:
+        total = -(-n_batches // loader.world) * loader.world
+        return [i % n_batches
+                for i in range(loader.rank, total, loader.world)]
+    usable = (n_batches // loader.world) * loader.world
+    return list(range(loader.rank, usable, loader.world))
+
+
 class BatchLoader:
     """Iterates fixed-capacity ``GraphBatch``es (the edge-list layout, each
     node's self-loop included) over a dataset, ``batch_size`` molecules
@@ -261,11 +289,9 @@ class BatchLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     set_epoch = set_epoch
-
-    def set_shard(self, world: int, rank: int, pad: bool = False) -> None:
-        from gotennet_tpu_torch.models.gotennet import not_ported
-        raise not_ported("BatchLoader.set_shard (loaders sharded over "
-                         "processes)", 12)
+    set_shard = set_shard
+    _shard_batch_indices = _shard_batch_indices
+    world, rank, pad_shard = 1, 0, False
 
     def batches(self) -> Iterator[Tuple[np.ndarray, GraphBatch]]:
         """Yield ``(dataset indices, batch)``; graph g of the batch holds
@@ -277,7 +303,8 @@ class BatchLoader:
         bs = self.batch_size
         stop = len(order) - (len(order) % bs if self.drop_last else 0)
         y_dim = self.ds.y.shape[1] if self.ds.y is not None else 1
-        for off in range(0, stop, bs):
+        for b_idx in self._shard_batch_indices(len(range(0, stop, bs))):
+            off = b_idx * bs
             idx = order[off:off + bs]
             graphs = self.ds.graph_dicts(idx)
             while True:
@@ -311,7 +338,15 @@ class DenseLoader:
     multiple of 8.  With ``bucket=True`` molecules are sorted by size
     inside windows of ``bucket_window`` batches and each batch is padded
     only to its own largest molecule (rounded up to a multiple of 8): at
-    QM9's 12-29-atom spread that gives M in {16, 24, 32}."""
+    QM9's 12-29-atom spread that gives M in {16, 24, 32}.
+
+    With ``pack=True`` each batch's molecules are packed block-diagonally
+    into slabs of ``max_atoms`` slots (``collate_dense_packed``), at most
+    ``mols_per_slab`` a slab (default: ``max_atoms`` over the smallest
+    molecule, at most 8).  The slab count is estimated from the mean
+    molecule size with 6 % slack for first-fit decreasing, plus one; a
+    batch that packs worse grows it by a sixteenth (at least one), logs a
+    warning and is collated again, and the larger count stays."""
 
     def __init__(self, ds: MoleculeDataset, batch_size: int,
                  shuffle: bool = False, seed: int = 0,
@@ -319,10 +354,8 @@ class DenseLoader:
                  drop_last: bool = False,
                  bucket: bool = False,
                  bucket_window: int = 16,
-                 pack: bool = False):
-        if pack:
-            from gotennet_tpu_torch.models.gotennet import not_ported
-            raise not_ported("DenseLoader(pack=True)", 4)
+                 pack: bool = False,
+                 mols_per_slab: Optional[int] = None):
         self.ds = ds
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -334,6 +367,16 @@ class DenseLoader:
         self.max_atoms = _round_up(max_atoms, 8)
         self.bucket = bucket
         self.bucket_window = bucket_window
+        self.pack = pack
+        if pack:
+            sizes = np.asarray([len(z) for z in ds.z])
+            if mols_per_slab is None:
+                mols_per_slab = int(min(
+                    8, max(1, self.max_atoms // max(1, sizes.min()))))
+            self.mols_per_slab = mols_per_slab
+            mean = float(sizes.mean()) if len(sizes) else 1.0
+            self.num_slabs = max(1, int(np.ceil(
+                batch_size * mean / self.max_atoms * 1.06)) + 1)
 
     def __len__(self) -> int:
         n = len(self.ds)
@@ -342,6 +385,9 @@ class DenseLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     set_epoch = set_epoch
+    set_shard = set_shard
+    _shard_batch_indices = _shard_batch_indices
+    world, rank, pad_shard = 1, 0, False
 
     def _batch_index_arrays(self, order) -> List[np.ndarray]:
         bs = self.batch_size
@@ -358,15 +404,47 @@ class DenseLoader:
             out.extend(w[o:o + bs] for o in range(0, len(w), bs))
         return out
 
+    def _packed(self, idx: np.ndarray, y_dim: int
+                ) -> Tuple[np.ndarray, DenseBatch]:
+        """One packed batch of the molecules ``idx``, and the molecule of
+        each of its ``[G * P]`` slots (-1 where none)."""
+        from gotennet_tpu_torch.utils.logging import get_logger
+        graphs = self.ds.graph_dicts(idx)
+        while True:
+            try:
+                batch = collate_dense_packed(
+                    graphs, self.num_slabs, self.max_atoms,
+                    self.mols_per_slab, y_dim=y_dim,
+                    with_forces=self.ds.dy is not None)
+                break
+            except ValueError as e:
+                if "slab capacity" not in str(e):
+                    raise
+                self.num_slabs += max(1, self.num_slabs // 16)
+                get_logger().warning("packed slab capacity overflowed; "
+                                     "growing to %d", self.num_slabs)
+        slots = np.full((self.num_slabs, self.mols_per_slab), -1, np.int64)
+        for s, members in enumerate(pack_molecules(
+                [len(g["z"]) for g in graphs], self.max_atoms,
+                self.mols_per_slab)):
+            slots[s, :len(members)] = np.asarray(idx)[members]
+        return slots.reshape(-1), batch
+
     def batches(self) -> Iterator[Tuple[np.ndarray, DenseBatch]]:
         """Yield ``(dataset indices, batch)``; row g of the batch holds
-        molecule ``indices[g]``."""
+        molecule ``indices[g]`` (packed: molecule slot ``s * P + local``
+        holds ``indices[s * P + local]``, -1 for an empty slot)."""
         order = np.arange(len(self.ds))
         if self.shuffle:
             self.rng.shuffle(order)
         y_dim = self.ds.y.shape[1] if self.ds.y is not None else 1
         sizes = np.asarray([len(z) for z in self.ds.z])
-        for idx in self._batch_index_arrays(order):
+        batches = self._batch_index_arrays(order)
+        for b_idx in self._shard_batch_indices(len(batches)):
+            idx = batches[b_idx]
+            if self.pack:
+                yield self._packed(idx, y_dim)
+                continue
             m = self.max_atoms if not self.bucket else min(
                 self.max_atoms, _round_up(max(8, int(sizes[idx].max())), 8))
             yield idx, collate_dense(self.ds.graph_dicts(idx),
@@ -443,6 +521,9 @@ class ELLLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     set_epoch = set_epoch
+    set_shard = set_shard
+    _shard_batch_indices = _shard_batch_indices
+    world, rank, pad_shard = 1, 0, False
 
     def _frame(self, i: int):
         if i not in self._frames:
@@ -460,7 +541,8 @@ class ELLLoader:
         if self.shuffle:
             self.rng.shuffle(order)
         stop = len(order) - (len(order) % bs if self.drop_last else 0)
-        for off in range(0, stop, bs):
+        for b_idx in self._shard_batch_indices(len(range(0, stop, bs))):
+            off = b_idx * bs
             idx = order[off:off + bs]
             graphs = self.ds.graph_dicts(idx)
             frames = [self._frame(int(i)) for i in idx]

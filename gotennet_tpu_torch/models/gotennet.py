@@ -11,10 +11,13 @@ raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 masked segment reductions (``graph/segment.py``), as the JAX package does
 with XLA gathers and ``jax.ops.segment_*``; it reaches no kernel, and
 ignores ``fused``, ``fused_htr`` and ``pair_dtype`` as the JAX edge layer
-does.  ``GATALayer`` is what the edge, dense and ELL interaction layers
-share: their parameters under the reference state-dict names, the optional
-pre-norms (``layernorm``, ``steerable_norm``) and the tail of the plain HTR
-update (``gamma_t``, the ``gamma_w`` chain, the gates; ``update_tail``).
+does.  With ``cfg.edge_axis`` (edge partitioning) each rank of that mesh
+axis holds a block of the edge list and the whole node state, and every
+segment reduction ends in one all-reduce over the axis.  ``GATALayer`` is
+what the edge, dense and ELL interaction layers share: their parameters
+under the reference state-dict names, the optional pre-norms
+(``layernorm``, ``steerable_norm``) and the tail of the plain HTR update
+(``gamma_t``, the ``gamma_w`` chain, the gates; ``update_tail``).
 
 Attention dropout (``attn_dropout > 0``, in training only) draws one
 Bernoulli keep mask per interaction layer from an explicit
@@ -50,10 +53,8 @@ __all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "not_ported",
            "GotenNet"]
 
 # ROADMAP.md Queue 1 items that port what this package still rejects (item
-# IDs are never reused: 1, 2, 3, 5, 6, 8, 9, 10 and 11 are done)
+# IDs are never reused: 1-6 and 8-12 are done)
 ROADMAP_ITEMS = {
-    4: "Data",
-    12: "Multi-GPU",
     13: "CLI, configs and tools",
 }
 
@@ -122,6 +123,10 @@ class GotenNetConfig:
     sep_tensor: bool = True
     edge_ln: str = ""
     max_num_neighbors: int = 32
+    # mesh axis (parallel.mesh) whose ranks split the graph: the edge list
+    # on the edge layout, the destination rows on the ELL one; None: one
+    # device.  See graph/segment.py's psum_axis.
+    edge_axis: Optional[str] = None
     # storage type of the large per-pair tensors; reductions stay f32
     pair_dtype: torch.dtype = torch.float32
     # compute type of the per-layer node projections
@@ -405,16 +410,17 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_aggregate(aggr: str, data: torch.Tensor, seg: torch.Tensor,
-                       n: int, mask: torch.Tensor) -> torch.Tensor:
+                       n: int, mask: torch.Tensor,
+                       psum_axis: Optional[str] = None) -> torch.Tensor:
     """Masked segment reduction; a segment without a real row gives zeros,
     also under ``max``."""
     if aggr == "add":
-        return segment_sum(data, seg, n, mask)
+        return segment_sum(data, seg, n, mask, psum_axis)
     if aggr == "mean":
-        return segment_mean(data, seg, n, mask)
+        return segment_mean(data, seg, n, mask, psum_axis)
     if aggr == "max":
-        out = segment_max(data, seg, n, mask)
-        c = segment_sum(mask.to(torch.int32), seg, n)
+        out = segment_max(data, seg, n, mask, psum_axis)
+        c = segment_sum(mask.to(torch.int32), seg, n, psum_axis=psum_axis)
         while c.dim() < out.dim():
             c = c[..., None]
         return torch.where(c > 0, out, torch.zeros_like(out))
@@ -430,7 +436,7 @@ class NodeInit(nn.Module):
         super().__init__()
         d = cfg.n_atom_basis
         kw = dict(weight_init=cfg.weight_init, bias_init=cfg.bias_init)
-        self.cutoff = cfg.cutoff
+        self.cfg = cfg
         self.A_nbr = nn.Embedding(cfg.max_z, d)
         # the reference's W_ndp is a one-layer MLP
         self.W_ndp = MLP([cfg.n_rbf, d], **kw)
@@ -441,11 +447,12 @@ class NodeInit(nn.Module):
     def forward(self, z, h, edge_src, edge_dst, edge_dist, phi, edge_mask
                 ) -> torch.Tensor:
         r_feat = self.W_ndp(phi) * cosine_cutoff(edge_dist,
-                                                 self.cutoff)[:, None]
+                                                 self.cfg.cutoff)[:, None]
         # self-loops add nothing
         msg_mask = edge_mask & (edge_src != edge_dst)
         msg = take(self.A_nbr(z), edge_src.long()) * r_feat
-        m_i = segment_sum(msg, edge_dst, h.shape[0], msg_mask)
+        m_i = segment_sum(msg, edge_dst, h.shape[0], msg_mask,
+                          self.cfg.edge_axis)
         return self.W_nrd_nru(torch.cat([h, m_i], dim=-1))
 
 
@@ -496,7 +503,7 @@ class GATA(GATALayer):
         logit = torch.sum(take(q, dst) * take(k, src)
                           * t_attn.reshape(E, H, Dh), dim=-1,
                           keepdim=True)                          # [E, H, 1]
-        attn = segment_softmax(logit, edge_dst, N, edge_mask)
+        attn = segment_softmax(logit, edge_dst, N, edge_mask, cfg.edge_axis)
         if cfg.scale_edge:
             attn = attn * (torch.sqrt(n_edges)[:, None, None] / math.sqrt(D))
         else:
@@ -523,9 +530,10 @@ class GATA(GATALayer):
             dX_X = X_j * torch.stack(rest[:lmax], dim=1)[:, deg]
         else:
             dX_X = X_j * rest[0][:, None, :]
-        h = h + _segment_aggregate(cfg.aggr, o_s, edge_dst, N, edge_mask)
+        h = h + _segment_aggregate(cfg.aggr, o_s, edge_dst, N, edge_mask,
+                                   cfg.edge_axis)
         X = X + _segment_aggregate(cfg.aggr, dX_R + dX_X, edge_dst, N,
-                                   edge_mask)
+                                   edge_mask, cfg.edge_axis)
         if not self.updates:
             return h, X, t_ij
         EQ, EK = self.htr_tables(X)
@@ -586,7 +594,8 @@ class GotenNet(nn.Module):
         vec_n = torch.where(nonloop[:, None], vec / safe_d[:, None], vec)
         rl_ij = spherical_harmonics(vec_n, cfg.lmax)              # [E, L]
         # per-source real-edge counts
-        n_edges = take(segment_sum(em.to(h.dtype), src, N), src.long())
+        n_edges = take(segment_sum(em.to(h.dtype), src, N,
+                                   psum_axis=cfg.edge_axis), src.long())
         X = torch.zeros(N, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
                         device=h.device)
         masks = keep_masks(cfg, self.training, (E, cfg.num_heads), generator,

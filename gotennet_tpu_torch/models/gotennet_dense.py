@@ -19,6 +19,11 @@ unfused one drops the attention with it, as flax's ``Dropout`` does;
 ``remat`` recomputes each layer in the backward pass
 (``models.gotennet.run_layer``).
 
+A packed batch (``seg``, several molecules to a slab) keeps the pairs of
+different molecules apart in ``pair_geometry``'s mask; the fused message
+sees that mask only through the sign of ``env_signed``, so its kernels run
+packed slabs as they are.
+
 Parameters carry the reference state-dict names
 (``gata_list.{i}.W_q.weight`` ...), the same for both message paths.
 ``pair_dtype`` and ``node_dtype`` cast where the JAX package casts; every
@@ -66,16 +71,21 @@ class PairGeometry(NamedTuple):
 
 
 def pair_geometry(pos: torch.Tensor, mask: torch.Tensor, cutoff: float,
-                  max_num_neighbors: Optional[int]) -> PairGeometry:
+                  max_num_neighbors: Optional[int],
+                  seg: Optional[torch.Tensor] = None) -> PairGeometry:
     """Adjacency within ``cutoff``, capped to the nearest
     ``max_num_neighbors`` sources per destination (ties broken by source
     index, as the host edge builder's stable argsort).  ``pair_mask``
-    counts the same edges as the edge-list layout, self-loops included."""
+    counts the same edges as the edge-list layout, self-loops included.
+    ``seg`` (a packed batch's molecule of each slot) keeps the pairs of
+    different molecules of one slab apart."""
     M = pos.shape[1]
     vec = pos[:, None, :, :] - pos[:, :, None, :]
     d2 = torch.sum(vec ** 2, dim=-1)
     eye = torch.eye(M, dtype=torch.bool, device=pos.device)[None]
     both = mask[:, :, None] & mask[:, None, :]
+    if seg is not None:
+        both = both & (seg[:, :, None] == seg[:, None, :])
     adj = both & ~eye & (d2 < cutoff ** 2)
     cap = max_num_neighbors
     if cap is not None and cap < M - 1:
@@ -385,7 +395,7 @@ class GotenNetDense(nn.Module):
         cfg = self.cfg
         G, M = batch.z.shape
         geo = pair_geometry(batch.pos, batch.mask, cfg.cutoff,
-                            cfg.max_num_neighbors)
+                            cfg.max_num_neighbors, batch.seg)
         z = batch.z.long()
         h = self.A_na(z)
         phi = self.radial_basis(geo.dist)                     # [G, M, M, R]

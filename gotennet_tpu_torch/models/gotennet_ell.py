@@ -1,7 +1,6 @@
 """GotenNet on the ELL layout: a row of ``K`` neighbour slots per node.
 
-Counterpart of ``gotennet_tpu/models/gotennet_ell.py`` on one device.  Each
-GATA layer takes the path the JAX package takes for the same configuration
+Counterpart of ``gotennet_tpu/models/gotennet_ell.py``.  Each GATA layer takes the path the JAX package takes for the same configuration
 and batch (``fused_paths``):
 - with ``fused`` the message + aggregation runs through
   ``ops.fused_ell.fused_ell`` and, with ``fused_htr`` too, the HTR update
@@ -26,6 +25,15 @@ package's ``attn_dropout`` does; ``remat`` recomputes each layer in the
 backward pass.  ``layernorm`` and ``steerable_norm`` norm h and X in front
 of each layer, for either message.
 
+Row sharding (``cfg.edge_axis`` set, one process per device, as JAX's
+inside ``shard_map``): the batch is whole on every rank of the axis and
+each rank owns a contiguous block of ``NR = N / ranks`` destination rows.
+Pair tensors, the edge state and the kernels' destination inputs hold only
+those rows; the node projections run on them too, and the source tables
+(k, x_g, v, EK) and every per-row aggregate are rebuilt whole by zero
+padding and an all-reduce (``RowShard``).  The fused kernels take the
+``NR``-row block over the ``N``-row tables.
+
 Types follow the JAX layer, not the dense one: the node projections (q,
 k, x_g, v, EQ, EK), ``W_ndp`` and ``W_erp`` compute in float32, only EQFF
 follows ``node_dtype``.  A batch with gather windows (spatially sorted
@@ -45,6 +53,7 @@ import torch
 from torch import nn
 
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
+from gotennet_tpu_torch.graph.segment import segment_sum
 from gotennet_tpu_torch.models.gotennet import (EQFF, GATALayer,
                                                GotenNetConfig, degree_index,
                                                htr_pair_sum, keep_masks,
@@ -57,7 +66,7 @@ from gotennet_tpu_torch.ops.rbf import RadialBasis
 from gotennet_tpu_torch.ops.spherical import spherical_harmonics
 
 __all__ = ["GotenNetELL", "NodeInitELL", "EdgeInitELL", "GATAELL",
-           "fused_paths"]
+           "fused_paths", "RowShard"]
 
 Gather = Callable[[torch.Tensor], torch.Tensor]
 
@@ -76,6 +85,44 @@ def _gather_fn(nbr: torch.Tensor, rounded: bool,
         g = x[idx]
         return g.to(pair_dtype).to(x.dtype) if rounded else g
     return gather
+
+
+class RowShard:
+    """This rank's block of destination rows of an ``n_total``-row batch
+    along mesh ``axis`` (JAX gotennet_ell.py's ``_shard_rows``): ``rows(x)``
+    is the block of a whole ``[n_total, ...]`` tensor, ``unshard(x)`` the
+    whole tensor again from every rank's block (zero padding, then an
+    all-reduce over the axis: the blocks are disjoint, so the sum is their
+    concatenation).  With ``axis=None`` both are the identity."""
+
+    def __init__(self, axis: Optional[str], n_total: int):
+        self.axis = axis
+        self.n_total = n_total
+        self.start, self.n_rows = 0, n_total
+        if axis is not None:
+            from gotennet_tpu_torch.parallel.collectives import (axis_index,
+                                                                 axis_size)
+            n = axis_size(axis)
+            if n_total % n:
+                raise ValueError(f"node capacity {n_total} not divisible by "
+                                 f"the '{axis}'-axis size {n}")
+            self.n_rows = n_total // n
+            self.start = axis_index(axis) * self.n_rows
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis is None:
+            return x
+        return x[self.start:self.start + self.n_rows]
+
+    def unshard(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis is None:
+            return x
+        from gotennet_tpu_torch.parallel.collectives import psum
+        rest = tuple(x.shape[1:])
+        after = self.n_total - self.start - self.n_rows
+        full = torch.cat([x.new_zeros((self.start,) + rest), x,
+                          x.new_zeros((after,) + rest)])
+        return psum(full, self.axis)
 
 
 class NodeInitELL(nn.Module):
@@ -110,8 +157,12 @@ class EdgeInitELL(nn.Module):
         self.W_erp = Dense(cfg.n_rbf, cfg.n_atom_basis,
                            weight_init="xavier_uniform", bias_init="zeros")
 
-    def forward(self, phi, h, gather: Gather) -> torch.Tensor:
-        return (h[:, None, :] + gather(h)) * self.W_erp(phi)
+    def forward(self, phi, h, gather: Gather,
+                h_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``h_rows``: the destination rows of ``h`` (all of it on one
+        device); ``h`` is the table the neighbours are gathered from."""
+        h_rows = h if h_rows is None else h_rows
+        return (h_rows[:, None, :] + gather(h)) * self.W_erp(phi)
 
 
 def _aggr_k(aggr: str, data: torch.Tensor, mask: torch.Tensor
@@ -171,15 +222,23 @@ class GATAELL(GATALayer):
     def forward(self, h, X, t_ij, rl_ij, dist, nbr, nbr_mask, n_edges,
                 gather: Gather, paths: Tuple[bool, bool],
                 slots: Optional[fused_ell.Slots],
-                keep: Optional[torch.Tensor] = None
+                keep: Optional[torch.Tensor] = None,
+                shard: Optional[RowShard] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``keep``: the layer's ``[N, K, H]`` attention keep mask, or None
-        (no dropout)."""
+        """``h``, ``X``: the whole node state; the pair inputs hold the
+        destination rows of ``shard`` (every row on one device).  ``keep``:
+        the layer's ``[NR, K, H]`` attention keep mask, or None (no
+        dropout)."""
         cfg = self.cfg
+        shard = shard or RowShard(None, h.shape[0])
+        rows, unshard = shard.rows, shard.unshard
         h, X = self.pre_norm(h, X)
-        q, k = self.W_q(h), self.W_k(h)
-        x_g = self.gamma_s[1](self.gamma_s[0](h))
-        v = self.gamma_v[1](self.gamma_v[0](h))
+        # the node projections run on this rank's rows; the source tables
+        # are rebuilt whole for the gathers
+        hn = rows(h)
+        q, k = self.W_q(hn), unshard(self.W_k(hn))
+        x_g = unshard(self.gamma_s[1](self.gamma_s[0](hn)))
+        v = unshard(self.gamma_v[1](self.gamma_v[0](hn)))
         if paths[0]:
             d_h, dX = self._fused_message(t_ij, q, k, x_g, v, rl_ij, X, dist,
                                           nbr, nbr_mask, n_edges, slots, keep)
@@ -187,12 +246,13 @@ class GATAELL(GATALayer):
             d_h, dX = self._unfused_message(t_ij, q, k, x_g, v, rl_ij, X,
                                             dist, nbr_mask, n_edges, gather,
                                             keep)
-        h = h + d_h
-        X = X + dX
+        h = h + unshard(d_h)
+        X = X + unshard(dX)
         if not self.updates:
             return h, X, t_ij
 
-        EQ, EK = self.htr_tables(X)
+        EQ, EK = self.htr_tables(rows(X))
+        EK = unshard(EK)
         info = self.info
         if not paths[1]:
             # the plain update (JAX gotennet_ell.py:523-574)
@@ -302,15 +362,18 @@ class GotenNetELL(nn.Module):
         ``attn_dropout > 0``)."""
         cfg = self.cfg
         N, K = batch.nbr.shape
-        paths = fused_paths(cfg, N, N, batch.gather_halo)
-        nbr, nm, pos = batch.nbr, batch.nbr_mask, batch.pos
+        # under row sharding each rank owns NR = N / ranks destination rows
+        shard = RowShard(cfg.edge_axis, N)
+        rows, NR = shard.rows, shard.n_rows
+        paths = fused_paths(cfg, N, NR, batch.gather_halo)
+        nbr, nm, pos = rows(batch.nbr), rows(batch.nbr_mask), batch.pos
         idx = nbr.long()
         gather = _gather_fn(nbr, bool(batch.gather_window and batch.block_rows),
                             cfg.pair_dtype)
         # neighbour geometry (source - destination); the self-loop's
         # distance is pinned to 0 and its unit vector to zeros
-        vec = pos[idx] - pos[:, None, :]
-        self_idx = torch.arange(N, device=idx.device)[:, None]
+        vec = pos[idx] - rows(pos)[:, None, :]
+        self_idx = torch.arange(NR, device=idx.device)[:, None] + shard.start
         nonloop = nm & (idx != self_idx)
         d2 = torch.sum(vec ** 2, dim=-1)
         one = torch.ones_like(d2)
@@ -323,23 +386,26 @@ class GotenNetELL(nn.Module):
 
         z = batch.z.long()
         h = self.A_na(z)
-        phi = self.radial_basis(dist)                         # [N, K, R]
-        h = self.node_init(z, h, gather, dist, phi, nonloop)
-        t_ij = self.edge_init(phi, h, gather)
+        phi = self.radial_basis(dist)                         # [NR, K, R]
+        h = shard.unshard(self.node_init(z, rows(h), gather, dist, phi,
+                                         nonloop))
+        t_ij = self.edge_init(phi, h, gather, h_rows=rows(h))
         # per-source real-edge counts; integers, so the scatter is exact
-        counts = torch.zeros(N, dtype=h.dtype, device=h.device).index_add_(
-            0, idx.reshape(-1), nm.reshape(-1).to(h.dtype))
+        counts = segment_sum(nm.reshape(-1).to(h.dtype), idx.reshape(-1), N,
+                             psum_axis=cfg.edge_axis)
         n_edges = counts[idx]
         X = torch.zeros(N, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
                         device=h.device)
         # what the backward kernels sum table gradients by, once per batch
         slots = (fused_ell.source_slots(nbr, N)
                  if paths[0] and torch.is_grad_enabled() else None)
-        masks = keep_masks(cfg, self.training, (N, K, cfg.num_heads),
+        masks = keep_masks(cfg, self.training, (NR, K, cfg.num_heads),
                            generator, h.device)
         for gata, eqff, keep in zip(self.gata_list, self.eqff_list, masks):
             h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
                                    rl_ij, dist, nbr, nm, n_edges, gather,
-                                   paths, slots, keep)
-            h, X = eqff(h, X)
+                                   paths, slots, keep, shard)
+            # EQFF is row-wise: this rank's rows, then the whole state
+            h_r, X_r = eqff(rows(h), rows(X))
+            h, X = shard.unshard(h_r), shard.unshard(X_r)
         return h, X

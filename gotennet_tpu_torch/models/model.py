@@ -5,13 +5,16 @@ positions.
 ``GotenModel`` returns ``{'property': [G, n_out], ...,
 'representation': [N, D], 'vector_representation': [N, L, D]}`` like the
 JAX model, with ``N = G*M`` node slots in the dense layout; the head
-(Atomwise, Dipole or ElectronicSpatialExtent) sees that flat node set.
+(Atomwise, Dipole or ElectronicSpatialExtent) sees that flat node set
+(``graph.dense_batch.flatten_nodes``: a packed batch's graphs are its
+``G*P`` molecule slots).
 The three layouts share one state dict.
 It is built on ``cuda`` unless ``device`` says otherwise, from a seeded
 init or, through ``load_state_dict``, from weights converted by
 ``utils.convert.state_dict_from_jax_params``.  ``apply_with_forces`` adds
 ``forces = -dE/dpos`` for a head with ``derivative``, differentiable when
-the caller trains on them.
+the caller trains on them.  On a graph split over the ranks of
+``cfg.edge_axis`` the forces are averaged over that axis, as JAX's are.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from torch import nn
 
 from gotennet_tpu_torch.graph.batch import GraphBatch
-from gotennet_tpu_torch.graph.dense_batch import DenseBatch
+from gotennet_tpu_torch.graph.dense_batch import DenseBatch, flatten_nodes
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
 from gotennet_tpu_torch.models.gotennet import GotenNet, GotenNetConfig
 from gotennet_tpu_torch.models.gotennet_dense import GotenNetDense
@@ -35,7 +38,7 @@ from gotennet_tpu_torch.nn.dense import Dense
 from gotennet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["HeadConfig", "GotenModel", "init_parameters_",
-           "apply_with_forces"]
+           "apply_with_forces", "set_edge_axis"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,18 +121,15 @@ class GotenModel(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         h, X = self.representation(batch, self.dropout_generator)
         if self.layout == "dense":
-            # the flat [G*M] node set, as the JAX package's flatten_nodes
+            # the flat [G*M] node set; a packed batch's graph axis is its
+            # [G*P] molecule slots
             G, M = h.shape[:2]
             h = h.reshape(G * M, -1)
             X = X.reshape(G * M, X.shape[2], X.shape[3])
-            node_graph = torch.arange(G, device=h.device).repeat_interleave(M)
-            out = self.output_modules[0](
-                batch.z.reshape(-1), batch.pos.reshape(-1, 3), h, X,
-                batch.mask.reshape(-1), node_graph, G)
-        else:
-            out = self.output_modules[0](batch.z, batch.pos, h, X,
-                                         batch.node_mask, batch.node_graph,
-                                         batch.num_graphs)
+            batch = flatten_nodes(batch)
+        out = self.output_modules[0](batch.z, batch.pos, h, X,
+                                     batch.node_mask, batch.node_graph,
+                                     batch.num_graphs)
         out["representation"] = h
         out["vector_representation"] = X
         return out
@@ -177,6 +177,25 @@ def apply_with_forces(model: GotenModel,
         out = model(dataclasses.replace(batch, pos=pos))
         dy, = torch.autograd.grad(out["property"].sum(), pos,
                                   create_graph=create_graph)
+    if model.cfg.edge_axis is not None:
+        # a split graph: each rank's dE/dpos holds its own pairs' terms,
+        # times the rank count through the all-reduces' backward; the mean
+        # over the axis is the whole graph's
+        from gotennet_tpu_torch.parallel.collectives import pmean
+        dy = pmean(dy, model.cfg.edge_axis)
     sign = -1.0 if model.head.negative_dr else 1.0
     out["forces"] = sign * dy * batch.node_mask[..., None].to(dy.dtype)
     return out
+
+
+def set_edge_axis(model: GotenModel, axis: Optional[str]) -> GotenModel:
+    """Give ``model`` and every layer of it ``cfg.edge_axis = axis`` (in
+    place): the mesh axis whose ranks split its graphs (the edge list, or
+    the ELL destination rows), None for one device.  The parameters stay
+    as they are, as the JAX package's serial and sharded variants of one
+    model share one parameter tree."""
+    for m in model.modules():
+        cfg = getattr(m, "cfg", None)
+        if isinstance(cfg, GotenNetConfig):
+            m.cfg = dataclasses.replace(cfg, edge_axis=axis)
+    return model

@@ -58,8 +58,9 @@ def build_all(sources=SOURCES) -> List[Path]:
     for src, out in zip(sources, targets):
         if out.exists():
             continue
+        # per-process names: several processes may build at once
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
+        log = open(out.with_suffix(f".{os.getpid()}.log"), "w")
         procs.append((subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
             stdout=log, stderr=subprocess.STDOUT), tmp, out, log))
@@ -68,10 +69,12 @@ def build_all(sources=SOURCES) -> List[Path]:
         rc = proc.wait()
         log.close()
         if rc == 0:
-            os.replace(tmp, out)   # atomic: readers never see half a file
+            # atomic: readers never see half a file
+            os.replace(log.name, out.with_suffix(".log"))
+            os.replace(tmp, out)
         else:
             failed.append(f"{out.name}: nvcc exit {rc}\n"
-                          + out.with_suffix(".log").read_text())
+                          + Path(log.name).read_text())
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return targets

@@ -70,10 +70,11 @@ class Task:
                           atomref=self.dataset_meta.get("atomref"))
 
     def get_targets(self, batch) -> Dict[str, tuple]:
-        """Target name -> ``(values [G, 1], mask [G, 1])`` from a dense
-        batch; padded graphs have mask 0."""
-        if batch.y.dim() == 3:
-            from gotennet_tpu_torch.models.gotennet import not_ported
-            raise not_ported("packed dense batches (y with 3 dimensions)", 4)
-        gm = batch.graph_mask.to(torch.float32)[:, None]
-        return {"y": (batch.y[:, :1], gm)}
+        """Target name -> ``(values [G, 1], mask [G, 1])``; padded graphs
+        have mask 0.  A packed dense batch's ``y [G, P, T]`` flattens to the
+        model's ``[G * P]`` graph axis (``graph.dense_batch.flatten_nodes``)."""
+        y, gm = batch.y, batch.graph_mask
+        if y.dim() == 3:
+            y = y.reshape(-1, y.shape[-1])
+            gm = gm.reshape(-1)
+        return {"y": (y[:, :1], gm.to(torch.float32)[:, None])}

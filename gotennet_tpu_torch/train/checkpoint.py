@@ -70,6 +70,9 @@ def _unflatten_dict(flat: dict) -> dict:
 def _config_to_json(model: GotenModel) -> dict:
     """The model's part of ``meta.json``."""
     cfg = dataclasses.asdict(model.cfg)
+    # the sharding axis is how a run was laid out, not the model: a
+    # checkpoint loads on any number of devices
+    cfg.pop("edge_axis", None)
     dtypes = {k: str(cfg.pop(k)).replace("torch.", "")
               for k in ("pair_dtype", "node_dtype")}
     head = dataclasses.asdict(model.head)

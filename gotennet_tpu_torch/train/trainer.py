@@ -14,8 +14,24 @@ counts only its own batches), with warm-up times plateau or cosine LR, the
 per-stage loss EMA (and ``use_ema_in_loss``'s gradient rescale), early
 stopping, ``ckpt_best`` / ``ckpt_last`` checkpoints and a full-state
 ``resume``; ``Trainer.evaluate`` gives the loss and the task's metrics,
-summed in float64.  One device only: ``data_parallel``, ``edge_parallel``
-and ``distributed`` raise (ROADMAP.md Queue 1, item 12).
+summed in float64.
+
+More than one device runs one process per device, in a
+``torch.distributed`` process group of ``data_parallel * edge_parallel``
+ranks (``parallel.initialize_distributed``; ``torchrun``), laid out as the
+JAX package's ``(data, edge)`` mesh (``parallel.make_mesh``).  A step
+averages the ranks' gradients, loss and logs over the mesh before the clip
+and AdamW, so every rank keeps the same parameters.  The ranks of one edge
+line share a batch: the edge-list layout splits its edges among them, the
+ELL layout its destination rows (``edge_parallel``; the dense layout
+cannot).  Without ``distributed`` every rank reads the whole loader and
+takes the batch its JAX device slot would get (group g of ``data_parallel``
+accumulation groups, slot = its data index; a trailing partial group is
+left out of training and padded with a repeat in evaluation, whose repeats
+are not counted).  With ``distributed`` each rank's loader holds its own
+shard (``set_shard`` by data index, or Molecule3D's per-rank NPZ shards),
+evaluation sums reduce over the ranks, and a step runs only while every
+rank has a batch.  Only rank 0 logs and writes checkpoints.
 
 A force loss (a head with ``derivative``, ``MD17Task`` / ``MD22Task``)
 trains through the gradient of the forces, a gradient of a gradient.  The
@@ -41,10 +57,10 @@ from gotennet_tpu_torch.data.dataset import (BatchLoader, DenseLoader,
 from gotennet_tpu_torch.graph.batch import GraphBatch
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig, not_ported
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.gotennet_ell import fused_paths
 from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
-                                             apply_with_forces)
+                                             apply_with_forces, set_edge_axis)
 from gotennet_tpu_torch.tasks.base import Task
 from gotennet_tpu_torch.train.metrics import MetricAccumulator
 from gotennet_tpu_torch.train.optim import (PlateauState, clip_by_global_norm,
@@ -174,13 +190,15 @@ def accum_grads(model: GotenModel, loss_fn: Callable,
 def train_step(model: GotenModel, optimizer: torch.optim.Optimizer,
                chunks: Sequence[DenseBatch], grad_clip: Optional[float] = 5.0,
                *, loss_fn: Optional[Callable] = None, grad_scale: float = 1.0,
-               logs: Optional[dict] = None) -> float:
+               logs: Optional[dict] = None, axes=None) -> float:
     """One optimizer step over the accumulation ``chunks``: mean gradient,
     times ``grad_scale``, global-norm clip at ``grad_clip`` (None: none),
     then ``optimizer.step()``.  ``loss_fn`` defaults to the base task's L1
     loss on the property.  ``logs``, when given, receives the gradients'
     global norm before the clip (``grad_norm``) and, for a single chunk,
-    the per-loss values.  Returns the mean loss."""
+    the per-loss values.  ``axes``: mesh axes over whose ranks the scaled
+    gradients, the loss and the logs are averaged before the clip (the JAX
+    package's ``pmean`` in its sharded step).  Returns the mean loss."""
     model.train()
     if loss_fn is None:
         loss_fn = make_loss_fn(model, Task(None))
@@ -189,6 +207,16 @@ def train_step(model: GotenModel, optimizer: torch.optim.Optimizer,
     if grad_scale != 1.0:
         for p in params:
             p.grad.mul_(grad_scale)
+    if axes is not None:
+        from gotennet_tpu_torch.parallel.collectives import pmean
+        from gotennet_tpu_torch.parallel.data_parallel import pmean_grads
+        pmean_grads([p for p in model.parameters() if p.requires_grad], axes)
+        params = [p for p in model.parameters() if p.grad is not None]
+        loss = pmean(torch.as_tensor(loss, dtype=torch.float32,
+                                     device=params[0].device), axes)
+        if logs is not None:
+            for k, v in logs.items():
+                logs[k] = pmean(v, axes)
     if grad_clip is not None:
         g_norm = clip_by_global_norm(params, grad_clip)
     elif logs is not None:
@@ -268,11 +296,6 @@ class TrainerConfig:
     distributed: bool = False
 
 
-def _on_device(loader: Iterable, device: torch.device):
-    for batch in loader:
-        yield batch.to(device)
-
-
 def _grouped(it: Iterable, n: int):
     """Lists of ``n`` consecutive items; the trailing partial one as is."""
     buf = []
@@ -286,22 +309,45 @@ def _grouped(it: Iterable, n: int):
 
 
 class Trainer:
-    """Single-device trainer over ``model`` (a ``GotenModel`` on its
-    device) for ``task``.  ``fit`` trains the model in place; both
-    ``fit`` and ``evaluate`` take a state dict to start from (``evaluate``:
-    None keeps the model's weights)."""
+    """Trainer over ``model`` (a ``GotenModel`` on its device) for
+    ``task``, on this process's device: alone, or as one rank of a
+    ``data_parallel x edge_parallel`` mesh (the process group must be up).
+    ``fit`` trains the model in place; both ``fit`` and ``evaluate`` take a
+    state dict to start from (``evaluate``: None keeps the model's weights).
+    With ``edge_parallel > 1`` the model takes its collectives over the
+    mesh's ``edge`` axis (``models.model.set_edge_axis``)."""
 
     def __init__(self, model: GotenModel, task, cfg: TrainerConfig):
-        if cfg.data_parallel > 1 or cfg.edge_parallel > 1 or cfg.distributed:
-            raise not_ported(
-                f"data_parallel={cfg.data_parallel}, edge_parallel="
-                f"{cfg.edge_parallel}, distributed={cfg.distributed} "
-                "(more than one device)", 12)
         from gotennet_tpu_torch.utils.logging import make_logger
         self.model = model
         self.task = task
         self.cfg = cfg
         self.device = next(model.parameters()).device
+        self.mesh = None
+        self.edge_axis = None
+        n_dev = cfg.data_parallel * cfg.edge_parallel
+        if n_dev > 1 or cfg.distributed:
+            import torch.distributed as dist
+
+            from gotennet_tpu_torch.parallel.mesh import make_mesh
+            if not dist.is_initialized():
+                raise ValueError(
+                    f"data_parallel={cfg.data_parallel}, edge_parallel="
+                    f"{cfg.edge_parallel}, distributed={cfg.distributed} "
+                    "run one process per device: start the process group "
+                    "first (parallel.initialize_distributed, or torchrun)")
+            if n_dev != dist.get_world_size():
+                raise ValueError(
+                    f"data_parallel*edge_parallel ({n_dev}) must equal the "
+                    f"number of processes ({dist.get_world_size()})")
+            if cfg.edge_parallel > 1 and model.layout not in ("edge", "ell"):
+                raise ValueError(
+                    "edge_parallel > 1 requires the 'edge' layout (edge "
+                    "partitioning) or 'ell' (destination-row sharding)")
+            self.mesh = make_mesh((cfg.data_parallel, cfg.edge_parallel),
+                                  ("data", "edge"))
+            self.edge_axis = "edge" if cfg.edge_parallel > 1 else None
+            set_edge_axis(model, self.edge_axis)
         self.loss_fn = make_loss_fn(model, task)
         self.ema: Dict[str, float] = {}
         self.plateau = PlateauState(cfg.lr_decay, cfg.lr_patience,
@@ -344,6 +390,60 @@ class Trainer:
             return cfg.ema_rate
         return 1.0
 
+    # ---- the mesh -----------------------------------------------------------
+    def _reduce(self, values, axis="data") -> torch.Tensor:
+        """``values`` (float64) summed over the ranks of ``axis``; every
+        edge line holds the same values, so the data axis alone sums each
+        once."""
+        from gotennet_tpu_torch.parallel.collectives import psum
+        x = torch.as_tensor(values, dtype=torch.float64, device=self.device)
+        return psum(x, axis) if self.mesh is not None else x
+
+    def _local(self, batch):
+        """This rank's piece of a batch (the edge layout's edge block under
+        edge_parallel), on the device."""
+        if self.edge_axis is not None:
+            from gotennet_tpu_torch.parallel.data_parallel import \
+                shard_graph_batch
+            batch = shard_graph_batch(batch, self.mesh, self.edge_axis,
+                                      self.model.layout)
+        return batch.to(self.device)
+
+    def _train_groups(self, loader: Iterable):
+        """The accumulation chunks of each of this rank's optimizer steps:
+        ``grad_accum_steps`` consecutive batches; without ``distributed``
+        on a mesh, the data index's slot of every full group of
+        ``data_parallel`` of them."""
+        groups = _grouped(loader, max(1, self.cfg.grad_accum_steps))
+        if self.mesh is not None and not self.cfg.distributed:
+            dp, slot = self.cfg.data_parallel, self.mesh.index("data")
+            groups = (g[slot] for g in _grouped(groups, dp) if len(g) == dp)
+        for chunks in groups:
+            yield [self._local(b) for b in chunks]
+
+    def _all_have(self, have: bool) -> bool:
+        """Whether every rank has a step to take (a rank of a distributed
+        run whose shard ran out stops the others)."""
+        if self.mesh is None or not self.cfg.distributed:
+            return have
+        from gotennet_tpu_torch.parallel.collectives import psum
+        flag = torch.tensor([0.0 if have else 1.0], device=self.device)
+        return float(psum(flag, ("data", "edge"))) == 0.0
+
+    def _generator_states(self, generator) -> Dict[str, Any]:
+        """The dropout generator's state for ``train_state``: this rank's,
+        and on a mesh every rank's (``generators``, by rank)."""
+        state = generator.get_state()
+        out = {"generator": state.tolist()}
+        if self.mesh is not None and self.mesh.size(("data", "edge")) > 1:
+            from gotennet_tpu_torch.parallel.collectives import psum
+            rows = torch.zeros(self.mesh.size(("data", "edge")),
+                               state.numel(), dtype=torch.int64,
+                               device=self.device)
+            rows[self.mesh.rank] = state.to(self.device, torch.int64)
+            out["generators"] = psum(rows, ("data", "edge")).tolist()
+        return out
+
     # ---- one optimizer step ----------------------------------------------
     def _train_step(self, optimizer, chunks, lr_scale: float,
                     ema_scale: float) -> Dict[str, float]:
@@ -352,7 +452,8 @@ class Trainer:
         logs: Dict[str, Any] = {}
         loss = train_step(self.model, optimizer, chunks, cfg.grad_clip,
                           loss_fn=self.loss_fn, grad_scale=ema_scale,
-                          logs=logs)
+                          logs=logs,
+                          axes=self.mesh.axis_names if self.mesh else None)
         grad_norm = float(logs.pop("grad_norm"))
         if cfg.grad_accum_steps > 1:
             logs = {}   # the per-loss values are logged without accumulation
@@ -373,11 +474,20 @@ class Trainer:
         # a force loss on the dense fused path raises before anything runs
         # (an ELL batch's path is checked as its step starts)
         check_force_training(model.cfg, model.head, model.layout)
+        if (self.edge_axis is not None and model.layout == "edge"
+                and model.cfg.aggr == "max"):
+            raise ValueError(
+                "aggr='max' under edge_parallel cannot train: the maximum "
+                "over the edge axis has no gradient (nor has JAX's pmax); "
+                "use aggr='add' or 'mean', or edge_parallel=1")
         model.load_state_dict(state_dict)
         optimizer = make_optimizer(model.parameters(), cfg.lr,
                                    cfg.weight_decay, cfg.grad_clip)
         generator = model.dropout_generator
-        generator.manual_seed(cfg.seed)
+        # each rank draws its own dropout masks, from (seed, rank)
+        rank = self.mesh.rank if self.mesh is not None else 0
+        generator.manual_seed(cfg.seed if rank == 0 else int(
+            np.random.SeedSequence([cfg.seed, rank]).generate_state(1)[0]))
         step = start_epoch = bad_epochs = 0
         monitor_ckpt = cfg.monitor_checkpoint or cfg.monitor
         best_stop = best_ckpt = math.inf
@@ -397,10 +507,12 @@ class Trainer:
                 if ts.get("plateau"):
                     self.plateau = dataclasses.replace(self.plateau,
                                                        **ts["plateau"])
-                if ts.get("generator") is not None:
-                    generator.set_state(torch.tensor(ts["generator"],
+                saved_gen = ts.get("generator")
+                if len(ts.get("generators") or ()) > rank:
+                    saved_gen = ts["generators"][rank]
+                if saved_gen is not None:
+                    generator.set_state(torch.tensor(saved_gen,
                                                      dtype=torch.uint8))
-        n_accum = max(1, cfg.grad_accum_steps)
         history = []
         for epoch in range(start_epoch, cfg.max_epochs):
             # the shuffle is a function of (seed, epoch): a resumed run
@@ -410,8 +522,11 @@ class Trainer:
             t0 = time.time()
             model.train()
             train_losses = []
-            for chunks in prefetch(_grouped(_on_device(train_loader,
-                                                       self.device), n_accum)):
+            steps = iter(prefetch(self._train_groups(train_loader)))
+            while True:
+                chunks = next(steps, None)
+                if not self._all_have(chunks is not None):
+                    break
                 logs = self._train_step(optimizer, chunks,
                                         self.lr_scale(step),
                                         self._ema_grad_scale())
@@ -458,7 +573,7 @@ class Trainer:
                 "plateau": {"best": self.plateau.best,
                             "num_bad": self.plateau.num_bad,
                             "scale": self.plateau.scale},
-                "generator": generator.get_state().tolist(),
+                **self._generator_states(generator),
             }
             if improved_ckpt:
                 self.save_checkpoint(optimizer, step, "best", train_state)
@@ -474,17 +589,34 @@ class Trainer:
     def evaluate(self, state_dict: Optional[Dict[str, torch.Tensor]],
                  loader: Iterable, phase: str = "test") -> Dict[str, float]:
         """``val_loss`` (the mean of the per-batch losses, each through the
-        stage's EMA) and each of the task's metrics over ``loader``."""
+        stage's EMA) and each of the task's metrics over ``loader``.  On a
+        mesh every rank returns the same values: the whole loader's
+        without ``distributed`` (each rank evaluates its slot of every group
+        of ``data_parallel`` batches), the sum over the ranks' shards with
+        it (the EMA then applies once, to the epoch's loss)."""
         from gotennet_tpu_torch.data.prefetch import prefetch
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.eval()
         metrics = self.task.get_metrics()
         accs = {m["name"]: MetricAccumulator() for m in metrics}
-        losses = []
-        for batch in prefetch(_on_device(loader, self.device)):
+        grouped = self.mesh is not None and not self.cfg.distributed
+        dp = self.cfg.data_parallel if grouped else 1
+        slot = self.mesh.index("data") if grouped else 0
+
+        def batches():
+            # a trailing partial group repeats a real batch, whose results
+            # are not counted
+            for group in _grouped(loader, dp):
+                yield len(group), self._local((group + [group[0]] * dp)[slot])
+
+        n_real, losses = [], []
+        for n, batch in prefetch(batches()):
+            n_real.append(n)
             loss, _, out = self.loss_fn(batch)
-            losses.append(self._stage_ema(phase, float(loss)))
+            losses.append(float(loss))
+            if slot >= n:
+                continue
             targets = self.task.get_targets(batch)
             for m in metrics:
                 tgt, mask = targets[m["target"]]
@@ -497,21 +629,44 @@ class Trainer:
             return m.get("kind") or ("mae" if "Absolute" in m["name"]
                                      else "mse")
 
-        out = {"val_loss": float(np.mean(losses)) if losses else math.nan}
-        for m in metrics:
-            out[m["name"]] = accs[m["name"]].compute()[kind_of(m)]
+        sums = [[accs[m["name"]].abs_sum, accs[m["name"]].sq_sum,
+                 accs[m["name"]].count] for m in metrics]
+        if self.mesh is not None:
+            sums = self._reduce(sums).tolist()
+        if self.cfg.distributed:
+            tot = self._reduce([sum(losses), len(losses)]).tolist()
+            val = tot[0] / max(tot[1], 1.0)
+            out = {"val_loss": self._stage_ema(phase, val)}
+        else:
+            if grouped:
+                table = torch.zeros(len(losses), dp, dtype=torch.float64)
+                table[:, slot] = torch.tensor(losses, dtype=torch.float64)
+                table = self._reduce(table).cpu()
+                losses = [float(table[g, i]) for g, n in enumerate(n_real)
+                          for i in range(n)]
+            losses = [self._stage_ema(phase, v) for v in losses]
+            out = {"val_loss": float(np.mean(losses)) if losses else math.nan}
+        for m, (a_sum, s_sum, cnt) in zip(metrics, sums):
+            out[m["name"]] = ((a_sum if kind_of(m) == "mae" else s_sum)
+                              / max(cnt, 1.0))
         return out
 
     # ---- persistence -------------------------------------------------------
     def save_checkpoint(self, optimizer, step: int, tag: str,
                         train_state: Optional[Dict] = None) -> None:
         from gotennet_tpu_torch.train.checkpoint import save_checkpoint
-        extra = {"task": getattr(self.task, "name", None),
-                 "label": getattr(self.task, "label_name",
-                                  getattr(self.task, "label", None))}
-        save_checkpoint(os.path.join(self.cfg.workdir, f"ckpt_{tag}"),
-                        self.model, step=step, extra_meta=extra,
-                        optimizer=optimizer, train_state=train_state)
+        from gotennet_tpu_torch.utils.logging import is_main_process
+        # every rank holds the same parameters: rank 0 writes them, and the
+        # others wait until it has
+        if is_main_process():
+            extra = {"task": getattr(self.task, "name", None),
+                     "label": getattr(self.task, "label_name",
+                                      getattr(self.task, "label", None))}
+            save_checkpoint(os.path.join(self.cfg.workdir, f"ckpt_{tag}"),
+                            self.model, step=step, extra_meta=extra,
+                            optimizer=optimizer, train_state=train_state)
+        if self.mesh is not None:
+            self._reduce([0.0], ("data", "edge"))
 
     def _log(self, record: Dict[str, Any]) -> None:
         self._logger.log(record)

@@ -879,3 +879,113 @@ def test_force_training_step_on_card_matches_cpu(card, layout):
         assert torch.isfinite(got).all(), name
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * max(want.abs().max().item(), 1e-30), name
+
+
+# ---- packed slabs and row-sharded blocks on the kernels ------------------------
+def _hold_captured(kernel, plain, captured, tol):
+    """Each captured call's kernel result against its plain version within
+    ``tol`` of the scale, and a rerun of the first call giving the same
+    bits."""
+    assert captured
+    with torch.inference_mode():
+        for args, kwargs in captured:
+            got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            got = (got,) if isinstance(got, torch.Tensor) else got
+            want = (want,) if isinstance(want, torch.Tensor) else want
+            _close([g for g in got if g is not None],
+                   [w for w in want if w is not None], tol)
+    chip_smoke.rerun_bits(kernel, captured, kernel.__name__)
+
+
+def test_packed_slabs_on_the_gata_kernels_match_plain(card):
+    """A step of the fused dense model on packed slabs (several molecules a
+    slab, the pairs between them masked through env_signed's sign): the
+    GATA forward and backward kernels on the inputs the step gave them
+    against their plain versions (float32: 1e-4 of the scale), reruns the
+    same bits; the step's loss against the CPU's."""
+    from gotennet_tpu_torch.graph.dense_batch import collate_dense_packed
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+    from gotennet_tpu_torch.train.trainer import make_loss_fn
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, remat=False)
+    mols = synthetic_molecules(24, seed=5, min_atoms=5,
+                               max_atoms=14).graph_dicts(range(24))
+    batch = collate_dense_packed(mols, 12, 32, 4)
+    assert int(batch.graph_mask.sum()) == 24
+    losses = []
+    for device in ("cuda", "cpu"):
+        model = GotenModel(cfg, HeadConfig(mean=0.5, stddev=2.0), "dense",
+                           seed=1, device=device)
+        model.train()
+        loss_fn = make_loss_fn(model, QM9Task("U0", dataset_meta={
+            "mean": 0.0, "std": 1.0}))
+        b = batch.to(device)
+
+        def step():
+            loss = loss_fn(b)[0]
+            loss.backward()
+            losses.append(float(loss))
+
+        if device == "cuda":
+            fwd = chip_smoke.capture(fused_gata, "fused_gata_forward", step)
+            bwd = chip_smoke.capture(fused_gata, "fused_gata_backward", step)
+        else:
+            step()
+    assert len(fwd) == len(bwd) == cfg.n_interactions
+    _hold_captured(fused_gata_forward, fused_gata_forward_reference, fwd,
+                   1e-4)
+    _hold_captured(fused_gata_backward, fused_gata_backward_reference, bwd,
+                   1e-4)
+    np.testing.assert_allclose(losses[0], losses[-1], rtol=1e-4)
+
+
+def test_row_blocks_on_the_ell_kernels_match_plain(card, monkeypatch):
+    """The ELL model's forward and backward on one rank's block of
+    destination rows, NR = N / 2 over the whole N-row tables (the row
+    sharding of edge_parallel=2, its all-reduce left out: one process
+    here): all four ELL kernels on the inputs the model gave them against
+    their plain versions (float32: 1e-4 of the scale), reruns the same
+    bits."""
+    from gotennet_tpu_torch.data.dataset import ELLLoader
+    from gotennet_tpu_torch.models import gotennet_ell
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.ops import fused_ell, fused_htr
+
+    class SecondHalf(gotennet_ell.RowShard):
+        def __init__(self, axis, n_total):
+            super().__init__(None, n_total)
+            self.axis, self.n_rows = axis, n_total // 2
+            self.start = self.n_rows
+
+        def unshard(self, x):
+            return torch.cat([x.new_zeros((self.start,) + x.shape[1:]), x])
+
+    monkeypatch.setattr(gotennet_ell, "RowShard", SecondHalf)
+    real_sum = gotennet_ell.segment_sum
+    monkeypatch.setattr(gotennet_ell, "segment_sum",
+                        lambda *a, psum_axis=None: real_sum(*a))
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16, fused_htr=True, remat=False,
+                         edge_axis="edge")
+    ds = synthetic_molecules(1, seed=9, min_atoms=600, max_atoms=700,
+                             box=6.3)
+    batch = next(iter(ELLLoader(ds, 1, spatial_sort=True,
+                                block_rows=64))).to("cuda")
+    model = GotenModel(cfg, HeadConfig(), "ell", seed=1)
+    model.train()
+
+    def step():
+        model(batch)["property"].sum().backward()
+
+    names = [(fused_ell, "fused_ell_forward", fused_ell_forward_reference),
+             (fused_ell, "fused_ell_backward", fused_ell_backward_reference),
+             (fused_htr, "fused_htr_ell_forward",
+              fused_htr_ell_forward_reference),
+             (fused_htr, "fused_htr_ell_backward",
+              fused_htr_ell_backward_reference)]
+    for module, name, plain in names:
+        captured = chip_smoke.capture(module, name, step)
+        N = batch.num_nodes
+        assert captured[0][0][0].shape[0] == N // 2 < N
+        _hold_captured(getattr(module, name), plain, captured, 1e-4)

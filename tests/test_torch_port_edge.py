@@ -185,8 +185,13 @@ def test_batch_loader_matches_jax(kw):
             want.node_capacity, want.edge_capacity)
     if "edge_capacity" in kw:
         assert got.edge_capacity > 128
-    with pytest.raises(NotImplementedError, match="item 12"):
-        got.set_shard(2, 0)
+    # sharded over 2 processes (training: the trailing batch left out)
+    got.set_shard(2, 1)
+    want.set_shard(2, 1)
+    pairs = list(zip(got.batches(), want))
+    assert len(pairs) == len(list(want)) == len(got) // 2
+    for (_, a), b in pairs:
+        _same_batch(a, b)
 
 
 # ---- the model ---------------------------------------------------------------

@@ -57,9 +57,17 @@ def test_losses_and_targets_match_jax():
     batch = collate_dense(mols, 4, 32)
     y, m = task.get_targets(batch)["y"]
     assert y.shape == (4, 1) and m[:, 0].tolist() == [1, 1, 1, 0]
-    batch.y = batch.y[:, None]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        task.get_targets(batch)
+    # a packed batch's [G, P, T] targets flatten to the [G * P] graph axis
+    from gotennet_tpu.graph.dense_batch import \
+        collate_dense_packed as j_collate_packed
+    from gotennet_tpu_torch.graph.dense_batch import collate_dense_packed
+    packed = collate_dense_packed(mols, 3, 32, 2)
+    y, m = task.get_targets(packed)["y"]
+    jy, jm = JQM9Task("U0", dataset_meta=META).get_targets(
+        j_collate_packed(mols, 3, 32, 2))["y"]
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    assert y.shape == (6, 1) and m.sum() == 3
 
 
 def test_lr_multipliers_match_jax():

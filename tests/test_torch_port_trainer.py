@@ -206,9 +206,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     task = QM9Task("U0", dataset_meta=META)
     model = GotenModel(GotenNetConfig(**SMALL), task.build_head(),
                        device="cpu")
+    # more than one device runs one process per device: without a process
+    # group each asks for one (tests/test_torch_port_parallel.py runs them)
     for kw in (dict(data_parallel=2), dict(edge_parallel=2),
                dict(distributed=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="one process per device"):
             Trainer(model, task, TrainerConfig(**kw, workdir=str(tmp_path)))
     train, val = _loaders("dense", "port")
     tr = Trainer(model, task, TrainerConfig(max_epochs=1,
