@@ -263,7 +263,36 @@ Phases, in order; any failure exits non-zero before the result line:
      are within ``TOL_TRAIN`` of the step's with no group.  (After AdamW's
      first step a parameter whose gradient is near zero moves by about lr
      either way, so the other steps hold gradients, and log parameters.)  Gloo copies CUDA tensors
-     through the host: no time here is a multi-GPU number.
+     through the host: no time here is a multi-GPU number;
+ 38. ``scan_layers``: phase 3's QM9 model and phase 10's MD22 model with
+     ``scan_layers=True``, their weights from the stacked tree (the JAX
+     package's form: the n-1 homogeneous layers under ``layers`` with a
+     leading axis 3) of the unrolled model's seeded init; the stacked ->
+     unrolled -> stacked round trip and the state dict from the tree exact.
+     The scanned QM9 model serves phase 4's 256 molecules (row 1: 32 chunks
+     x 4 launches) and takes one step on phase 6's molecules (64 + 64); the
+     scanned MD22 model serves and takes a step on phase 10's frames (32
+     GATA and 24 HTR launches each way); energies within ``TOL_SERVE`` of the
+     unrolled model's, h and X its bits, first-step gradients in the stacked
+     form within ``TOL_TRAIN``; the scanned requests and steps timed (CUDA
+     events) and profiled; rows 1-4 on the scanned paths held against their
+     plain versions and timed;
+ 39. the command line's last paths, all under a temporary directory:
+     ``cli train experiment=qm9_u0_tpu model.representation.scan_layers=true``
+     for one epoch at phase 26's sizes (launches = batches x 4), its NPZ
+     holding ``representation/layers/gata/...`` with leading axis 3, ``cli
+     test`` of it within 1e-5 of the run; a reference-form Lightning ``.ckpt``
+     of the seeded flagship edge-layout model through ``cli test`` within
+     1e-5 of the same weights' NPZ checkpoint, ``cli parity`` over two such
+     files (two rows in ``out``), and ``cli test checkpoint=QM9_small_U0``
+     resolved from a ``CHECKPOINT_PATH`` cache within 1e-5;
+ 40. the tools, under the same temporary directory: ``cli sweep
+     experiment=smoke`` as a 2-trial grid and ``sampler=adaptive
+     n_trials=3`` (``sweep.jsonl`` ends with ``best_overrides``, no trial
+     failed); ``profile_fn`` of phase 4's request, its device total within
+     10 % of phase 4's busy ms; ``multichip_bench()`` at world size 1 (three
+     records, one per mode); ``radius_graph`` on the card against the same
+     call on the CPU, the same arrays.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -894,16 +923,17 @@ def device_ops(run) -> list:
                   key=lambda e: e.self_device_time_total, reverse=True)
 
 
-def profile(run, wall_ms, what, card) -> None:
+def profile(run, wall_ms, what, card):
     """``run()`` once under ``torch.profiler``: the device time of its
     kernels and copies, as a share of ``wall_ms`` (its time without the
-    profiler), and the device ops that took the most of it."""
+    profiler), and the device ops that took the most of it.  Returns the
+    busy ms (None when the profiler saw no device event)."""
     ops = device_ops(run)
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     if busy_ms == 0.0:
         log("[profile] device time not measured: the profiler saw no device "
             "events")
-        return
+        return None
     log(f"[profile] {what}: device busy {busy_ms:.3f} ms in "
         f"{sum(e.count for e in ops)} device ops, "
         f"{100 * busy_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms "
@@ -911,6 +941,7 @@ def profile(run, wall_ms, what, card) -> None:
     for e in ops[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d} x  {e.key[:80]}")
+    return busy_ms
 
 
 @torch.inference_mode()
@@ -3553,6 +3584,408 @@ def slice_phases(card, phase_done, md22_cfg) -> list:
                for r, what in ell_records])
 
 
+# ---- phases 38-40: scan_layers, the command line's last modes, the tools ----
+# phase 39: phase 26's molecules for one epoch of the scanned model; the
+# reference .ckpt files' test data (128 molecules); phase 40's sweeps
+CLI_SCAN = [*CLI_QM9, "trainer.max_epochs=1",
+            "model.representation.scan_layers=true"]
+CLI_CKPT_DATA = ["experiment=qm9_u0", "datamodule.dataset=synthetic",
+                 "datamodule.n_molecules=256", "datamodule.min_atoms=12",
+                 "datamodule.max_atoms=29", "datamodule.train_size=64",
+                 "datamodule.val_size=64", "datamodule.test_size=128"]
+SWEEP_SMOKE = ["experiment=smoke", "trainer.max_epochs=1"]
+# phase 40: profile_fn's device total against phase 4's busy time
+TOL_PROFILE = 0.10
+
+
+def flat_tree(tree) -> dict:
+    """``{'a/b/c': array}`` of a nested dict of arrays (the NPZ keys)."""
+    from gotennet_tpu_torch.train.checkpoint import _flatten_dict
+    return dict(_flatten_dict(tree))
+
+
+def scanned_twin(cfg, head, unrolled):
+    """Phase 38: the model's stacked tree (the JAX package's form for
+    ``scan_layers``), its round trips held exact, and the scanned model's
+    state dict from it; returns ``(scanned config, state dict)``."""
+    from gotennet_tpu_torch.utils.convert import (jax_params_from_state_dict,
+                                                  state_dict_from_jax_params)
+    from gotennet_tpu_torch.utils.params import (roll_layer_params,
+                                                 unroll_layer_params)
+    import numpy as np
+    scfg = dataclasses.replace(cfg, scan_layers=True)
+    tree = jax_params_from_state_dict(unrolled.state_dict(), scfg, "dense")
+    layers = flat_tree(tree["params"]["representation"]["layers"])
+    axes = {v.shape[0] for v in layers.values()}
+    if axes != {N_LAYERS - 1} or "gata_0" in tree["params"]["representation"]:
+        raise AssertionError(f"stacked tree: leading axes {axes}")
+    back = roll_layer_params(unroll_layer_params(tree, N_LAYERS), N_LAYERS)
+    a, b = flat_tree(tree), flat_tree(back)
+    if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("stacked -> unrolled -> stacked is not exact")
+    state = state_dict_from_jax_params(tree, scfg, head)
+    want = unrolled.state_dict()
+    bad = [k for k in want if not torch.equal(
+        state[k].to(want[k].device, want[k].dtype), want[k])]
+    log(f"[scan] stacked tree: {len(layers)} leaves under layers/, leading "
+        f"axis {N_LAYERS - 1}; round trips exact; state dict from it equal "
+        f"to the unrolled model's: {not bad}")
+    if bad:
+        raise AssertionError(f"state dict from the stacked tree differs: "
+                             f"{bad[:3]}")
+    return scfg, state
+
+
+def same_representation(what, unrolled, scanned, chunks) -> None:
+    """h and X of both models on ``chunks``, bit for bit."""
+    with torch.inference_mode():
+        for b in chunks:
+            u, s = unrolled(b), scanned(b)
+            for key in ("representation", "vector_representation"):
+                if not torch.equal(u[key], s[key]):
+                    raise AssertionError(f"{what}: {key} differs from the "
+                                         "unrolled model's")
+    log(f"[scan] {what}: h and X the same bits as the unrolled model's on "
+        f"{len(chunks)} chunks")
+
+
+def stacked_grads(model, chunks, scfg) -> dict:
+    """The first step's parameter gradients, in the stacked form."""
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.trainer import accum_grads, make_loss_fn
+    from gotennet_tpu_torch.utils.convert import jax_params_from_state_dict
+    model.train()
+    accum_grads(model, make_loss_fn(model, Task(None)), chunks)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return flat_tree(jax_params_from_state_dict(grads, scfg, "dense"))
+
+
+def scan_path(card, what, cfg, head, mols, step_mols, chunk, step_chunk,
+              bucket, counters, expected) -> tuple:
+    """Phase 38 on one model: the scanned twin of the unrolled model (seed
+    0) serves ``mols`` in ``chunk``-graph chunks and takes one step on
+    ``step_mols`` in ``step_chunk``-graph chunks through the entry points,
+    with the launch counts of ``counters`` against ``expected`` ((request),
+    (step)) and the unrolled model held beside it; returns the scanned
+    request and the scanned step's forward and backward as callables."""
+    import numpy as np
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.serve import Predictor
+    from gotennet_tpu_torch.tasks.base import Task
+    from gotennet_tpu_torch.train.optim import make_optimizer
+    from gotennet_tpu_torch.train.trainer import (accum_grads, make_chunks,
+                                                  make_loss_fn, train_step,
+                                                  train_steps)
+
+    unrolled = Predictor(cfg, head, seed=0, chunk=chunk, bucket=bucket)
+    scfg, state = scanned_twin(cfg, head, unrolled.model)
+    pred = Predictor(scfg, head, state, seed=1, chunk=chunk, bucket=bucket)
+    # the main path: one request and one step of the scanned model
+    reset_counters()
+    got = pred.predict(mols)
+    torch.cuda.synchronize()
+    serve_n = tuple(c.launches for c in counters)
+    rest = sum(c.launches for c in kernel_counters()) - sum(serve_n)
+    reset_counters()
+    losses = train_steps(scfg, head, step_mols, 1, chunk=step_chunk, lr=LR,
+                         seed=1, state_dict=state, bucket=bucket)
+    torch.cuda.synchronize()
+    step_n = tuple(c.launches for c in counters)
+    rest += sum(c.launches for c in kernel_counters()) - sum(step_n)
+    log(f"[scan] {what}: request launches {serve_n} (expected "
+        f"{expected[0]}), step launches {step_n} (expected {expected[1]}), "
+        f"other kernels {rest}; step loss {losses[0]:.6f}")
+    if (serve_n, step_n) != expected or rest:
+        raise AssertionError(f"{what}: launches {serve_n}/{step_n}, "
+                             f"expected {expected}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: the loss is not finite")
+
+    want = unrolled.predict(mols)
+    err, rel = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+    log(f"[scan] {what}: {len(mols)} energies vs the unrolled model: max abs "
+        f"err {err:.4e} (rel {rel:.3e}, tol {TOL_SERVE:g})")
+    if (got.shape != want.shape or rel > TOL_SERVE
+            or not np.isfinite(got).all()):
+        raise AssertionError(f"{what}: energies disagree with the unrolled "
+                             "model")
+    chunks = [b.to("cuda") for _, b in pred.loader(pred._request(mols))
+              .batches()]
+    same_representation(f"{what} request", unrolled.model, pred.model, chunks)
+
+    step_chunks = make_chunks(step_mols, step_chunk, "cuda", bucket=bucket)
+    model_u = GotenModel(cfg, head, seed=0)
+    model_s = GotenModel(scfg, head, seed=1)
+    model_s.load_state_dict(state)
+    g_u = stacked_grads(model_u, step_chunks, scfg)
+    g_s = stacked_grads(model_s, step_chunks, scfg)
+    errs = {k: rel_err(torch.as_tensor(g_s[k]), torch.as_tensor(g_u[k]))
+            for k in g_u}
+    worst = max(errs, key=lambda k: errs[k][1])
+    log(f"[scan] {what}: first-step gradients in the stacked form, scanned "
+        f"vs unrolled: {len(errs)} arrays, worst {worst} abs "
+        f"{errs[worst][0]:.3e} rel {errs[worst][1]:.3e} (tol {TOL_TRAIN:g})")
+    if g_s.keys() != g_u.keys() or errs[worst][1] > TOL_TRAIN:
+        raise AssertionError(f"{what}: gradients disagree")
+
+    # timing: the scanned request and step (the unrolled model's are phases
+    # 4/6 and 10/11's in the same run)
+    def serve(p):
+        return lambda: p.predict(mols)
+
+    req_ms, host_ms, _ = time_run(serve(pred), 1, 3)
+    busy = profile(serve(pred), req_ms, f"{what} request", card)
+    log(f"[time] {what} request: {req_ms:.3f} ms (CUDA events), "
+        f"{host_ms:.3f} ms (host clock), busy {busy} ms | {card}")
+    loss_fn = make_loss_fn(model_s, Task(None))
+    opt = make_optimizer(model_s.parameters(), LR)
+
+    def step():
+        return train_step(model_s, opt, step_chunks, opt.grad_clip,
+                          loss_fn=loss_fn)
+
+    step_ms, host_ms, _ = time_run(step, 1, 3)
+    busy = profile(step, step_ms, f"{what} step", card)
+    log(f"[time] {what} step: {step_ms:.3f} ms (CUDA events), "
+        f"{host_ms:.3f} ms (host clock), busy {busy} ms | {card}")
+    return serve(pred), lambda: accum_grads(model_s, loss_fn, step_chunks)
+
+
+def scan_phase(card, cfg, head) -> list:
+    """Phase 38: ``scan_layers=True`` on the QM9 and MD22 models; returns
+    the records of rows 1-4 on the scanned paths with their paths."""
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.ops import fused_gata, fused_htr
+    fwd, bwd = fused_gata.fused_gata_forward, fused_gata.fused_gata_backward
+    hfwd, hbwd = fused_htr.fused_htr_forward, fused_htr.fused_htr_backward
+    # the request of phase 4 (256 molecules) and the molecules of phase 6
+    ds = synthetic_molecules(sum(REQUESTS), seed=0, min_atoms=12,
+                             max_atoms=29)
+    qm9 = ds.graph_dicts(range(len(ds)))[-REQUESTS[-1]:]
+    train = synthetic_molecules(TRAIN_MOLS, seed=1, min_atoms=12,
+                                max_atoms=29).graph_dicts(range(TRAIN_MOLS))
+    n_q = math.ceil(len(qm9) / CHUNK) * N_LAYERS
+    n_t = math.ceil(TRAIN_MOLS / TRAIN_CHUNK) * N_LAYERS
+    qm9_runs = scan_path(card, "QM9 scanned", cfg, head, qm9, train, CHUNK,
+                         TRAIN_CHUNK, True, (fwd, bwd),
+                         ((n_q, 0), (n_t, n_t)))
+    n_c = math.ceil(MD22_FRAMES / MD22_CHUNK)
+    md22_cfg = dataclasses.replace(cfg, fused_htr=True)
+    frames = md22_frames()
+    md22_runs = scan_path(
+        card, "MD22 scanned", md22_cfg, head, frames, frames, MD22_CHUNK,
+        MD22_CHUNK, False, (fwd, bwd, hfwd, hbwd),
+        ((n_c * N_LAYERS, 0, n_c * (N_LAYERS - 1), 0),
+         (n_c * N_LAYERS,) * 2 + (n_c * (N_LAYERS - 1),) * 2))
+    rows = [("fused_gata_fwd", fused_gata, "fused_gata_forward",
+             fwd_bound_ms, "fused_gata.py:108", n_q, "QM9 scanned request",
+             qm9_runs[0]),
+            ("fused_gata_bwd", fused_gata, "fused_gata_backward",
+             bwd_bound_ms, "fused_gata.py:350", n_t, "QM9 scanned step",
+             qm9_runs[1]),
+            ("fused_htr_fwd", fused_htr, "fused_htr_forward",
+             htr_fwd_bound_ms, "fused_htr.py:79", n_c * (N_LAYERS - 1),
+             "MD22 scanned request", md22_runs[0]),
+            ("fused_htr_bwd", fused_htr, "fused_htr_backward",
+             htr_bwd_bound_ms, "fused_htr.py:115", n_c * (N_LAYERS - 1),
+             "MD22 scanned step", md22_runs[1])]
+    records = []
+    for name, module, fn, bound, replaces, n, path, run in rows:
+        record = kernel_record(
+            {"name": name, "route": "cuda",
+             "source": f"gotennet_tpu_torch/csrc/{name}.cu",
+             "replaces": f"gotennet_tpu/ops/pallas/{replaces}"},
+            capture(module, fn, run), getattr(module, fn),
+            getattr(module, fn + "_reference"), bound, card)
+        record["launches"] = n
+        records.append((record, path))
+    return records
+
+
+def write_reference_ckpt(path, seed):
+    """A reference-form Lightning ``.ckpt`` of the flagship edge-layout
+    model (float32, seeded): its state dict, and hyper-parameters in the
+    reference's shape (a ``__target__``, a ``cutoff_fn``, the cutoff
+    outside the representation, the QM9 label as an index: 7 is U0);
+    returns the model."""
+    from gotennet_tpu_torch.models.model import GotenModel
+    cfg, head = edge_flagship()
+    model = GotenModel(cfg, head, "edge", seed=seed)
+    torch.save({"hyper_parameters": {
+        "cutoff": cfg.cutoff, "task": "QM9", "label": 7,
+        "representation": {
+            "__target__": "gotennet.models.representation.gotennet."
+                          "GotenNetWrapper",
+            "cutoff_fn": {"_target_": "CosineCutoff"},
+            "n_atom_basis": D, "n_interactions": N_LAYERS, "lmax": LMAX,
+            "n_rbf": 64, "num_heads": H}},
+        "state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
+        path)
+    return model
+
+
+def cli_tools_phase(card, tmp) -> None:
+    """Phase 39: ``cli train`` with ``scan_layers`` and its NPZ, then
+    reference ``.ckpt`` files through ``cli test``, ``cli parity`` and an
+    alias from a ``CHECKPOINT_PATH`` cache, all under ``tmp``."""
+    import os
+    import numpy as np
+    from gotennet_tpu_torch import cli
+    from gotennet_tpu_torch.ops import fused_gata
+    from gotennet_tpu_torch.train.checkpoint import save_checkpoint
+
+    # the scanned QM9 model through cli train and cli test
+    fwd, bwd = fused_gata.fused_gata_forward, fused_gata.fused_gata_backward
+    reset_counters()
+    run = tmp / "scan_run"
+    t0 = time.perf_counter()
+    cli.main(["train", *CLI_SCAN, f"workdir={run}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # 32 training batches, one validation and one test batch
+    expected = ((32 + 1 + 1) * N_LAYERS, 32 * N_LAYERS)
+    launches = (fwd.launches, bwd.launches)
+    epoch = epoch_record(run, 0)
+    log(f"[scan cli] cli train, scan_layers: {wall:.2f} s on the wall, epoch "
+        f"{epoch['epoch_time_s']:.3f} s; launches forward/backward {launches}"
+        f" (expected {expected}) | {card}")
+    if launches != expected:
+        raise AssertionError(f"scanned cli train: launches {launches}")
+    with np.load(run / "ckpt_best" / "params.npz") as f:
+        kernel = f["params/representation/layers/gata/W_q/linear/kernel"]
+        unrolled = [k for k in f.files if "/gata_0/" in k]
+    log(f"[scan cli] ckpt_best: layers/gata/W_q kernel {kernel.shape}, "
+        f"{len(unrolled)} gata_0 arrays")
+    if kernel.shape != (N_LAYERS - 1, D, D) or unrolled:
+        raise AssertionError("the scanned checkpoint is not in the stacked "
+                             "form")
+    results = json.loads((run / "test_results.json").read_text())
+    cli.main(["test", f"checkpoint={run / 'ckpt_best'}", *CLI_SCAN,
+              f"workdir={tmp / 'scan_test'}"])
+    hold_results("scan cli test", json.loads(
+        (tmp / "scan_test" / "test_results.json").read_text()), results,
+        TOL_CLI_TEST)
+
+    # reference .ckpt files: cli test against the same weights' NPZ
+    # checkpoint, parity over two, an alias from the cache
+    paths = [tmp / "a.ckpt", tmp / "b.ckpt"]
+    model = write_reference_ckpt(paths[0], seed=0)
+    write_reference_ckpt(paths[1], seed=1)
+    save_checkpoint(str(tmp / "npz"), model,
+                    extra_meta={"task": "QM9", "label": "U0"})
+    got = {}
+    for name, ck in (("ckpt", paths[0]), ("npz", tmp / "npz")):
+        t0 = time.perf_counter()
+        cli.main(["test", f"checkpoint={ck}", *CLI_CKPT_DATA,
+                  f"workdir={tmp / ('test_' + name)}"])
+        log(f"[time] cli test of the {name} checkpoint: "
+            f"{time.perf_counter() - t0:.2f} s on the wall | {card}")
+        got[name] = json.loads((tmp / ("test_" + name) /
+                                "test_results.json").read_text())
+    hold_results("reference .ckpt cli test vs its NPZ", got["ckpt"],
+                 got["npz"], TOL_CLI_TEST)
+    out = tmp / "parity.md"
+    cli.main(["parity", f"checkpoints={paths[0]},{paths[1]}", f"out={out}",
+              *CLI_CKPT_DATA, f"workdir={tmp / 'parity'}"])
+    rows = [ln for ln in out.read_text().splitlines()
+            if ln.startswith("| ") and ".ckpt" in ln]
+    log(f"[parity] {len(rows)} rows: {rows}")
+    if len(rows) != 2:
+        raise AssertionError(f"parity wrote {len(rows)} rows")
+    cache = tmp / "cache"
+    cache.mkdir()
+    shutil.copy(paths[0], cache / "QM9_small_U0.ckpt")
+    with mock.patch.dict(os.environ, {"CHECKPOINT_PATH": str(cache)}):
+        cli.main(["test", "checkpoint=QM9_small_U0", *CLI_CKPT_DATA,
+                  f"workdir={tmp / 'alias'}"])
+    hold_results("alias QM9_small_U0 from the cache", json.loads(
+        (tmp / "alias" / "test_results.json").read_text()), got["ckpt"],
+        TOL_CLI_TEST)
+
+
+def tools_phase(card, tmp, pred, big, busy_ms) -> None:
+    """Phase 40: ``cli sweep`` (grid and adaptive), ``profile_fn`` of phase
+    4's request against its busy time, ``multichip_bench`` at world size 1,
+    ``radius_graph`` on the card against the CPU."""
+    from gotennet_tpu_torch import cli
+    from gotennet_tpu_torch.data.dataset import synthetic_molecules
+    from gotennet_tpu_torch.graph.neighborlist import radius_graph
+    from gotennet_tpu_torch.utils.bench_multichip import multichip_bench
+    from gotennet_tpu_torch.utils.profiling import profile_fn
+
+    for name, ovs, n in (("grid", ["model.lr=1e-4,2e-4"], 2),
+                         ("adaptive", ["sampler=adaptive", "n_trials=3",
+                                       "model.lr=loguniform(1e-5,1e-3)"], 3)):
+        sweep_dir = tmp / f"sweep_{name}"
+        t0 = time.perf_counter()
+        cli.main(["sweep", *SWEEP_SMOKE, *ovs, f"sweep_dir={sweep_dir}"])
+        recs = read_jsonl(sweep_dir / "sweep.jsonl")
+        log(f"[sweep] {name}: {len(recs) - 1} trials in "
+            f"{time.perf_counter() - t0:.2f} s, metrics "
+            f"{[r.get('metric') for r in recs[:-1]]}; last record {recs[-1]}"
+            f" | {card}")
+        if (len(recs) != n + 1 or "best_overrides" not in recs[-1]
+                or any("error" in r for r in recs)):
+            raise AssertionError(f"{name} sweep: {recs}")
+
+    if busy_ms is None:
+        raise AssertionError("phase 4's busy time was not measured")
+    pred.predict(big)
+    summary = profile_fn(lambda: pred.predict(big), top_k=5)
+    total = summary["total_us"] / 1e3
+    log(f"[profile_fn] phase 4's request: device total {total:.3f} ms against"
+        f" phase 4's busy {busy_ms:.3f} ms (tol {TOL_PROFILE:.0%}); top ops "
+        f"{[(o['name'][:40], round(o['us'], 1)) for o in summary['top_ops']]}"
+        f" | {card}")
+    if abs(total - busy_ms) > TOL_PROFILE * busy_ms:
+        raise AssertionError("profile_fn's device total is off phase 4's")
+
+    records = multichip_bench()
+    for r in records:
+        log(f"[multichip] {json.dumps(r)} | {card}")
+    if [r["mode"] for r in records] != ["dense_dp", "edge_ep", "ell_rows"] \
+            or any(r["n_devices"] != 1 for r in records):
+        raise AssertionError(f"multichip_bench: {records}")
+
+    import numpy as np
+    ds = synthetic_molecules(16, seed=3, min_atoms=12, max_atoms=29)
+    pos = np.concatenate([np.asarray(p, np.float32) for p in ds.pos]
+                         + [np.zeros((8, 3), np.float32)])
+    graph = np.concatenate([np.full(len(p), g, np.int32)
+                            for g, p in enumerate(ds.pos)]
+                           + [np.zeros(8, np.int32)])
+    mask = np.arange(len(pos)) < len(pos) - 8
+    args = [torch.from_numpy(a) for a in (pos, graph, mask)]
+    for loop in (True, False):
+        got = radius_graph(*[a.cuda() for a in args], 5.0, 32, loop)
+        want = radius_graph(*args, 5.0, 32, loop)
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        log(f"[radius_graph] {len(pos)} nodes, loop={loop}, on "
+            f"{got[0].device}: {int(want[2].sum())} real edges of "
+            f"{want[2].numel()} slots, the same arrays as the CPU's: {same}")
+        if not same:
+            raise AssertionError("radius_graph differs on the card")
+
+
+def last_phases(card, phase_done, pred, big, busy_ms) -> list:
+    """Phases 38-40; returns phase 38's kernel records with their paths."""
+    import tempfile
+    from gotennet_tpu_torch.tasks.qm9 import QM9Task
+    head = QM9Task("U0", dataset_meta={"mean": 0.0, "std": 1.0}).build_head()
+    records = scan_phase(card, flagship_config(), head)
+    phase_done("38 (scan_layers on the kernels: QM9 and MD22)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        for sub in ("cli", "tools"):
+            (pathlib.Path(d) / sub).mkdir()
+        cli_tools_phase(card, pathlib.Path(d) / "cli")
+        phase_done("39 (scan_layers, .ckpt files, parity and an alias "
+                   "through the command line)")
+        tools_phase(card, pathlib.Path(d) / "tools", pred, big, busy_ms)
+        phase_done("40 (sweeps, profile_fn, multichip_bench, radius_graph)")
+    return records
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:
         return rank_main(sys.argv[2:])
@@ -3662,8 +4095,8 @@ def main() -> int:
         f"(self-loops included), padded pairs {padded_pairs}; "
         f"{real_edges / (req_ms / 1e3):.1f} real edges/s | {card}")
 
-    profile(lambda: pred.predict(big), req_ms, f"{len(big)}-molecule request",
-            card)
+    busy4 = profile(lambda: pred.predict(big), req_ms,
+                    f"{len(big)}-molecule request", card)
     # the kernel on the inputs the 256-molecule request gave it
     captured = capture(fused_gata, "fused_gata_forward",
                        lambda: pred.predict(big))
@@ -3766,6 +4199,8 @@ def main() -> int:
     option_records = edge_phases(card, phase_done)
     # ---- 35.-37. packed batches, Molecule3D, two ranks on the card ---------
     slice_records = slice_phases(card, phase_done, md22_cfg)
+    # ---- 38.-40. scan_layers, .ckpt files, sweep and parity, the tools -----
+    last_records = last_phases(card, phase_done, pred, big, busy4)
     paths = [(record, "QM9 request"), (bwd_record, "QM9 step"),
              (htr_record, "MD22 request"), (htr_bwd_record, "MD22 step"),
              (ell_records[0], "ELL request"), (ell_bwd_records[0], "ELL step"),
@@ -3783,7 +4218,7 @@ def main() -> int:
              (label_records[3], "QM9 r2 cli train"),
              (option_records[0], "MD22 options request, dense"),
              (option_records[1], "MD22 options request, ELL"),
-             *slice_records]
+             *slice_records, *last_records]
     log(json.dumps({"kernels": [{**r, "path": p} for r, p in paths]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

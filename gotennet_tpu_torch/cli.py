@@ -1,4 +1,4 @@
-"""The train and test entry points (``gotennet_tpu/cli.py``).
+"""The train, test, sweep and parity entry points (``gotennet_tpu/cli.py``).
 
     python -m gotennet_tpu_torch.cli train experiment=smoke
     python -m gotennet_tpu_torch.cli train experiment=qm9_u0 \
@@ -14,14 +14,30 @@
     torchrun --nproc-per-node 2 -m gotennet_tpu_torch.cli train \
         experiment=molecule3d trainer.distributed=true \
         trainer.data_parallel=2
+    python -m gotennet_tpu_torch.cli train experiment=qm9_u0_tpu \
+        model.representation.scan_layers=true
     python -m gotennet_tpu_torch.cli test checkpoint=runs/x/ckpt_best
+    python -m gotennet_tpu_torch.cli test checkpoint=gotennet_U0.ckpt
+    python -m gotennet_tpu_torch.cli test checkpoint=QM9_small_homo
+    python -m gotennet_tpu_torch.cli sweep experiment=smoke \
+        model.representation.lmax=1,2 sweep_dir=runs/sweep
+    python -m gotennet_tpu_torch.cli sweep experiment=smoke sampler=adaptive \
+        n_trials=8 "model.lr=loguniform(1e-5,1e-3)"
+    python -m gotennet_tpu_torch.cli parity checkpoints=a.ckpt,b.ckpt \
+        out=parity.md
     python -m gotennet_tpu_torch.cli train experiment=... device=cpu
 
 Composes the YAML config tree in ``configs/`` (``utils/config.py``), builds
 the data pipeline, task, model and ``Trainer``, runs ``fit`` and/or the
 evaluation, and writes the metrics, checkpoints and ``test_results.json``
-into ``workdir``.  Entry points run on ``cuda`` unless the top-level
-``device`` override says otherwise.
+into ``workdir``.  ``test`` takes a checkpoint directory, a reference
+Lightning ``.ckpt`` or a published alias (``utils/hub.py``); ``sweep`` runs
+a grid, random or adaptive search over the overrides (``utils/sweep.py``;
+its own keys ``sampler``, ``n_trials``, ``seed``, ``metric`` and
+``sweep_dir``), each trial a ``train`` in a workdir of the sweep's;
+``parity`` tests each of ``checkpoints=`` and appends the MAE table to
+``out`` (default ``BASELINE.md``).  Entry points run on ``cuda`` unless the
+top-level ``device`` override says otherwise.
 
 Fields the YAML leaves out take the JAX package's defaults, so the same
 experiment builds the same model in both packages (``fused`` absent is
@@ -36,10 +52,7 @@ on the dense and ELL layouts.  Molecule3D reads a local copy
 before anything else; every rank then reads only its shard of each loader
 (``set_shard`` by its data index), or, where the Molecule3D root holds NPZ
 shards, only its range of shards.  ``trainer.data_parallel`` /
-``edge_parallel`` lay the ranks out as the JAX package's mesh.  What is not
-ported raises ``NotImplementedError`` naming its ROADMAP.md item: the
-``sweep`` and ``parity`` modes, reference ``.ckpt`` files and
-``scan_layers`` (item 13).
+``edge_parallel`` lay the ranks out as the JAX package's mesh.
 The nvcc build cache under ``build/`` stands in for the JAX package's
 persistent XLA cache.
 """
@@ -55,12 +68,12 @@ from typing import Dict, List, Optional
 
 import torch
 
-from gotennet_tpu_torch.models.gotennet import not_ported
 from gotennet_tpu_torch.utils.config import load_config
 from gotennet_tpu_torch.utils.device import resolve_device
 from gotennet_tpu_torch.utils.logging import is_main_process
 
-__all__ = ["train", "test", "main", "main_train", "main_test", "CONFIG_DIR"]
+__all__ = ["train", "test", "parity", "main", "main_train", "main_test",
+           "CONFIG_DIR"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
 
@@ -327,22 +340,32 @@ def train(cfg: Dict) -> Dict[str, float]:
 
 
 def test(cfg: Dict) -> Dict[str, float]:
-    """Evaluate the checkpoint directory ``cfg['checkpoint']``.  The
+    """Evaluate ``cfg['checkpoint']``: a checkpoint directory, a reference
+    Lightning ``.ckpt``, or a URL or alias the hub resolves.  The
     checkpoint's own config builds the model (its cutoff and layout also
-    set the data pipeline's); the label and task come from its meta unless
-    the command line sets them."""
+    set the data pipeline's); the label and task come from its meta (a
+    ``.ckpt``'s hyper-parameters, an int label read as a QM9 target)
+    unless the command line sets them."""
     from gotennet_tpu_torch.tasks import TASK_DICT
     from gotennet_tpu_torch.train.checkpoint import load_checkpoint, load_meta
     from gotennet_tpu_torch.train.trainer import Trainer
+    from gotennet_tpu_torch.utils.hub import resolve_checkpoint
 
-    ckpt = cfg["checkpoint"]
-    if os.path.isfile(ckpt) and ckpt.endswith(".ckpt"):
-        raise not_ported("reference Lightning checkpoints (.ckpt)", 13)
+    ckpt = resolve_checkpoint(cfg["checkpoint"])
     device = resolve_device(cfg.get("device"))
-    model, _, _ = load_checkpoint(ckpt, device)
-    if model is None:
-        raise ValueError(f"checkpoint {ckpt} has no embedded config")
-    meta = load_meta(ckpt)
+    if os.path.isfile(ckpt) and ckpt.endswith(".ckpt"):
+        from gotennet_tpu_torch.data.qm9 import QM9_TARGETS
+        from gotennet_tpu_torch.utils.convert import load_reference_model
+        model, hp = load_reference_model(ckpt, device)
+        ref_label = hp.get("label")
+        if isinstance(ref_label, int):
+            ref_label = QM9_TARGETS[ref_label]
+        meta = {"label": ref_label, "task": hp.get("task", "QM9")}
+    else:
+        model, _, _ = load_checkpoint(ckpt, device)
+        if model is None:
+            raise ValueError(f"checkpoint {ckpt} has no embedded config")
+        meta = load_meta(ckpt)
 
     cli_keys = set(cfg.get("_overrides") or ())
     label = ((cfg.get("label") if "label" in cli_keys else None)
@@ -363,6 +386,68 @@ def test(cfg: Dict) -> Dict[str, float]:
     return results
 
 
+def parity(cfg: Dict, checkpoints: List[str],
+           out: str = "BASELINE.md") -> List[Dict[str, float]]:
+    """``test`` of each checkpoint (each in its own workdir under
+    ``workdir/parity``), then a markdown MAE table of them appended to
+    ``out``; returns each checkpoint's results."""
+    import datetime
+
+    rows = []
+    for ck in checkpoints:
+        c = copy.deepcopy(cfg)
+        c["checkpoint"] = ck
+        c["workdir"] = os.path.join(cfg["workdir"], "parity",
+                                    ck.replace("/", "_").replace(":", "_"))
+        os.makedirs(c["workdir"], exist_ok=True)
+        rows.append((ck, test(c)))
+
+    lines = ["", "## Measured reference-checkpoint parity "
+             f"({datetime.date.today().isoformat()})", "",
+             "Produced by `cli parity checkpoints=" + ",".join(checkpoints)
+             + "`.", "", "| Checkpoint | MAE | MSE | val_loss |",
+             "|---|---|---|---|"]
+    for ck, r in rows:
+        lines.append(
+            f"| {ck} | {r.get('MeanAbsoluteError', float('nan')):.6g} "
+            f"| {r.get('MeanSquaredError', float('nan')):.6g} "
+            f"| {r.get('val_loss', float('nan')):.6g} |")
+    with open(out, "a") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"parity: wrote {len(rows)} rows to {out}")
+    return [r for _, r in rows]
+
+
+def _sweep(overrides: List[str]) -> None:
+    """The sweep mode: its own keys (``sampler`` grid, random or adaptive,
+    ``n_trials``, ``seed``, ``metric``, ``sweep_dir``) out of the
+    overrides, the rest per trial."""
+    from gotennet_tpu_torch.utils.sweep import (run_adaptive_search,
+                                                run_random_search, run_sweep)
+    meta = {"sampler": "grid", "n_trials": "8", "seed": "0",
+            "metric": "MeanAbsoluteError", "sweep_dir": "runs/sweep"}
+    trial_ovs = []
+    for ov in overrides:
+        key, _, val = ov.partition("=")
+        if key in meta:
+            meta[key] = val
+        else:
+            trial_ovs.append(ov)
+
+    def load(extra):
+        return load_config(CONFIG_DIR, "train.yaml", extra)
+
+    if meta["sampler"] in ("random", "adaptive"):
+        search = (run_random_search if meta["sampler"] == "random"
+                  else run_adaptive_search)
+        search(train, load, trial_ovs, n_trials=int(meta["n_trials"]),
+               seed=int(meta["seed"]), sweep_dir=meta["sweep_dir"],
+               metric=meta["metric"])
+    else:
+        run_sweep(train, load, trial_ovs, sweep_dir=meta["sweep_dir"],
+                  metric=meta["metric"])
+
+
 def main_train(argv: Optional[List[str]] = None) -> int:
     return main(["train"] + list(sys.argv[1:] if argv is None else argv))
 
@@ -381,10 +466,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         train(load_config(CONFIG_DIR, "train.yaml", overrides))
     elif mode == "test":
         test(load_config(CONFIG_DIR, "train.yaml", overrides))
-    elif mode in ("sweep", "parity"):
-        raise not_ported(f"the {mode} mode", 13)
+    elif mode == "sweep":
+        _sweep(overrides)
+    elif mode == "parity":
+        cks, out, rest = None, "BASELINE.md", []
+        for ov in overrides:
+            key, _, val = ov.partition("=")
+            if key == "checkpoints":
+                cks = val.split(",")
+            elif key == "out":
+                out = val
+            else:
+                rest.append(ov)
+        if not cks:
+            raise SystemExit("parity needs checkpoints=alias1,alias2,...")
+        parity(load_config(CONFIG_DIR, "train.yaml", rest), cks, out)
     else:
-        raise SystemExit(f"unknown mode {mode!r}; use train|test")
+        raise SystemExit(
+            f"unknown mode {mode!r}; use train|test|sweep|parity")
     return 0
 
 

@@ -20,7 +20,7 @@ import torch
 from gotennet_tpu_torch.graph.native import build_edges
 from gotennet_tpu_torch.graph.neighborlist import spatial_order
 
-__all__ = ["ELLBatch", "collate_ell", "frame_graph"]
+__all__ = ["ELLBatch", "collate_ell", "frame_graph", "ell_from_graph_batch"]
 
 # (perm, src, dst): a frame's atom order and the edges of the reordered frame
 FrameGraph = Tuple[np.ndarray, np.ndarray, np.ndarray]
@@ -184,3 +184,34 @@ def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
         gather_window=gather_window,
         block_rows=block_rows if gather_window else None,
         gather_halo=gather_halo)
+
+
+def ell_from_graph_batch(batch, max_neighbors: int) -> ELLBatch:
+    """A ``GraphBatch`` (destination-sorted edge list) as ELL rows on the
+    host, its real edges in edge-list order filling each row's first slots;
+    ``atom`` counts each real node's place in its molecule.  For tests and
+    layout comparisons."""
+    src = batch.edge_src.cpu().numpy()
+    dst = batch.edge_dst.cpu().numpy()
+    em = batch.edge_mask.cpu().numpy()
+    n = batch.num_nodes
+    nbr = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, max_neighbors))
+    nbr_mask = np.zeros((n, max_neighbors), bool)
+    fill = np.zeros(n, np.int32)
+    for s, d in zip(src[em], dst[em]):
+        nbr[d, fill[d]] = s
+        nbr_mask[d, fill[d]] = True
+        fill[d] += 1
+    graph = batch.node_graph.cpu().numpy()
+    real = batch.node_mask.cpu().numpy()
+    first = {}
+    atom = np.zeros(n, np.int32)
+    for i in np.nonzero(real)[0]:
+        atom[i] = i - first.setdefault(int(graph[i]), i)
+    device = batch.z.device
+    return ELLBatch(
+        z=batch.z, pos=batch.pos, node_graph=batch.node_graph,
+        nbr=torch.from_numpy(nbr).to(device),
+        nbr_mask=torch.from_numpy(nbr_mask).to(device),
+        node_mask=batch.node_mask, graph_mask=batch.graph_mask, y=batch.y,
+        atom=torch.from_numpy(atom).to(device), dy=batch.dy)

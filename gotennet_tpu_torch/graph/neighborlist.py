@@ -1,8 +1,10 @@
 """Radius graph of one molecule on the host, the spatial atom order, and
-the collation of molecules into an edge-list batch.
+the collation of molecules into an edge-list batch, and a radius graph of a
+padded node set on its tensors' device.
 
-Counterpart of ``build_edges_np``, ``spatial_order`` and ``collate_graphs``
-in ``gotennet_tpu/graph/neighborlist.py`` (same arrays for the same input):
+Counterpart of ``build_edges_np``, ``spatial_order``, ``collate_graphs`` and
+``radius_graph_jax`` (here ``radius_graph``) in
+``gotennet_tpu/graph/neighborlist.py`` (same arrays for the same input):
 a cutoff-radius neighbourhood capped to the nearest ``max_num_neighbors``
 sources, destination-sorted, with each node's self-loop appended last.
 ``build_edges_np`` is the plain all-pairs version, O(N^2); the loaders call
@@ -18,7 +20,8 @@ import torch
 
 from gotennet_tpu_torch.graph.batch import GraphBatch
 
-__all__ = ["build_edges_np", "spatial_order", "collate_graphs"]
+__all__ = ["build_edges_np", "spatial_order", "collate_graphs",
+           "radius_graph"]
 
 
 def spatial_order(pos: np.ndarray, cell: float) -> np.ndarray:
@@ -114,3 +117,39 @@ def collate_graphs(graphs: Sequence[dict], num_nodes: int, num_edges: int,
                       edge_src=t(src), edge_dst=t(dst), node_mask=t(node_mask),
                       edge_mask=t(edge_mask), graph_mask=t(graph_mask),
                       y=t(y), dy=None if dy is None else t(dy))
+
+
+def radius_graph(pos: torch.Tensor, node_graph: torch.Tensor,
+                 node_mask: torch.Tensor, cutoff: float, max_degree: int,
+                 loop: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The radius graph of a padded node set (``pos [N, 3]``,
+    ``node_graph [N]``, ``node_mask [N]``) on the tensors' device:
+    ``(src, dst, mask)`` of exactly ``N * max_degree`` edge slots (``+ N``
+    self-loops with ``loop``), destination-sorted.  Row ``i`` holds the
+    nearest ``max_degree`` candidates within ``cutoff`` in the same graph,
+    both ends real, ties in index order (a stable sort, as ``jnp.argsort``
+    sorts); with ``loop`` each node's self-loop follows its block, masked
+    as the node is; dead slots are masked self-loops.  O(N^2) distance
+    work, for molecular N."""
+    n = pos.shape[0]
+    diff = pos[None, :, :] - pos[:, None, :]
+    d2 = torch.sum(diff * diff, dim=-1)                          # [i, j]
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    valid = ((node_graph[:, None] == node_graph[None, :])
+             & (node_mask[:, None] & node_mask[None, :]) & ~eye
+             & (d2 < cutoff ** 2))
+    big = torch.tensor(1e30, dtype=d2.dtype, device=pos.device)
+    masked = torch.where(valid, d2, big)
+    order = torch.argsort(masked, dim=1, stable=True)[:, :max_degree]
+    picked = torch.gather(masked, 1, order)
+    idx = torch.arange(n, dtype=torch.int32, device=pos.device)
+    src = order.to(torch.int32)
+    dst = idx[:, None].expand(n, max_degree)
+    mask = picked < big / 2
+    if loop:
+        src = torch.cat([src, idx[:, None]], dim=1)
+        dst = torch.cat([dst, idx[:, None]], dim=1)
+        mask = torch.cat([mask, node_mask[:, None]], dim=1)
+    src, dst, mask = src.reshape(-1), dst.reshape(-1), mask.reshape(-1)
+    return torch.where(mask, src, dst), dst, mask

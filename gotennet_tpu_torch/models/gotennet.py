@@ -3,8 +3,9 @@ layouts' layers share.
 
 Counterpart of ``gotennet_tpu/models/gotennet.py``.  ``GotenNetConfig``
 keeps the JAX package's field names and defaults, with ``pair_dtype`` and
-``node_dtype`` as ``torch.dtype``s; an option whose code is not ported yet
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+``node_dtype`` as ``torch.dtype``s.  ``scan_layers`` changes the form of
+the dense layout's parameter tree where it meets the JAX package's
+(``utils.params``): the layers stay one module each here.
 
 ``GotenNet`` (with ``NodeInit``, ``EdgeInit`` and ``GATA``) runs over a
 ``GraphBatch``'s flat edge list: gathers by ``edge_src`` / ``edge_dst`` and
@@ -47,23 +48,10 @@ from gotennet_tpu_torch.ops.rbf import RadialBasis
 from gotennet_tpu_torch.ops.spherical import (degree_slices, num_sh_components,
                                               spherical_harmonics)
 
-__all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "not_ported",
+__all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates",
            "attention_keep_mask", "keep_masks", "run_layer", "GATALayer",
            "htr_pair_sum", "degree_index", "NodeInit", "EdgeInit", "GATA",
            "GotenNet"]
-
-# ROADMAP.md Queue 1 items that port what this package still rejects (item
-# IDs are never reused: 1-6 and 8-12 are done)
-ROADMAP_ITEMS = {
-    13: "CLI, configs and tools",
-}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, item {item}: "
-        f"{ROADMAP_ITEMS[item]})")
-
 
 def parse_edge_updates(edge_updates: Union[bool, str]) -> dict:
     """Parse the reference's ``edge_updates`` feature string into an
@@ -138,10 +126,14 @@ class GotenNetConfig:
     # recompute each interaction layer in the backward pass
     # (torch.utils.checkpoint) instead of keeping its activations
     remat: bool = True
-    # ELL layout: the most node-table rows one fused kernel call takes;
-    # larger tables need the chunked drivers, not ported yet
+    # ELL layout: the most node-table rows the JAX package's fused kernels
+    # take in one call (it cuts larger tables into halo windows); the
+    # port's kernels read the whole table at any size
     fused_table_rows: int = 2048
     merge_proj: bool = True
+    # the dense layout's n-1 homogeneous layers as one layer-stacked tree
+    # where parameters cross to the JAX package (utils.params); the edge and
+    # ELL layouts ignore it, as the JAX package's do
     scan_layers: bool = False
     # position gradients through the fused message; None follows the
     # head (GotenModel resolves it from ``derivative``), False refuses them
@@ -172,9 +164,6 @@ class GotenNetConfig:
                     "any activation)")
             if self.aggr != "add":
                 raise ValueError("fused=True supports aggr='add' only")
-        if self.scan_layers:
-            raise not_ported("scan_layers (layer-stacked parameter trees)",
-                             13)
 
     @property
     def sh_dim(self) -> int:

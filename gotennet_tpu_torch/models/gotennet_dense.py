@@ -17,7 +17,10 @@ Attention dropout in training takes each layer's ``[G, M, M, H]`` keep
 mask: the fused message folds it into the kernel's per-head scale, the
 unfused one drops the attention with it, as flax's ``Dropout`` does;
 ``remat`` recomputes each layer in the backward pass
-(``models.gotennet.run_layer``).
+(``models.gotennet.run_layer``).  ``scan_layers`` leaves the loop over the
+layers as it is (the JAX package scans them and remats the scanned block
+whole: the same values); it changes only the parameter tree's form where
+it crosses to the JAX package (``utils.convert``, checkpoints).
 
 A packed batch (``seg``, several molecules to a slab) keeps the pairs of
 different molecules apart in ``pair_geometry``'s mask; the fused message

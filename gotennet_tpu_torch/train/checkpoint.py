@@ -3,7 +3,10 @@
 A checkpoint directory describes itself:
 
   * ``params.npz``: the JAX parameter tree (``utils.convert``'s
-    ``jax_params_from_state_dict``), paths joined with ``/``;
+    ``jax_params_from_state_dict``), paths joined with ``/``; a dense model
+    with ``scan_layers`` keeps its n-1 homogeneous layers under
+    ``representation/layers/{gata,eqff}/...`` with a leading axis n-1, as
+    the JAX package's scanned model does;
   * ``meta.json``: ``format_version`` 2, ``step``, the model
     (``representation``: exactly the JAX ``GotenNetConfig`` fields without
     dtypes; ``head``, ``layout``, ``has_atomref``), ``task``, ``label`` and
@@ -92,7 +95,8 @@ def save_checkpoint(path: str, model: GotenModel, step: int = 0,
     the run's task and label."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    params = jax_params_from_state_dict(model.state_dict(), model.cfg)
+    params = jax_params_from_state_dict(model.state_dict(), model.cfg,
+                                        model.layout)
     np.savez(os.path.join(path, "params.npz"), **dict(_flatten_dict(params)))
     if optimizer is not None:
         torch.save(optimizer.state_dict(), os.path.join(path, OPT_STATE_FILE))

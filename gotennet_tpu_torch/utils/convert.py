@@ -16,12 +16,21 @@ is its inverse: a state dict back to the JAX package's parameter tree
 (``{'params': {...}}`` of numpy arrays), which is what a checkpoint of
 either package stores; the head it maps is the one
 ``head_config_from_state_dict`` reads off the state dict's keys and
-shapes.
+shapes.  A dense model with ``scan_layers`` has its n-1 homogeneous layers
+stacked under ``layers`` in the JAX package (``utils.params``):
+``state_dict_from_jax_params`` takes either form, and
+``jax_params_from_state_dict`` gives the stacked one for that layout.
+
+``load_reference_checkpoint`` and ``load_reference_model`` read a
+reference Lightning ``.ckpt`` (``gotennet_tpu/utils/torch_convert.py``):
+its state dict already has this package's names, and its hyper-parameters
+give the config.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +39,24 @@ from gotennet_tpu_torch.models.gotennet import (GotenNetConfig,
                                                parse_edge_updates)
 from gotennet_tpu_torch.ops.rbf import parameter_names
 from gotennet_tpu_torch.models.heads import ATOMIC_MASSES
-from gotennet_tpu_torch.models.model import HeadConfig
+from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
+from gotennet_tpu_torch.utils.params import (roll_layer_params,
+                                             unroll_layer_params)
 
 __all__ = ["state_dict_from_jax_params", "jax_params_from_state_dict",
-           "head_config_from_state_dict"]
+           "head_config_from_state_dict", "stacked_layers",
+           "load_reference_checkpoint", "load_reference_model"]
+
+# the tasks whose heads differentiate the energy (forces)
+_FORCE_TASKS = ("rMD17", "MD17", "MD22")
+
+
+def stacked_layers(cfg: GotenNetConfig, layout: str) -> bool:
+    """Whether the JAX package keeps this model's layers in the stacked
+    form: ``scan_layers`` on the dense layout with more than one layer (its
+    edge and ELL stacks ignore the flag)."""
+    return cfg.scan_layers and layout == "dense" and cfg.n_interactions > 1
+
 
 Entry = Tuple[str, tuple, bool]   # (torch key, flax path, transpose)
 
@@ -144,13 +167,16 @@ def _head_entries(kind: str, n_layers: int) -> List[Entry]:
     return out
 
 
-def head_config_from_state_dict(state_dict: Dict) -> HeadConfig:
+def head_config_from_state_dict(state_dict: Dict,
+                                derivative: bool = False) -> HeadConfig:
     """The ``HeadConfig`` a state dict's head was built with, as far as its
     keys and shapes tell (the JAX package's ``head_config_from_state_dict``):
     the kind from its parameters (the Dipole's ``equivariant_layers``, the
     ESE's ``atomic_mass``), the MLP's depth and widths, the Atomwise
     standardisation and atomref; activations as the QM9 task wires them
-    (silu, shifted softplus for the ESE)."""
+    (silu, shifted softplus for the ESE).  ``derivative``: the head of a
+    force task (its energy is differentiated), which the keys cannot
+    tell."""
     pre = _HEAD
     key = f"{pre}equivariant_layers.0.mix_vectors.weight"
     if key in state_dict:
@@ -184,14 +210,17 @@ def head_config_from_state_dict(state_dict: Dict) -> HeadConfig:
         mean=scalar("standardize.mean", 0.0),
         stddev=scalar("standardize.stddev", 1.0),
         atomref=None if atomref is None else np.asarray(atomref, np.float32),
-        activation="silu" if kind == "atomwise" else "ssp")
+        activation="silu" if kind == "atomwise" else "ssp",
+        derivative=derivative)
 
 
 def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
                                head: HeadConfig) -> Dict[str, torch.Tensor]:
     """Flax ``GotenModel`` params (with or without the outer 'params'
-    key) -> this package's ``GotenModel`` state dict."""
-    tree = params.get("params", params)
+    key), its layers unrolled or stacked, -> this package's ``GotenModel``
+    state dict."""
+    tree = unroll_layer_params(params.get("params", params),
+                               cfg.n_interactions)
     out: Dict[str, torch.Tensor] = {}
 
     def put(key, arr, transpose):
@@ -218,12 +247,14 @@ def state_dict_from_jax_params(params: Dict, cfg: GotenNetConfig,
 
 
 def jax_params_from_state_dict(state_dict: Dict[str, torch.Tensor],
-                               cfg: GotenNetConfig) -> Dict:
+                               cfg: GotenNetConfig,
+                               layout: str = "dense") -> Dict:
     """This package's ``GotenModel`` state dict -> the JAX package's
     parameter tree ``{'params': {'representation': ..., 'head': ...}}`` of
-    float32 numpy arrays (kernels transposed back to ``[in, out]``).  The
-    head's buffers (mean, stddev, atomref, the mass table) are not
-    parameters there."""
+    float32 numpy arrays (kernels transposed back to ``[in, out]``), the
+    layers stacked where the JAX package's model of ``layout`` stacks them
+    (``stacked_layers``).  The head's buffers (mean, stddev, atomref, the
+    mass table) are not parameters there."""
     tree: Dict = {}
 
     def put(path, key, transpose):
@@ -238,4 +269,56 @@ def jax_params_from_state_dict(state_dict: Dict[str, torch.Tensor],
     head = head_config_from_state_dict(state_dict)
     for key, path, tr in _head_entries(head.kind, head.n_layers):
         put(path, key, tr)
+    if stacked_layers(cfg, layout):
+        tree = roll_layer_params(tree, cfg.n_interactions)
     return {"params": tree}
+
+
+def _parse_reference_ckpt(path: str):
+    """``(cfg, state dict, hyper_parameters)`` of a reference Lightning
+    ``.ckpt``: the config from ``hyper_parameters['representation']``
+    (its ``_target_``, ``__target__`` and ``cutoff_fn`` dropped, the cutoff
+    from ``hyper_parameters['cutoff']``, default 5.0; fields this package
+    does not know left out; the rest at the JAX package's defaults, so
+    ``fused`` is False)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    hp = ckpt.get("hyper_parameters", {})
+    rep = dict(hp.get("representation", {}))
+    for key in ("_target_", "__target__", "cutoff_fn"):
+        rep.pop(key, None)
+    rep.setdefault("cutoff", float(hp.get("cutoff", 5.0)))
+    rep.setdefault("fused", False)
+    known = {f.name for f in dataclasses.fields(GotenNetConfig)}
+    cfg = GotenNetConfig(**{k: v for k, v in rep.items() if k in known})
+    state_dict = {k: torch.as_tensor(v) for k, v in
+                  ckpt["state_dict"].items()}
+    return cfg, state_dict, hp
+
+
+def load_reference_checkpoint(path: str
+                              ) -> Tuple[GotenNetConfig,
+                                         Dict[str, torch.Tensor]]:
+    """``(cfg, state dict)`` of a reference Lightning ``.ckpt``: the whole
+    state dict, representation and head, on the CPU."""
+    cfg, state_dict, _ = _parse_reference_ckpt(path)
+    return cfg, state_dict
+
+
+def load_reference_model(path: str,
+                         device: Optional[str | torch.device] = None
+                         ) -> Tuple[GotenModel, Dict]:
+    """A reference Lightning ``.ckpt`` as a ``GotenModel`` on the edge-list
+    layout (the JAX package's default) with its weights, representation and
+    head, on ``device`` (None means ``cuda``), and the checkpoint's
+    ``hyper_parameters``.  The head comes from the state dict's keys; a
+    force task's (rMD17, MD17, MD22) differentiates the energy."""
+    cfg, state_dict, hp = _parse_reference_ckpt(path)
+    head = head_config_from_state_dict(
+        state_dict, derivative=str(hp.get("task", "QM9")) in _FORCE_TASKS)
+    model = GotenModel(cfg, head, "edge", device=device)
+    # keys the model has no use for are left out, as the JAX package's
+    # converter reads only the ones it maps; a missing one raises
+    missing, _ = model.load_state_dict(state_dict, strict=False)
+    if missing:
+        raise KeyError(f"{path} lacks {missing}")
+    return model, hp

@@ -158,7 +158,9 @@ def test_md22_atat_composes_the_force_recipe(monkeypatch):
 # test (10: the edge-list layout the YAMLs without a layout and md17_aspirin
 # run on; 5: the gates on the dense plain update; 4: the Molecule3D reader,
 # on files the test writes, with and without packed dense batches); item
-# 12's case (more than one device) now asks for the process group it needs
+# 12's case (more than one device) now asks for the process group it needs;
+# item 13's run a 2-trial grid sweep and a parity table of two reference
+# .ckpt files the test writes, everything under the test's tmp dir
 PORTED = (4, 5, 10)
 M3D = ["trainer.max_epochs=1", "datamodule.train_size=8",
        "datamodule.val_size=2", "datamodule.test_size=2",
@@ -183,8 +185,8 @@ SHORT = ["trainer.max_epochs=1", "datamodule.n_molecules=12",
     (["train", "experiment=molecule3d", *M3D], 4),
     (["train", "experiment=smoke", "model.layout=ell",
       "trainer.data_parallel=2"], 12),
-    (["sweep", "experiment=smoke"], 13),
-    (["parity", "checkpoints=x"], 13)])
+    (["sweep", "experiment=smoke", "model.lr=1e-4,2e-4", *SHORT], 13),
+    (["parity", "experiment=smoke", *SHORT], 13)])
 def test_what_is_not_ported_raises_its_item(tmp_path, argv, item):
     argv = argv + SMALL + ["device=cpu", f"workdir={tmp_path}"]
     if "experiment=molecule3d" in argv:
@@ -200,8 +202,28 @@ def test_what_is_not_ported_raises_its_item(tmp_path, argv, item):
         results = json.loads((tmp_path / "test_results.json").read_text())
         assert results and all(np.isfinite(v) for v in results.values())
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}:"):
-        cli.main(argv)
+    if argv[0] == "sweep":
+        cli.main(argv + [f"sweep_dir={tmp_path / 'sweep'}"])
+        recs = [json.loads(line) for line in
+                (tmp_path / "sweep" / "sweep.jsonl").read_text().splitlines()]
+        assert len(recs) == 3 and [r["trial"] for r in recs[:2]] == [0, 1]
+        # the sweep owns each trial's workdir
+        assert not any(o.startswith("workdir=") for r in recs[:2]
+                       for o in r["overrides"])
+        assert all(np.isfinite(r["metric"]) for r in recs[:2])
+        assert "best_overrides" in recs[2]
+        for i in range(2):
+            assert (tmp_path / "sweep" / f"trial_{i}" /
+                    "test_results.json").exists()
+        return
+    from test_torch_port_tools import write_reference_ckpt
+    cks = [write_reference_ckpt(str(tmp_path / f"{n}.ckpt"), seed=seed)
+           for n, seed in (("a", 1), ("b", 2))]
+    out = tmp_path / "parity.md"
+    cli.main(argv + [f"checkpoints={','.join(cks)}", f"out={out}"])
+    rows = [ln for ln in out.read_text().splitlines()
+            if ln.startswith("| ") and ".ckpt" in ln]
+    assert [r.split(" | ")[0][2:] for r in rows] == cks
 
 
 def test_unknown_keys_and_modes_raise(tmp_path):

@@ -989,3 +989,87 @@ def test_row_blocks_on_the_ell_kernels_match_plain(card, monkeypatch):
         N = batch.num_nodes
         assert captured[0][0][0].shape[0] == N // 2 < N
         _hold_captured(getattr(module, name), plain, captured, 1e-4)
+
+
+# ---- scan_layers and the tools (chip_smoke.py phases 38 and 40) -------------
+def test_scanned_dense_model_on_card_is_the_unrolled_one(card):
+    """The MD22-sized model with ``scan_layers`` (rows 1-4), its weights
+    from the stacked tree of the unrolled model's: a request launches the
+    GATA and HTR forwards chunks x layers and chunks x (layers - 1) times,
+    h and X are the unrolled model's bits, one step's losses the unrolled
+    model's (float32: the same kernels in the same order)."""
+    import dataclasses
+
+    from gotennet_tpu_torch.models.model import GotenModel
+    from gotennet_tpu_torch.utils.convert import (jax_params_from_state_dict,
+                                                  state_dict_from_jax_params)
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=3, lmax=2,
+                         num_heads=8, n_rbf=16, fused_htr=True, remat=False)
+    scfg = dataclasses.replace(cfg, scan_layers=True)
+    head = HeadConfig(mean=0.5, stddev=2.0)
+    mols = _md22_frames(8, seed=6)
+    unrolled = Predictor(cfg, head, seed=2, chunk=4, bucket=False)
+    tree = jax_params_from_state_dict(unrolled.model.state_dict(), scfg)
+    kernel = tree["params"]["representation"]["layers"]["gata"]["W_q"][
+        "linear"]["kernel"]
+    assert kernel.shape == (2, 64, 64)
+    state = state_dict_from_jax_params(tree, scfg, head)
+    scanned = Predictor(scfg, head, state, chunk=4, bucket=False)
+    n_gata, n_htr = (fused_gata.fused_gata_forward.launches,
+                     fused_htr_forward.launches)
+    got = scanned.predict(mols)
+    assert fused_gata.fused_gata_forward.launches == n_gata + 2 * 3
+    assert fused_htr_forward.launches == n_htr + 2 * 2
+    np.testing.assert_allclose(got, unrolled.predict(mols), rtol=1e-5)
+    with torch.inference_mode():
+        for _, b in scanned.loader(scanned._request(mols)).batches():
+            b = b.to("cuda")
+            u, s = unrolled.model(b), scanned.model(b)
+            for key in ("representation", "vector_representation"):
+                assert torch.equal(u[key], s[key]), key
+    steps = [train_steps(c, head, mols, 2, chunk=4, seed=3, bucket=False,
+                         state_dict=state) for c in (cfg, scfg)]
+    np.testing.assert_allclose(steps[1], steps[0], rtol=1e-5)
+    model = GotenModel(scfg, head, "dense", seed=7)
+    model.load_state_dict(state)
+    for key, value in unrolled.model.state_dict().items():
+        assert torch.equal(model.state_dict()[key], value), key
+
+
+def test_tools_on_card(card):
+    """``profile_fn`` sees the request's kernels on the device (its total
+    within 10 % of the profiler's device time taken by chip_smoke's
+    helper), ``radius_graph`` on the card gives the CPU's arrays, and
+    ``multichip_bench`` at world size 1 gives the three modes' records."""
+    from gotennet_tpu_torch.graph.neighborlist import radius_graph
+    from gotennet_tpu_torch.utils.bench_multichip import MODES, multichip_bench
+    from gotennet_tpu_torch.utils.profiling import profile_fn
+    cfg = GotenNetConfig(n_atom_basis=64, n_interactions=2, lmax=2,
+                         num_heads=8, n_rbf=16)
+    pred = Predictor(cfg, HeadConfig(), seed=1, chunk=4, bucket=False)
+    mols = _md22_frames(8, seed=7)
+    pred.predict(mols)
+    summary = profile_fn(lambda: pred.predict(mols), print_summary=False)
+    ops = chip_smoke.device_ops(lambda: pred.predict(mols))
+    busy_us = sum(e.self_device_time_total for e in ops)
+    assert summary["by_category_us"]["CUDA kernels"] > 0
+    assert abs(summary["total_us"] - busy_us) <= 0.1 * busy_us
+    assert summary["top_ops"] and all(op["us"] > 0
+                                      for op in summary["top_ops"])
+    ds = synthetic_molecules(6, seed=3, min_atoms=12, max_atoms=29)
+    pos = torch.from_numpy(np.concatenate(
+        [np.asarray(p, np.float32) for p in ds.pos]))
+    graph = torch.cat([torch.full((len(p),), g, dtype=torch.int32)
+                       for g, p in enumerate(ds.pos)])
+    mask = torch.ones(len(pos), dtype=torch.bool)
+    mask[-3:] = False
+    for loop in (True, False):
+        got = radius_graph(pos.cuda(), graph.cuda(), mask.cuda(), 5.0, 16,
+                           loop)
+        want = radius_graph(pos, graph, mask, 5.0, 16, loop)
+        assert got[0].is_cuda
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    records = multichip_bench(cfg=cfg, steps=1, batch_size=4)
+    assert [r["mode"] for r in records] == list(MODES)
+    assert all(r["n_devices"] == 1 and r["step_ms"] > 0 for r in records)

@@ -35,15 +35,17 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # ops, nn, graph, data, models, tasks, train, utils and their modules,
-    # the command line, the heads, the MD readers and the edge-list
-    # layout's batch, segment ops and norms among them
-    assert int(out.stdout.split()[-1]) >= 50
+    # the command line, the heads, the MD readers, the edge-list layout's
+    # batch, segment ops and norms, and the tools among them
+    assert int(out.stdout.split()[-1]) >= 55
     names = set(out.stdout.split())
     for module in ("cli", "data.md17", "models.heads", "utils.convert",
                    "train.trainer", "graph.batch", "graph.segment",
                    "nn.norms", "data.molecule3d", "parallel",
                    "parallel.mesh", "parallel.collectives",
-                   "parallel.distributed", "parallel.data_parallel"):
+                   "parallel.distributed", "parallel.data_parallel",
+                   "utils.params", "utils.hub", "utils.sweep",
+                   "utils.profiling", "utils.bench_multichip"):
         assert f"gotennet_tpu_torch.{module}" in names, module
 
 

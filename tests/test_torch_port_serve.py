@@ -79,8 +79,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 # each option with the ROADMAP.md item that ported it: the update's gates
 # and norej on the dense plain update, the MLP and linear variants, no
-# update, edge_ln (item 5), the pre-norms and the trainable basis (item 3);
-# only scan_layers (item 13) is still refused
+# update, edge_ln (item 5), the pre-norms and the trainable basis (item 3),
+# scan_layers (item 13: JAX's stacked init through the converter)
 @pytest.mark.parametrize("kw,item", [
     (dict(fused=False, edge_updates="gated"), "item 5"),
     (dict(fused=False, aggr="mean", edge_updates="norej"), "item 5"),
@@ -92,15 +92,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     (dict(scan_layers=True), "item 13"), (dict(edge_ln="layer"), "item 5"),
     (dict(edge_updates="mlp"), "item 5")])
 def test_unported_options_raise(kw, item):
-    """The options items 3 and 5 ported build the dense model, which
+    """Every option the port once refused builds the dense model, which
     matches JAX's from its init at 1e-5 of the output's scale (float32, the
     same math with sums in another order; JAX's XLA message, the port's
-    fused one where ``fused`` is left at True); scan_layers raises."""
-    if item == "item 13":
-        with pytest.raises(NotImplementedError, match=item):
-            GotenModel(GotenNetConfig(**{**CFG_KW, **kw}), HEAD,
-                       device="cpu")
-        return
+    fused one where ``fused`` is left at True).  None raises any more."""
     jkw = {k: v for k, v in kw.items() if k != "fused"}
     jmodel = JModel(JConfig(**CFG_KW, **jkw), JHead(mean=0.5, stddev=2.0),
                     layout="dense")
