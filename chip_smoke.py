@@ -908,8 +908,9 @@ def count_pairs(chunks, cfg) -> tuple:
 
 def device_ops(run) -> list:
     """The device-side events of one ``run()`` under ``torch.profiler``
-    (kernels and copies: an aten op's row would repeat its kernels' time),
-    the most device time first."""
+    (kernels and copies: an aten op's row would repeat its kernels' time,
+    and a ``record_function`` range's device-side row spans the kernels
+    launched inside it), the most device time first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
@@ -919,7 +920,8 @@ def device_ops(run) -> list:
         run()
         torch.cuda.synchronize()
     return sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
                   key=lambda e: e.self_device_time_total, reverse=True)
 
 

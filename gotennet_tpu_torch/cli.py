@@ -47,6 +47,13 @@ trajectories (``data/md17.py``) and train on forces, with ``fused`` False
 on the dense and ELL layouts.  Molecule3D reads a local copy
 (``data/molecule3d.py``); ``datamodule.pack=true`` packs dense batches.
 
+``trace=true`` turns the program's tracer on (``utils/profiling.py``):
+``train`` then logs, in each ``log_every`` train record, the means of the
+traced steps since the last one (host ms, device-wait ms, loader-wait ms,
+collation ms, the atom pairs' share of the padded pairs, device waits a
+step), and both entry points write every record into
+``workdir/trace.jsonl``.
+
 ``trainer.distributed=true`` starts the process group
 (``parallel.initialize_distributed``: torchrun's variables, NCCL on CUDA)
 before anything else; every rank then reads only its shard of each loader
@@ -68,6 +75,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from gotennet_tpu_torch.utils import profiling
 from gotennet_tpu_torch.utils.config import load_config
 from gotennet_tpu_torch.utils.device import resolve_device
 from gotennet_tpu_torch.utils.logging import is_main_process
@@ -300,6 +308,24 @@ def _write_results(cfg: Dict, results: Dict[str, float]) -> None:
             json.dump(results, f, indent=1)
 
 
+def _start_trace(cfg: Dict) -> bool:
+    """``trace=true``: the tracer on, from no record."""
+    if not cfg.get("trace", False):
+        return False
+    profiling.reset()
+    profiling.enable()
+    return True
+
+
+def _write_trace(cfg: Dict) -> None:
+    """The tracer's records into ``workdir/trace.jsonl``; the tracer off."""
+    profiling.disable()
+    if is_main_process():
+        with open(os.path.join(cfg["workdir"], "trace.jsonl"), "w") as f:
+            for r in profiling.records():
+                f.write(json.dumps(r) + "\n")
+
+
 def train(cfg: Dict) -> Dict[str, float]:
     """Train (``cfg['train']``) and test the best checkpoint
     (``cfg['test']``); returns the test results."""
@@ -312,6 +338,7 @@ def train(cfg: Dict) -> Dict[str, float]:
         print(f"distributed: process {info['process_index']}/"
               f"{info['process_count']} ({info['backend']})")
     _print_config(cfg)
+    traced = _start_trace(cfg)
     device = resolve_device(cfg.get("device"))
     label = cfg["label"]
     train_loader, val_loader, test_loader, meta = _build_data(cfg, label)
@@ -336,6 +363,8 @@ def train(cfg: Dict) -> Dict[str, float]:
     if cfg.get("test", True):
         results = trainer.evaluate(state, test_loader, phase="test")
         _write_results(cfg, results)
+    if traced:
+        _write_trace(cfg)
     return results
 
 
@@ -381,8 +410,11 @@ def test(cfg: Dict) -> Dict[str, float]:
         label, dataset_meta=dmeta,
         task_config={"task_loss": cfg["model"].get("task_loss", "L1Loss")})
     trainer = Trainer(model, task, _build_trainer_config(cfg))
+    traced = _start_trace(cfg)
     results = trainer.evaluate(None, test_loader, phase="test")
     _write_results(cfg, results)
+    if traced:
+        _write_trace(cfg)
     return results
 
 

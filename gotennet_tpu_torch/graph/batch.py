@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from gotennet_tpu_torch.utils import profiling
+
 __all__ = ["GraphBatch"]
 
 
@@ -61,6 +63,7 @@ class GraphBatch:
     def n_real_graphs(self) -> torch.Tensor:
         return torch.sum(self.graph_mask.to(torch.int32))
 
+    @profiling.traced("batch.to_device", wait=True)
     def to(self, device) -> "GraphBatch":
         return GraphBatch(**{
             f.name: (None if getattr(self, f.name) is None

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from gotennet_tpu_torch.graph.batch import GraphBatch
+from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["DenseBatch", "collate_dense", "collate_dense_packed",
            "pack_molecules", "flatten_nodes"]
@@ -69,6 +70,7 @@ class DenseBatch:
         """``mask``, by the name the ELL batch gives it."""
         return self.mask
 
+    @profiling.traced("batch.to_device", wait=True)
     def to(self, device) -> "DenseBatch":
         return DenseBatch(**{
             f.name: (None if getattr(self, f.name) is None
@@ -76,6 +78,16 @@ class DenseBatch:
             for f in dataclasses.fields(self)})
 
 
+def _count_pairs(sizes, num_slabs: int, max_atoms: int) -> None:
+    """The tracer's pair counters of one collated batch: its padded pairs
+    (every slab's ``M^2``) and its molecules' atom pairs, ``n (n - 1)``
+    each."""
+    if profiling.active():
+        profiling.count("pairs.padded", num_slabs * max_atoms * max_atoms)
+        profiling.count("pairs.atom", sum(m * (m - 1) for m in sizes))
+
+
+@profiling.traced("loader.collate")
 def collate_dense(graphs: Sequence[dict], num_graphs: int, max_atoms: int,
                   y_dim: int = 1, with_forces: bool = False) -> DenseBatch:
     """Pack molecules (dicts with ``z``, ``pos`` and optionally ``y`` and,
@@ -103,6 +115,7 @@ def collate_dense(graphs: Sequence[dict], num_graphs: int, max_atoms: int,
             y[g_idx] = np.asarray(g["y"], np.float32).reshape(-1)[:y_dim]
         if with_forces and g.get("dy") is not None:
             dy[g_idx, :m] = np.asarray(g["dy"], np.float32)
+    _count_pairs((len(g["z"]) for g in graphs), num_graphs, max_atoms)
     return DenseBatch(
         z=torch.from_numpy(z), pos=torch.from_numpy(pos),
         mask=torch.from_numpy(mask), graph_mask=torch.from_numpy(gmask),
@@ -135,6 +148,7 @@ def pack_molecules(sizes: Sequence[int], max_atoms: int,
     return slabs
 
 
+@profiling.traced("loader.collate")
 def collate_dense_packed(graphs: Sequence[dict], num_slabs: int,
                          max_atoms: int, mols_per_slab: int,
                          y_dim: int = 1, with_forces: bool = False
@@ -173,6 +187,7 @@ def collate_dense_packed(graphs: Sequence[dict], num_slabs: int,
             if with_forces and g.get("dy") is not None:
                 dy[s, sl] = np.asarray(g["dy"], np.float32)
             off += m
+    _count_pairs(sizes, num_slabs, max_atoms)
     return DenseBatch(
         z=torch.from_numpy(z), pos=torch.from_numpy(pos),
         mask=torch.from_numpy(mask), graph_mask=torch.from_numpy(gmask),

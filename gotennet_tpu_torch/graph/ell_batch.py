@@ -19,6 +19,7 @@ import torch
 
 from gotennet_tpu_torch.graph.native import build_edges
 from gotennet_tpu_torch.graph.neighborlist import spatial_order
+from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["ELLBatch", "collate_ell", "frame_graph", "ell_from_graph_batch"]
 
@@ -80,6 +81,7 @@ class ELLBatch:
     def num_graphs(self) -> int:
         return self.graph_mask.shape[0]
 
+    @profiling.traced("batch.to_device", wait=True)
     def to(self, device) -> "ELLBatch":
         return ELLBatch(**{
             f.name: (getattr(self, f.name)
@@ -99,6 +101,7 @@ def frame_graph(pos: np.ndarray, cutoff: float, max_num_neighbors: int,
     return (perm,) + build_edges(pos[perm], cutoff, True, max_num_neighbors)
 
 
+@profiling.traced("loader.collate")
 def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
                 num_graphs: int, cutoff: float = 5.0,
                 max_num_neighbors: int = 32, y_dim: int = 1,

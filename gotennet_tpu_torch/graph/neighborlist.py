@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from gotennet_tpu_torch.graph.batch import GraphBatch
+from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["build_edges_np", "spatial_order", "collate_graphs",
            "radius_graph"]
@@ -64,6 +65,7 @@ def build_edges_np(pos: np.ndarray, cutoff: float, loop: bool = True,
     return np.concatenate(src_list), np.concatenate(dst_list)
 
 
+@profiling.traced("loader.collate")
 def collate_graphs(graphs: Sequence[dict], num_nodes: int, num_edges: int,
                    num_graphs: int, cutoff: float = 5.0, loop: bool = True,
                    max_num_neighbors: int = 32, y_dim: int = 1,

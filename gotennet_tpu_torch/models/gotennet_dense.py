@@ -56,6 +56,7 @@ from gotennet_tpu_torch.ops.activations import get_activation
 from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
 from gotennet_tpu_torch.ops.rbf import RadialBasis
 from gotennet_tpu_torch.ops.spherical import degree_slices, spherical_harmonics
+from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["GotenNetDense", "PairGeometry", "pair_geometry"]
 
@@ -397,29 +398,31 @@ class GotenNetDense(nn.Module):
         ``attn_dropout > 0``)."""
         cfg = self.cfg
         G, M = batch.z.shape
-        geo = pair_geometry(batch.pos, batch.mask, cfg.cutoff,
-                            cfg.max_num_neighbors, batch.seg)
-        z = batch.z.long()
-        h = self.A_na(z)
-        phi = self.radial_basis(geo.dist)                     # [G, M, M, R]
-        h = self.node_init(z, h, geo.dist, phi, geo.adj.to(h.dtype))
-        t_ij = self.edge_init(phi, h)
-        rl_ij = spherical_harmonics(geo.vec_n, cfg.lmax).contiguous()
-        # per-source real-edge counts (src axis = j)
-        counts_src = torch.sum(geo.pair_mask.to(h.dtype), dim=1)
-        n_edges = counts_src[:, None, :].expand(G, M, M)
-        X = torch.zeros(G, M, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
-                        device=h.device)
-        sd = cfg.pair_dtype if cfg.edge_state_pair_dtype else None
-        if sd is not None:
-            t_ij = t_ij.to(sd)
-        masks = keep_masks(cfg, self.training, (G, M, M, cfg.num_heads),
-                           generator, h.device)
-        for gata, eqff, keep in zip(self.gata_list, self.eqff_list, masks):
-            h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
-                                   rl_ij, geo.dist, geo.pair_mask, n_edges,
-                                   keep)
+        with profiling.span("model.embed"):
+            geo = pair_geometry(batch.pos, batch.mask, cfg.cutoff,
+                                cfg.max_num_neighbors, batch.seg)
+            z = batch.z.long()
+            h = self.A_na(z)
+            phi = self.radial_basis(geo.dist)                 # [G, M, M, R]
+            h = self.node_init(z, h, geo.dist, phi, geo.adj.to(h.dtype))
+            t_ij = self.edge_init(phi, h)
+            rl_ij = spherical_harmonics(geo.vec_n, cfg.lmax).contiguous()
+            # per-source real-edge counts (src axis = j)
+            counts_src = torch.sum(geo.pair_mask.to(h.dtype), dim=1)
+            n_edges = counts_src[:, None, :].expand(G, M, M)
+            X = torch.zeros(G, M, cfg.sh_dim, cfg.n_atom_basis,
+                            dtype=h.dtype, device=h.device)
+            sd = cfg.pair_dtype if cfg.edge_state_pair_dtype else None
             if sd is not None:
                 t_ij = t_ij.to(sd)
-            h, X = eqff(h, X)
+            masks = keep_masks(cfg, self.training, (G, M, M, cfg.num_heads),
+                               generator, h.device)
+        for gata, eqff, keep in zip(self.gata_list, self.eqff_list, masks):
+            with profiling.span("model.layer"):
+                h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
+                                       rl_ij, geo.dist, geo.pair_mask,
+                                       n_edges, keep)
+                if sd is not None:
+                    t_ij = t_ij.to(sd)
+                h, X = eqff(h, X)
         return h, X

@@ -35,6 +35,7 @@ from gotennet_tpu_torch.models.gotennet_ell import GotenNetELL
 from gotennet_tpu_torch.models.heads import (Atomwise, Dipole,
                                             ElectronicSpatialExtent)
 from gotennet_tpu_torch.nn.dense import Dense
+from gotennet_tpu_torch.utils import profiling
 from gotennet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["HeadConfig", "GotenModel", "init_parameters_",
@@ -117,19 +118,21 @@ class GotenModel(nn.Module):
         # serving mode after construction; training code calls .train()
         self.eval()
 
+    @profiling.traced("model.forward")
     def forward(self, batch: GraphBatch | DenseBatch | ELLBatch
                 ) -> Dict[str, torch.Tensor]:
         h, X = self.representation(batch, self.dropout_generator)
-        if self.layout == "dense":
-            # the flat [G*M] node set; a packed batch's graph axis is its
-            # [G*P] molecule slots
-            G, M = h.shape[:2]
-            h = h.reshape(G * M, -1)
-            X = X.reshape(G * M, X.shape[2], X.shape[3])
-            batch = flatten_nodes(batch)
-        out = self.output_modules[0](batch.z, batch.pos, h, X,
-                                     batch.node_mask, batch.node_graph,
-                                     batch.num_graphs)
+        with profiling.span("model.head"):
+            if self.layout == "dense":
+                # the flat [G*M] node set; a packed batch's graph axis is
+                # its [G*P] molecule slots
+                G, M = h.shape[:2]
+                h = h.reshape(G * M, -1)
+                X = X.reshape(G * M, X.shape[2], X.shape[3])
+                batch = flatten_nodes(batch)
+            out = self.output_modules[0](batch.z, batch.pos, h, X,
+                                         batch.node_mask, batch.node_graph,
+                                         batch.num_graphs)
         out["representation"] = h
         out["vector_representation"] = X
         return out

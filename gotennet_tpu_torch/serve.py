@@ -35,6 +35,7 @@ from gotennet_tpu_torch.data.dataset import (BatchLoader, DenseLoader,
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
                                              apply_with_forces)
+from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["Predictor"]
 
@@ -103,6 +104,7 @@ class Predictor:
             pos=[np.asarray(m["pos"], np.float32) for m in molecules])
 
     @torch.inference_mode()
+    @profiling.traced("request")
     def predict(self, molecules: Sequence[dict]) -> np.ndarray:
         """``molecules``: dicts with ``z`` ``[n_i]`` and ``pos``
         ``[n_i, 3]``.  Returns ``[len(molecules), n_out]`` float32."""
@@ -112,9 +114,17 @@ class Predictor:
         out = torch.empty(n, self.n_out, device=self.device)
         for idx, batch in self.loader(self._request(molecules)).batches():
             prop = self.model(batch.to(self.device))["property"]
-            out[torch.as_tensor(idx, device=self.device)] = prop[:len(idx)]
-        return out.cpu().numpy()
+            out[self._rows(idx)] = prop[:len(idx)]
+        with profiling.span("wait", wait=True):
+            return out.cpu().numpy()
 
+    def _rows(self, idx: np.ndarray) -> torch.Tensor:
+        """A chunk's molecule indices on the device (a copy from host
+        memory, which waits for the device)."""
+        with profiling.span("wait", wait=True):
+            return torch.as_tensor(idx, device=self.device)
+
+    @profiling.traced("request")
     def predict_with_forces(self, molecules: Sequence[dict]
                             ) -> Tuple[np.ndarray, List[np.ndarray]]:
         """Energies and forces: ``([len(molecules), n_out]`` float32, one
@@ -130,13 +140,14 @@ class Predictor:
         energies = torch.empty(n, self.n_out, device=self.device)
         chunks = []
         for idx, batch in self.loader(self._request(molecules)).batches():
-            out = apply_with_forces(self.model, batch.to(self.device))
-            energies[torch.as_tensor(idx, device=self.device)] = \
-                out["property"][:len(idx)].detach()
+            with profiling.span("request.forces"):
+                out = apply_with_forces(self.model, batch.to(self.device))
+            energies[self._rows(idx)] = out["property"][:len(idx)].detach()
             chunks.append((idx, batch, out["forces"].detach()))
         forces = [np.zeros((len(m["z"]), 3), np.float32) for m in molecules]
         for idx, batch, f in chunks:
-            f = f.cpu().numpy()
+            with profiling.span("wait", wait=True):
+                f = f.cpu().numpy()
             if self.layout == "dense":
                 for g, i in enumerate(idx):
                     forces[i] = f[g, :len(forces[i])]
@@ -149,4 +160,5 @@ class Predictor:
                     forces[i] = f[rows]
                 else:
                     forces[i][batch.atom.numpy()[rows]] = f[rows]
-        return energies.cpu().numpy(), forces
+        with profiling.span("wait", wait=True):
+            return energies.cpu().numpy(), forces

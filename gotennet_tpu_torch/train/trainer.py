@@ -67,6 +67,7 @@ from gotennet_tpu_torch.train.optim import (PlateauState, clip_by_global_norm,
                                             cosine_scale, make_optimizer,
                                             plateau_update, set_lr,
                                             warmup_scale)
+from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["make_loss_fn", "make_chunks", "accum_grads", "train_step",
            "train_steps", "check_force_training", "TrainerConfig", "Trainer"]
@@ -175,8 +176,10 @@ def accum_grads(model: GotenModel, loss_fn: Callable,
         p.grad = None
     l_sum = n_real = 0.0
     for batch in chunks:
-        loss, chunk_logs, _ = loss_fn(batch)
-        loss.backward()
+        with profiling.span("step.forward"):
+            loss, chunk_logs, _ = loss_fn(batch)
+        with profiling.span("step.backward"):
+            loss.backward()
         if logs is not None and len(chunks) == 1:
             logs.update(chunk_logs)
         l_sum = l_sum + loss.detach()
@@ -187,6 +190,7 @@ def accum_grads(model: GotenModel, loss_fn: Callable,
     return l_sum / n_real
 
 
+@profiling.traced("step")
 def train_step(model: GotenModel, optimizer: torch.optim.Optimizer,
                chunks: Sequence[DenseBatch], grad_clip: Optional[float] = 5.0,
                *, loss_fn: Optional[Callable] = None, grad_scale: float = 1.0,
@@ -196,9 +200,10 @@ def train_step(model: GotenModel, optimizer: torch.optim.Optimizer,
     then ``optimizer.step()``.  ``loss_fn`` defaults to the base task's L1
     loss on the property.  ``logs``, when given, receives the gradients'
     global norm before the clip (``grad_norm``) and, for a single chunk,
-    the per-loss values.  ``axes``: mesh axes over whose ranks the scaled
-    gradients, the loss and the logs are averaged before the clip (the JAX
-    package's ``pmean`` in its sharded step).  Returns the mean loss."""
+    the per-loss values, as host floats.  ``axes``: mesh axes over whose
+    ranks the scaled gradients, the loss and the logs are averaged before
+    the clip (the JAX package's ``pmean`` in its sharded step).  Returns
+    the mean loss."""
     model.train()
     if loss_fn is None:
         loss_fn = make_loss_fn(model, Task(None))
@@ -217,15 +222,19 @@ def train_step(model: GotenModel, optimizer: torch.optim.Optimizer,
         if logs is not None:
             for k, v in logs.items():
                 logs[k] = pmean(v, axes)
-    if grad_clip is not None:
-        g_norm = clip_by_global_norm(params, grad_clip)
-    elif logs is not None:
-        g_norm = torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
-                                for p in params))
-    optimizer.step()
-    if logs is not None:
-        logs["grad_norm"] = g_norm
-    return float(loss)
+    with profiling.span("step.clip"):
+        if grad_clip is not None:
+            g_norm = clip_by_global_norm(params, grad_clip)
+        elif logs is not None:
+            g_norm = torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                                    for p in params))
+    with profiling.span("step.optimizer"):
+        optimizer.step()
+    with profiling.span("wait", wait=True):
+        if logs is not None:
+            logs["grad_norm"] = g_norm
+            logs.update({k: float(v) for k, v in logs.items()})
+        return float(loss)
 
 
 def train_steps(cfg: GotenNetConfig, head: HeadConfig,
@@ -355,6 +364,7 @@ class Trainer:
         os.makedirs(cfg.workdir, exist_ok=True)
         self._logger = make_logger(cfg.workdir, cfg.logger,
                                    tensorboard=cfg.tensorboard)
+        self._traced = 0    # the last traced step's record in a log
 
     # ---- schedules and the loss EMA --------------------------------------
     def lr_scale(self, step: int) -> float:
@@ -428,7 +438,8 @@ class Trainer:
             return have
         from gotennet_tpu_torch.parallel.collectives import psum
         flag = torch.tensor([0.0 if have else 1.0], device=self.device)
-        return float(psum(flag, ("data", "edge"))) == 0.0
+        with profiling.span("wait", wait=True):
+            return float(psum(flag, ("data", "edge"))) == 0.0
 
     def _generator_states(self, generator) -> Dict[str, Any]:
         """The dropout generator's state for ``train_state``: this rank's,
@@ -454,11 +465,10 @@ class Trainer:
                           loss_fn=self.loss_fn, grad_scale=ema_scale,
                           logs=logs,
                           axes=self.mesh.axis_names if self.mesh else None)
-        grad_norm = float(logs.pop("grad_norm"))
+        grad_norm = logs.pop("grad_norm")
         if cfg.grad_accum_steps > 1:
             logs = {}   # the per-loss values are logged without accumulation
-        return {**{k: float(v) for k, v in logs.items()}, "loss": loss,
-                "grad_norm": grad_norm}
+        return {**logs, "loss": loss, "grad_norm": grad_norm}
 
     # ---- loops ------------------------------------------------------------
     def fit(self, state_dict: Dict[str, torch.Tensor], train_loader: Iterable,
@@ -519,7 +529,7 @@ class Trainer:
             # repeats the uninterrupted run's batch order
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
-            t0 = time.time()
+            t0 = time.perf_counter()
             model.train()
             train_losses = []
             steps = iter(prefetch(self._train_groups(train_loader)))
@@ -534,7 +544,7 @@ class Trainer:
                 loss = self._stage_ema("train", logs["loss"])
                 if step % cfg.log_every == 0:
                     self._log({"phase": "train", "step": step, **logs,
-                               "loss": loss})
+                               "loss": loss, **self._trace_means()})
                 train_losses.append(loss)
                 if max_steps is not None and step >= max_steps:
                     break
@@ -545,7 +555,7 @@ class Trainer:
             val["epoch"] = epoch
             val["step"] = step
             val["lr_scale"] = self.lr_scale(step)
-            val["epoch_time_s"] = time.time() - t0
+            val["epoch_time_s"] = time.perf_counter() - t0
             history.append(val)
             self._log({"phase": "val_epoch", **val})
 
@@ -585,6 +595,7 @@ class Trainer:
         return {k: v.detach().clone() for k, v in
                 model.state_dict().items()}, history
 
+    @profiling.traced("evaluate")
     @torch.no_grad()
     def evaluate(self, state_dict: Optional[Dict[str, torch.Tensor]],
                  loader: Iterable, phase: str = "test") -> Dict[str, float]:
@@ -614,16 +625,19 @@ class Trainer:
         for n, batch in prefetch(batches()):
             n_real.append(n)
             loss, _, out = self.loss_fn(batch)
-            losses.append(float(loss))
+            with profiling.span("wait", wait=True):
+                losses.append(float(loss))
             if slot >= n:
                 continue
             targets = self.task.get_targets(batch)
             for m in metrics:
                 tgt, mask = targets[m["target"]]
                 pred = out[m["prediction"]].reshape(tgt.shape)
-                accs[m["name"]].update(pred.float().cpu().numpy(),
+                with profiling.span("wait", wait=True):
+                    pred, tgt, mask = (pred.float().cpu().numpy(),
                                        tgt.float().cpu().numpy(),
                                        mask.float().cpu().numpy())
+                accs[m["name"]].update(pred, tgt, mask)
 
         def kind_of(m):
             return m.get("kind") or ("mae" if "Absolute" in m["name"]
@@ -670,3 +684,15 @@ class Trainer:
 
     def _log(self, record: Dict[str, Any]) -> None:
         self._logger.log(record)
+
+    def _trace_means(self) -> Dict[str, float]:
+        """With the tracer on, the means over the training steps traced
+        since the last call (``profiling.summary``); else nothing."""
+        if not profiling.active():
+            return {}
+        new = [r for r in profiling.records()
+               if r["seq"] > self._traced and r["kind"] == "step"]
+        if not new:
+            return {}
+        self._traced = new[-1]["seq"]
+        return profiling.summary(new)
