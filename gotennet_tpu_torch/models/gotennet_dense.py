@@ -12,7 +12,11 @@ expanded-rejection form,
     sum_m EQr.EKr = S - pq * pk * (2 - |r_l|^2),
 
 through ``ops.fused_htr.fused_htr`` (its CUDA kernels, ``FusedHTR`` in
-training) with ``fused`` and ``fused_htr``, as plain tensor ops otherwise.
+training) with ``fused`` and ``fused_htr``, as plain tensor ops otherwise
+(``htr_terms``): each of S, pq and pk is one batched product over the
+spherical components m (S over (g, e), pq over (g, i), pk over (g, j)),
+summed in f32 and rounded to ``pair_dtype`` once, so each pair tensor is
+written once and nothing once per component.
 Attention dropout in training takes each layer's ``[G, M, M, H]`` keep
 mask: the fused message folds it into the kernel's per-head scale, the
 unfused one drops the attention with it, as flax's ``Dropout`` does;
@@ -58,7 +62,7 @@ from gotennet_tpu_torch.ops.rbf import RadialBasis
 from gotennet_tpu_torch.ops.spherical import degree_slices, spherical_harmonics
 from gotennet_tpu_torch.utils import profiling
 
-__all__ = ["GotenNetDense", "PairGeometry", "pair_geometry"]
+__all__ = ["GotenNetDense", "PairGeometry", "htr_terms", "pair_geometry"]
 
 _NEG = -1e30          # masked logit; exp(_NEG - max) is exactly 0 in f32
 _SOFTMAX_EPS = 1e-16  # the reference softmax's denominator guard
@@ -103,6 +107,43 @@ def pair_geometry(pos: torch.Tensor, mask: torch.Tensor, cutoff: float,
     dist = torch.where(adj, torch.sqrt(d2_safe), zero)
     inv = torch.where(adj, torch.rsqrt(d2_safe), zero)
     return PairGeometry(vec, adj, pair_mask, dist, vec * inv[..., None])
+
+
+def htr_terms(EQ: torch.Tensor, EK: torch.Tensor, rl_ij: torch.Tensor,
+              lmax: int, sep_htr: bool, rej: bool,
+              pair_dtype: torch.dtype) -> torch.Tensor:
+    """The plain HTR update's ``w_ij [G, M, M, E]``:
+    ``sum_l [S_l - pq_l * pk_l * (2 - |r_l|^2)]`` over the degree blocks l
+    (one block of every component without ``sep_htr``; S alone without
+    ``rej``), from ``EQ``, ``EK [G, M, L, E]`` and ``rl_ij [G, M, M, L]``.
+
+    Each term is a product over the components m of one block, batched:
+    ``S[g,i,j,e] = sum_m EQ[g,i,m,e] EK[g,j,m,e]`` over (g, e), once for
+    all blocks (the sum of the blocks' S_l); ``pq[g,i,j,e] = sum_m
+    r[g,i,j,m] EQ[g,i,m,e]`` over (g, i); ``pk`` over (g, j), laid out
+    [G, j, i, E] and read transposed.  The factors are rounded to
+    ``pair_dtype``, each product sums in f32 and is rounded once.
+    ``(2 - |r_l|^2)``, negated, scales pq's factor r, so the blocks combine
+    as ``S + pq' * pk`` with one multiply-add each, laid out as pq is.
+    """
+    eq, ek = EQ.to(pair_dtype), EK.to(pair_dtype)
+    # S, laid out [G, E, i, j]; w holds the only reference, so S is freed
+    # once the first block has read it
+    w = torch.matmul(eq.permute(0, 3, 1, 2),
+                     ek.permute(0, 3, 2, 1)).permute(0, 2, 3, 1)
+    if not rej:
+        return w
+    blocks = degree_slices(lmax) if sep_htr else [(0, rl_ij.shape[-1])]
+    for n, (lo, hi) in enumerate(blocks):
+        r = rl_ij[..., lo:hi]
+        rq = (r * (torch.sum(r * r, dim=-1, keepdim=True) - 2.0)
+              ).to(pair_dtype)
+        pq = torch.matmul(rq, eq[:, :, lo:hi])             # [G, i, j, E]
+        pk = torch.matmul(r.to(pair_dtype).transpose(1, 2),
+                          ek[:, :, lo:hi]).transpose(1, 2)
+        # the first operand decides the layout: pq's, never S's
+        w = pq * pk + w if n == 0 else torch.addcmul(w, pq, pk)
+    return w
 
 
 def _node_dtype(cfg: GotenNetConfig) -> Optional[torch.dtype]:
@@ -349,27 +390,10 @@ class GATADense(GATALayer):
                 sep_htr=cfg.sep_htr, rej=info["rej"],
                 gate=info["gated"] or "", pair_dtype=pd)
 
-        def pair_terms(lo, hi):
-            eq = EQ[..., lo:hi, :].to(pd)
-            ek = EK[..., lo:hi, :].to(pd)
-            S = pq = pk = 0.0
-            for m in range(hi - lo):
-                eq_m = eq[:, :, None, m, :]        # [G, i, 1, E]
-                ek_m = ek[:, None, :, m, :]        # [G, 1, j, E]
-                S = S + eq_m * ek_m
-                if info["rej"]:
-                    r_m = rl_ij[..., lo + m:lo + m + 1].to(pd)
-                    pq = pq + eq_m * r_m
-                    pk = pk + ek_m * r_m
-            if not info["rej"]:
-                return S
-            r2 = torch.sum(rl_ij[..., lo:hi] ** 2, dim=-1)[..., None].to(pd)
-            return S - pq * pk * (2.0 - r2)
-
-        if cfg.sep_htr:
-            w_ij = sum(pair_terms(lo, hi) for lo, hi in degree_slices(cfg.lmax))
-        else:
-            w_ij = pair_terms(0, rl_ij.shape[-1])
+        G, M = rl_ij.shape[:2]
+        profiling.count("pairs.htr_plain", G * M * M)
+        w_ij = htr_terms(EQ, EK, rl_ij, cfg.lmax, cfg.sep_htr, info["rej"],
+                         pd)
         return h, X, self.update_tail(t_ij, w_ij)
 
 

@@ -441,6 +441,49 @@ def test_md22_train_step_on_card_matches_cpu(card):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+def test_plain_htr_terms_on_card_match_and_take_no_more_memory(card):
+    """The plain update's contracted pair terms at the QM9 flagship's
+    largest bucket (G 256, M 32, 256 channels, bf16) against the
+    per-component form: values and the derivatives of EQ, EK and rl within
+    2e-2 of each one's scale (both against that form at float32), and the
+    peak memory over one forward and backward no higher."""
+    from test_torch_port_htr_plain import per_component_terms
+
+    from gotennet_tpu_torch.models.gotennet_dense import htr_terms
+    from gotennet_tpu_torch.ops.spherical import spherical_harmonics
+    G, M, E = 256, 32, 256
+    gen = torch.Generator(device=card).manual_seed(0)
+    EQ, EK = (torch.randn(G, M, 8, E, device=card, generator=gen) * 0.5
+              for _ in range(2))
+    vec = torch.randn(G, M, M, 3, device=card, generator=gen)
+    rl = spherical_harmonics(vec / vec.norm(dim=-1, keepdim=True), 2)
+    g_w = torch.randn(G, M, M, E, device=card, generator=gen)
+    runs = {}
+    for name, terms, pd in (("contracted", htr_terms, torch.bfloat16),
+                            ("per_component", per_component_terms,
+                             torch.bfloat16),
+                            ("float32", per_component_terms, torch.float32)):
+        leaves = [x.clone().requires_grad_() for x in (EQ, EK, rl)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        w = terms(*leaves, 2, True, True, pd)
+        grads = torch.autograd.grad(w, leaves, g_w.to(pd))
+        torch.cuda.synchronize()
+        runs[name] = ((w.detach(), *grads),
+                      torch.cuda.max_memory_allocated() - base)
+        del w, grads, leaves
+    assert runs["contracted"][1] <= runs["per_component"][1], runs
+    for what, got, old, want in zip(("w", "g_EQ", "g_EK", "g_rl"),
+                                    runs["contracted"][0],
+                                    runs["per_component"][0],
+                                    runs["float32"][0]):
+        scale = want.abs().max().item()
+        for form, x in (("contracted", got), ("per_component", old)):
+            err = (x.float() - want).abs().max().item()
+            assert err <= 2e-2 * scale, (what, form, err, scale)
+
+
 # ---- the ELL layout ----------------------------------------------------------
 def ell_inputs(device, NR, N, K, D, H, lmax, head_scale, seed=0):
     """Message-kernel inputs in argument order (ELL layout, float32 node

@@ -1,15 +1,17 @@
 """The port's tracer (``gotennet_tpu_torch/utils/profiling.py``) on the
 CPU, with tiny models: off, it records nothing and enters no profiler
 range; on, one record a training step, request or evaluation, with the
-named spans nested and the pair counters worked out by hand; under
-``torch.profiler`` the spans land in the Chrome trace as nested
-``gotennet.*`` ranges and records are kept only while it runs; spans and
-counts of the prefetching loader's thread land in the records, whatever
-the threads' interleaving; ``Trainer.fit`` logs the traced means;
+named spans nested and the pair counters worked out by hand (the plain
+HTR update's once a call, absent where the kernel updates, free when
+off); under ``torch.profiler`` the spans land in the Chrome trace as
+nested ``gotennet.*`` ranges and records are kept only while it runs;
+spans and counts of the prefetching loader's thread land in the records,
+whatever the threads' interleaving; ``Trainer.fit`` logs the traced means;
 ``summarize_trace`` on traces written by hand (the device total as a union,
 idle gaps by the innermost program span, spans' self times); and
 ``prefetch`` over a loader of ``(indices, batch)`` pairs."""
 
+import dataclasses
 import json
 import sys
 import threading
@@ -142,6 +144,47 @@ def test_pair_counters_by_hand(packed):
     assert r["calls"]["loader.collate"] == 1
     assert profiling.summary([r])["atom_pair_pct"] == pytest.approx(
         100.0 * 68 / (128 if packed else 256))
+
+
+def _forward(cfg):
+    """One forward of a 3-graph batch of ``cfg``'s model, inside a
+    ``request`` span; the batch's G and M."""
+    ds, _ = molecules(3)
+    batch = next(iter(DenseLoader(ds, 3)))
+    model = GotenModel(cfg, HeadConfig(), "dense", device="cpu")
+    with profiling.span("request"), torch.no_grad():
+        model(batch)
+    return batch.z.shape
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+def test_plain_htr_update_counted_once_a_call(layers):
+    """``pairs.htr_plain``: G M^2 for each layer with an update (all but
+    the last)."""
+    profiling.enable()
+    G, M = _forward(dataclasses.replace(TINY, n_interactions=layers))
+    (r,) = profiling.records()
+    assert r["calls"]["model.layer"] == layers
+    assert r["counts"]["pairs.htr_plain"] == (layers - 1) * G * M * M
+
+
+def test_plain_htr_counter_absent_where_the_kernel_updates():
+    profiling.enable()
+    _forward(dataclasses.replace(TINY, fused=True, fused_htr=True))
+    (r,) = profiling.records()
+    assert "pairs.htr_plain" not in r["counts"]
+    assert r["counts"]["pairs.padded"] > 0
+
+
+def test_plain_htr_counter_costs_nothing_when_off():
+    """Off, the counter returns before the lock and the open record."""
+    lock = mock.MagicMock()
+    lock.__enter__.side_effect = AssertionError("lock taken")
+    with mock.patch.object(profiling, "_lock", lock):
+        _forward(TINY)
+    assert not lock.__enter__.called
+    assert profiling.records() == []
+    assert "pairs.htr_plain" not in profiling._pending.counts
 
 
 def test_profiler_ranges_nested_and_records_only_while_profiling(tmp_path):
