@@ -90,6 +90,7 @@ class ELLBatch:
             for f in dataclasses.fields(self)})
 
 
+@profiling.traced("graph.neighbors")
 def frame_graph(pos: np.ndarray, cutoff: float, max_num_neighbors: int,
                 spatial_sort: bool) -> FrameGraph:
     """One frame's atom order (its spatial order with ``spatial_sort``, else
@@ -163,6 +164,10 @@ def collate_ell(graphs: Sequence[dict], num_nodes: int, max_neighbors: int,
         if with_forces and g.get("dy") is not None:
             dy[n_off:n_off + m] = np.asarray(g["dy"], np.float32)[perm]
         n_off += m
+    if profiling.active():
+        # the table's slots and the real edges in them, self-loops included
+        profiling.count("pairs.ell_slot", num_nodes * max_neighbors)
+        profiling.count("pairs.ell_edge", int(nbr_mask.sum()))
 
     gather_window = gather_halo = None
     if block_rows:

@@ -64,6 +64,7 @@ from gotennet_tpu_torch.ops.activations import get_activation
 from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
 from gotennet_tpu_torch.ops.rbf import RadialBasis
 from gotennet_tpu_torch.ops.spherical import spherical_harmonics
+from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["GotenNetELL", "NodeInitELL", "EdgeInitELL", "GATAELL",
            "fused_paths", "RowShard"]
@@ -362,50 +363,56 @@ class GotenNetELL(nn.Module):
         ``attn_dropout > 0``)."""
         cfg = self.cfg
         N, K = batch.nbr.shape
-        # under row sharding each rank owns NR = N / ranks destination rows
-        shard = RowShard(cfg.edge_axis, N)
-        rows, NR = shard.rows, shard.n_rows
-        paths = fused_paths(cfg, N, NR, batch.gather_halo)
-        nbr, nm, pos = rows(batch.nbr), rows(batch.nbr_mask), batch.pos
-        idx = nbr.long()
-        gather = _gather_fn(nbr, bool(batch.gather_window and batch.block_rows),
-                            cfg.pair_dtype)
-        # neighbour geometry (source - destination); the self-loop's
-        # distance is pinned to 0 and its unit vector to zeros
-        vec = pos[idx] - rows(pos)[:, None, :]
-        self_idx = torch.arange(NR, device=idx.device)[:, None] + shard.start
-        nonloop = nm & (idx != self_idx)
-        d2 = torch.sum(vec ** 2, dim=-1)
-        one = torch.ones_like(d2)
-        dist = torch.where(nonloop, torch.sqrt(torch.where(nonloop, d2, one)),
-                           torch.zeros_like(d2))
-        vec_n = torch.where(nonloop[..., None],
-                            vec / torch.where(nonloop, dist, one)[..., None],
-                            vec * 0.0)
-        rl_ij = spherical_harmonics(vec_n, cfg.lmax).contiguous()
+        with profiling.span("model.embed"):
+            # under row sharding each rank owns NR = N / ranks destination
+            # rows
+            shard = RowShard(cfg.edge_axis, N)
+            rows, NR = shard.rows, shard.n_rows
+            paths = fused_paths(cfg, N, NR, batch.gather_halo)
+            nbr, nm, pos = rows(batch.nbr), rows(batch.nbr_mask), batch.pos
+            idx = nbr.long()
+            gather = _gather_fn(
+                nbr, bool(batch.gather_window and batch.block_rows),
+                cfg.pair_dtype)
+            # neighbour geometry (source - destination); the self-loop's
+            # distance is pinned to 0 and its unit vector to zeros
+            vec = pos[idx] - rows(pos)[:, None, :]
+            self_idx = (torch.arange(NR, device=idx.device)[:, None]
+                        + shard.start)
+            nonloop = nm & (idx != self_idx)
+            d2 = torch.sum(vec ** 2, dim=-1)
+            one = torch.ones_like(d2)
+            dist = torch.where(nonloop,
+                               torch.sqrt(torch.where(nonloop, d2, one)),
+                               torch.zeros_like(d2))
+            vec_n = torch.where(
+                nonloop[..., None],
+                vec / torch.where(nonloop, dist, one)[..., None], vec * 0.0)
+            rl_ij = spherical_harmonics(vec_n, cfg.lmax).contiguous()
 
-        z = batch.z.long()
-        h = self.A_na(z)
-        phi = self.radial_basis(dist)                         # [NR, K, R]
-        h = shard.unshard(self.node_init(z, rows(h), gather, dist, phi,
-                                         nonloop))
-        t_ij = self.edge_init(phi, h, gather, h_rows=rows(h))
-        # per-source real-edge counts; integers, so the scatter is exact
-        counts = segment_sum(nm.reshape(-1).to(h.dtype), idx.reshape(-1), N,
-                             psum_axis=cfg.edge_axis)
-        n_edges = counts[idx]
-        X = torch.zeros(N, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
-                        device=h.device)
-        # what the backward kernels sum table gradients by, once per batch
-        slots = (fused_ell.source_slots(nbr, N)
-                 if paths[0] and torch.is_grad_enabled() else None)
-        masks = keep_masks(cfg, self.training, (NR, K, cfg.num_heads),
-                           generator, h.device)
+            z = batch.z.long()
+            h = self.A_na(z)
+            phi = self.radial_basis(dist)                     # [NR, K, R]
+            h = shard.unshard(self.node_init(z, rows(h), gather, dist, phi,
+                                             nonloop))
+            t_ij = self.edge_init(phi, h, gather, h_rows=rows(h))
+            # per-source real-edge counts; integers, so the scatter is exact
+            counts = segment_sum(nm.reshape(-1).to(h.dtype),
+                                 idx.reshape(-1), N, psum_axis=cfg.edge_axis)
+            n_edges = counts[idx]
+            X = torch.zeros(N, cfg.sh_dim, cfg.n_atom_basis, dtype=h.dtype,
+                            device=h.device)
+            # what the backward kernels sum table gradients by, once a batch
+            slots = (fused_ell.source_slots(nbr, N)
+                     if paths[0] and torch.is_grad_enabled() else None)
+            masks = keep_masks(cfg, self.training, (NR, K, cfg.num_heads),
+                               generator, h.device)
         for gata, eqff, keep in zip(self.gata_list, self.eqff_list, masks):
-            h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
-                                   rl_ij, dist, nbr, nm, n_edges, gather,
-                                   paths, slots, keep, shard)
-            # EQFF is row-wise: this rank's rows, then the whole state
-            h_r, X_r = eqff(rows(h), rows(X))
-            h, X = shard.unshard(h_r), shard.unshard(X_r)
+            with profiling.span("model.layer"):
+                h, X, t_ij = run_layer(cfg, self.training, gata, h, X, t_ij,
+                                       rl_ij, dist, nbr, nm, n_edges, gather,
+                                       paths, slots, keep, shard)
+                # EQFF is row-wise: this rank's rows, then the whole state
+                h_r, X_r = eqff(rows(h), rows(X))
+                h, X = shard.unshard(h_r), shard.unshard(X_r)
         return h, X

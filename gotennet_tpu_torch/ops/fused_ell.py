@@ -71,12 +71,14 @@ def source_slots(nbr: torch.Tensor, N: int) -> Slots:
     """The transposed slot list of ``nbr [NR, K]`` (indices in ``[0, N)``):
     every slot, padded ones included, grouped by the table row it reads.
     The sort is stable, so each table row's slots come in a fixed order and
-    the backward kernels' sums over them repeat bit for bit."""
+    the backward kernels' sums over them repeat bit for bit.  Each row's
+    first slot is found in the sorted rows, not counted by ``bincount``,
+    whose output size waits for the device on a card."""
     flat = nbr.reshape(-1).long()
-    order = torch.sort(flat, stable=True).indices.to(torch.int32)
-    starts = torch.zeros(N + 1, dtype=torch.int32, device=nbr.device)
-    starts[1:] = torch.cumsum(torch.bincount(flat, minlength=N), 0)
-    return starts, order
+    rows, order = torch.sort(flat, stable=True)
+    starts = torch.searchsorted(
+        rows, torch.arange(N + 1, device=nbr.device)).to(torch.int32)
+    return starts, order.to(torch.int32)
 
 
 def pick_chunking(NR: int, NT: int, halo: int,

@@ -39,7 +39,9 @@ drains it, and that wait, inside the launching span, counts here too;
 (``wait``, ``batch.to_device``); ``loader_wait_ms`` its wait for a
 prefetched batch.  The dense collators count each batch's padded pairs
 (``pairs.padded``, ``G M^2``) and its molecules' atom pairs
-(``pairs.atom``, ``n (n - 1)`` each).  ``summary(records)`` gives the
+(``pairs.atom``, ``n (n - 1)`` each), ``collate_ell`` its table's slots
+(``pairs.ell_slot``, ``N K``) and the real edges in them
+(``pairs.ell_edge``, self-loops included).  ``summary(records)`` gives the
 records' means, and the atom pairs' share of the padded ones
 (``atom_pair_pct``).  Nothing of the tracer lives on the device.
 

@@ -232,6 +232,20 @@ def test_source_slots_transpose_nbr():
         assert slots == [i for i, j in enumerate(flat) if j == n]
 
 
+def test_source_slots_count_no_rows_with_bincount(monkeypatch):
+    """The row starts come from the sorted rows: ``bincount`` sizes its
+    output from the data, which on a card waits for the device in every
+    forward."""
+    def refuse(*a, **k):
+        raise AssertionError("bincount")
+
+    monkeypatch.setattr(torch, "bincount", refuse)
+    nbr = torch.tensor([[3, 0, 3], [1, 1, 3]], dtype=torch.int32)
+    starts, order = source_slots(nbr, 5)
+    assert starts.tolist() == [0, 1, 3, 3, 6, 6]
+    assert order.tolist() == [1, 3, 4, 0, 2, 5]
+
+
 def test_ell_model_backward_goes_through_both_functions(monkeypatch):
     """The ELL model's loss differentiates through FusedELL and FusedHTRELL,
     whose backwards reach both backward wrappers once per layer with one

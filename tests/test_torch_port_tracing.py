@@ -5,7 +5,10 @@ named spans nested and the pair counters worked out by hand (the plain
 HTR update's once a call, absent where the kernel updates, free when
 off); under ``torch.profiler`` the spans land in the Chrome trace as
 nested ``gotennet.*`` ranges and records are kept only while it runs;
-spans and counts of the prefetching loader's thread land in the records,
+the ELL layout's spans (``model.embed``, ``model.layer``,
+``graph.neighbors`` for a frame the loader has not cached) and table
+counters (``pairs.ell_slot``, ``pairs.ell_edge``), nothing of them when
+off; spans and counts of the prefetching loader's thread land in the records,
 whatever the threads' interleaving; ``Trainer.fit`` logs the traced means;
 ``summarize_trace`` on traces written by hand (the device total as a union,
 idle gaps by the innermost program span, spans' self times); and
@@ -21,10 +24,12 @@ import numpy as np
 import pytest
 import torch
 
-from gotennet_tpu_torch.data.dataset import DenseLoader, synthetic_molecules
+from gotennet_tpu_torch.data.dataset import (DenseLoader, ELLLoader,
+                                             synthetic_molecules)
 from gotennet_tpu_torch.data.prefetch import prefetch
 from gotennet_tpu_torch.graph.dense_batch import (collate_dense,
                                                   collate_dense_packed)
+from gotennet_tpu_torch.graph.ell_batch import collate_ell
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.serve import Predictor
@@ -185,6 +190,81 @@ def test_plain_htr_counter_costs_nothing_when_off():
     assert not lock.__enter__.called
     assert profiling.records() == []
     assert "pairs.htr_plain" not in profiling._pending.counts
+
+
+def test_ell_table_counters_by_hand():
+    """A 2-atom molecule 1 A apart (2 edges and 2 self-loops), a 3-atom one
+    with one atom beyond the cutoff (2 + 3) and a lone atom (1): 10 real
+    edges in an 8-row table of 4 slots (32)."""
+    graphs = [{"z": np.full(n, 6),
+               "pos": np.asarray([[x, 0.0, 0.0] for x in xs])}
+              for n, xs in ((2, (0.0, 1.0)), (3, (0.0, 1.0, 10.0)),
+                            (1, (0.0,)))]
+    profiling.enable()
+    with profiling.span("request"):
+        batch = collate_ell(graphs, 8, 4, 3, cutoff=5.0)
+    (r,) = profiling.records()
+    assert r["counts"] == {"pairs.ell_slot": 32, "pairs.ell_edge": 10}
+    assert int(batch.nbr_mask.sum()) == 10
+    assert r["calls"]["loader.collate"] == 1
+    # the collation built each molecule's graph itself
+    assert r["calls"]["graph.neighbors"] == 3
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("layers", [2, 3])
+def test_ell_model_records_embed_and_each_layer(fused, layers):
+    ds, _ = molecules(3)
+    batch = next(iter(ELLLoader(ds, 3)))
+    cfg = dataclasses.replace(TINY, n_interactions=layers, fused=fused,
+                              fused_htr=fused)
+    model = GotenModel(cfg, HeadConfig(), "ell", device="cpu")
+    profiling.enable()
+    with profiling.span("request"), torch.no_grad():
+        model(batch)
+    (r,) = profiling.records()
+    assert r["calls"]["model.embed"] == 1
+    assert r["calls"]["model.layer"] == layers
+    assert r["calls"]["model.forward"] == 1
+    assert r["ms"]["model.forward"] >= (r["ms"]["model.embed"]
+                                       + r["ms"]["model.layer"])
+    assert r["self_ms"]["model.embed"] == pytest.approx(
+        r["ms"]["model.embed"])
+
+
+def test_ell_neighbors_span_only_for_frames_not_cached():
+    """The loader builds each frame's graph once: the first epoch's
+    batches trace one ``graph.neighbors`` a frame, the second's none."""
+    ds, _ = molecules(5)
+    loader = ELLLoader(ds, 2, max_neighbors=12)
+    profiling.enable()
+    for _ in range(2):
+        with profiling.span("request"):
+            list(loader.batches())
+    first, second = profiling.records()
+    assert first["calls"]["graph.neighbors"] == len(ds)
+    assert first["calls"]["loader.collate"] == len(loader)
+    assert "graph.neighbors" not in second["calls"]
+    assert second["calls"]["loader.collate"] == len(loader)
+    assert second["counts"] == first["counts"]
+
+
+def test_ell_off_records_nothing_and_enters_no_profiler_range():
+    rf = mock.MagicMock(side_effect=AssertionError("record_function"))
+    lock = mock.MagicMock()
+    lock.__enter__.side_effect = AssertionError("lock taken")
+    ds, _ = molecules(4)
+    with mock.patch.object(torch.profiler, "record_function", rf), \
+            mock.patch.object(profiling, "_lock", lock):
+        loader = ELLLoader(ds, 2, max_neighbors=12)
+        model = GotenModel(dataclasses.replace(TINY, fused=True),
+                           HeadConfig(), "ell", device="cpu")
+        opt = make_optimizer(model.parameters(), 1e-3)
+        train_step(model, opt, list(loader), 5.0,
+                   loss_fn=make_loss_fn(model, Task(None)))
+    assert not rf.called and not lock.__enter__.called
+    assert profiling.records() == []
+    assert not profiling._pending.counts
 
 
 def test_profiler_ranges_nested_and_records_only_while_profiling(tmp_path):
