@@ -10,15 +10,21 @@
 //
 // What bounds it on an H100: six pair projections (t W_rs and t W_re
 // recomputed, g_tf W_rs^T, g_zre W_re^T, t^T g_tf, t^T g_zre),
-// 6 * D * (mult*D + D) FLOP per pair: 136 GFLOP for a 4-frame MD22 chunk
-// (M = 120, D = 256, mult = 5) over every pair, ~25 GFLOP for a 16-graph
-// QM9 chunk at M = 32; over the valid pairs alone (invalid ones add exact
-// zeros) the operations still bound it, at a few tens of microseconds on the
-// tensor cores, against ~20-60 MB of inputs and outputs.  The kernel runs
-// ~100x above that bound.  On an H100 at M = 120 passes 7, 3 and 2, each of
-// which recomputes g_o per (pair, channel), take about 70 % of its time, and
-// the six products about 20 %; the products run over every pair, padded
-// ones included (PERF.md §5-6 have the split and the times).
+// 6 * D * (mult*D + D) FLOP per pair, on the tensor cores for a bf16 pair
+// type (bwd_sums.cuh), and the bytes of the pair arrays around them.  Of
+// the elementwise work the pair pass (2 below) moves most of the bytes: it
+// writes g_tf [P, C] in float32 and, for a bf16 pair type, its bf16 copy on
+// every pair (6 bytes a (pair, channel)) and reads t_filter [P, C] on valid
+// pairs alone.  At an MD22 force request's G 8, M 120 (D 256, mult 5, 14 %
+// of pairs valid) that is ~0.97 GB, 0.29 ms at 3.35 TB/s; at a QM9 step's
+// G 256, M 32 (62 % valid) ~2.8 GB, 0.85 ms.  So it writes an invalid
+// pair's zeros 16 bytes at a time, reads nothing else there and forms
+// nothing, forms g_o once per valid (pair, channel), and reads each node
+// row once per tile.  On an H100 at 700 W it runs at 2.3x and 3.1x those
+// bytes: a thread spends ~800 instructions on a valid pair's five
+// channels, at 64 registers and three or four blocks an SM.  The products
+// run over every pair, padded ones included, and now hold most of a launch
+// at M = 120 (PERF.md §5-6 have the split and the times).
 //
 // Design.  The TPU kernel sums weight gradients and j-indexed gradients in
 // place over its sequential grid.  Hopper's blocks run in parallel in no
@@ -27,24 +33,31 @@
 // result is the same from run to run.
 //  1. two products recompute t_filter = t W_rs + b_rs and z_re = t W_re +
 //     b_re over all pairs into workspace (bwd_sums.cuh's `recompute`);
-//  2. per (pair, channel): the cotangent of the spatial filter, g_tf (and,
-//     for a bf16 pair type, its bf16 copy for the products);
-//  3. per (pair, head): the attention cotangent, a sum over the head's
-//     channels (each channel's g_o recomputed);
-//  4. a block per destination row: g_scale, and the softmax backward over j
+//  2. the pair pass: a block owns a tile of destination columns j of one
+//     graph (a column's threads, the least power of two from 32 that holds
+//     D, split its D channels, each thread a channel d of every channel
+//     block; as many columns a block as fill its 256 threads) and walks
+//     i = 0..M-1 in order.  On a valid pair it forms the cotangent of
+//     o, g_o, once per channel and takes from it at once g_tf (and its bf16
+//     copy), the column sums g_xg, g_v and, on the tensor channels, g_X
+//     (each thread its own channels, in shared memory, in the order of i),
+//     and the sums over the pair's channels: g_attn per head and, with
+//     position gradients, g_env and g_rl (each thread's channels, then the
+//     32 lanes of a warp in order, then the column's warps in order).  An
+//     invalid pair gets exact zeros (g_tf, g_attn, g_env, g_rl) and adds
+//     nothing: its softmax and envelope are 0, so every term there is an
+//     exact zero and pass 3 multiplies its g_attn by a softmax of 0.
+//     x_g[j], v[j] and X[j] are read once a tile, g_dh[i] and g_dX[i] once
+//     for each i and column;
+//  3. a block per destination row: g_scale, and the softmax backward over j
 //     with a warp per head, the lanes splitting the row's pairs;
-//  5. per (pair, channel of D): g_zre through the silu (and its bf16 copy);
-//  6. per (node, channel of D): g_q (sum over j) and g_k (sum over i);
-//  7. per (node, channel): g_xg and g_v (sums over i), and g_X from the
-//     tensor blocks (sums over i);
-//  8. g_t = g_tf W_rs^T + g_zre W_re^T;
-//  9. the weight gradients t^T g_tf and t^T g_zre, split over the pairs into
+//  4. per (pair, channel of D): g_zre through the silu (and its bf16 copy);
+//  5. per (node, channel of D): g_q (sum over j) and g_k (sum over i);
+//  6. g_t = g_tf W_rs^T + g_zre W_re^T;
+//  7. the weight gradients t^T g_tf and t^T g_zre, split over the pairs into
 //     partials added in a fixed order, and the bias gradients as column sums
-//     in strips, then a warp per column (8 and 9: bwd_sums.cuh's
-//     `grad_products`);
-// 10. with position gradients only, a warp per pair: g_env and g_rl, sums
-//     over the pair's channels (each lane sums its channels, then the 32
-//     lanes are added in order), as the ELL backward's slot pass sums them.
+//     in strips, then a warp per column (6 and 7: bwd_sums.cuh's
+//     `grad_products`).
 // The six products run on the tensor cores for a bf16 pair type
 // (mma.sync.m16n8k16, bf16 factors, float32 sums: bwd_sums.cuh), on bf16
 // copies of their factors, and as float32 FMAs for a float32 pair type.
@@ -61,8 +74,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPairsPerBlock = 16;             // pairs per block of pass 10
-constexpr int kMaxL = 24;                      // SH components (lmax <= 4)
+constexpr int kWarps = kThreads / 32;
+constexpr size_t kMaxSmem = 232448;   // shared memory a block can use
 
 __device__ __forceinline__ float sigmoid(float z) {
   return 1.f / (1.f + expf(-z));
@@ -99,6 +112,11 @@ struct Params {
   float *tf, *gtf, *zre, *gz, *ga;
   __nv_bfloat16 *gtf_b, *gz_b;
   int G, M, D, H, L, C, lmax, sep_dir, sep_tensor, scale_heads;
+  // the pair pass's tile (pair_tile): threads a column (a power of two,
+  // 32..kThreads), columns a block, channels of D a thread, channel blocks
+  // of o, sums over a pair's channels (g_attn's H, then g_env and g_rl's L
+  // with position gradients)
+  int tc, tj, nd, nb, nq;
 };
 
 // channel block b of o: 0 scalar, 1 direction, 2 tensor; and its m range
@@ -120,68 +138,226 @@ __device__ __forceinline__ float scale_at(const Params& p, size_t pair,
   return p.scale_heads ? p.scale[pair * p.H + h] : p.scale[pair];
 }
 
-// the cotangent of o at (pair (gi, j), channel c), in the pair type:
-// scalar block g_dh[i]; direction blocks sum_m rl[ij,m] g_dX[i,m] (float32
-// sum, rounded once); tensor blocks sum_m X[j,m] g_dX[i,m] (each product and
-// each partial sum rounded, as the TPU kernel adds them in the pair type)
-template <bool kBF>
-__device__ float grad_o(const Params& p, size_t gi, size_t gj, size_t pair,
-                        int c) {
-  const int D = p.D, L = p.L;
-  const Block blk = block_of(p, c / D);
-  const int d = c % D;
-  if (blk.kind == 0) return rnd<kBF>(p.gdh[gi * D + d]);
-  const float* gx = p.gdx + gi * L * D + d;
-  float s = 0.f;
-  if (blk.kind == 1) {
-    for (int m = blk.mlo; m < blk.mhi; ++m) {
-      s += rnd<kBF>(p.rl[pair * L + m]) * rnd<kBF>(gx[m * D]);
-    }
-    return rnd<kBF>(s);
-  }
-  const float* x = p.X + gj * L * D + d;
-  for (int m = blk.mlo; m < blk.mhi; ++m) {
-    s = rnd<kBF>(s + rnd<kBF>(rnd<kBF>(x[m * D]) * rnd<kBF>(gx[m * D])));
-  }
+// ---- pass 2, the pair pass ------------------------------------------------
+// Its shared memory.  Each thread's slots, slot-major ([slot][kThreads], so
+// a warp's lanes take 32 banks): for each of its nd channels of D, the
+// rounded x_g[j] and v[j] (nb each) and X[j] (L), and the sums over i of
+// g_xg, g_v (nb each) and g_X (L); and g_dX[i] of the channel in hand,
+// rounded (L).  Then env of every pair (i, j) of the tile ([M][tj]).  Then
+// the lanes' partial sums over a pair's channels, [kWarps][nq][kLanePad]
+// (store_lanes' layout), and the warps', [kWarps][nq].  Offsets of the
+// slots in slots, of the rest in floats.
+struct PairSmem {
+  int xv, vv, xr, sxg, sv, sX, gx, env, red, red2, floats;
+};
+
+__host__ __device__ __forceinline__ PairSmem pair_smem(const Params& p) {
+  PairSmem s;
+  const int nbd = p.nb * p.nd, nld = p.L * p.nd;
+  s.xv = 0;
+  s.vv = s.xv + nbd;
+  s.xr = s.vv + nbd;
+  s.sxg = s.xr + nld;
+  s.sv = s.sxg + nbd;
+  s.sX = s.sv + nbd;
+  s.gx = s.sX + nld;
+  s.env = (s.gx + p.L) * kThreads;
+  s.red = s.env + p.M * p.tj;
+  s.red2 = s.red + kWarps * p.nq * kLanePad;
+  s.floats = s.red2 + kWarps * p.nq;
   return s;
 }
 
-// pass 2: g_tf[pair, c] = g_o * x_g[j] * max(env, 0)
-template <bool kBF, typename NT>
-__global__ void __launch_bounds__(kThreads) grad_tf_kernel(const Params p) {
-  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  const size_t n = (size_t)p.G * p.M * p.M * p.C;
-  if (e >= n) return;
-  const size_t pair = e / p.C;
-  const int c = (int)(e % p.C);
-  const size_t gi = pair / p.M, g = gi / p.M, gj = g * p.M + pair % p.M;
-  const float envp = rnd<kBF>(fmaxf(p.env[pair], 0.f));
-  const float go = grad_o<kBF>(p, gi, gj, pair, c);
-  const float xv = rnd<kBF>(to_f(static_cast<const NT*>(p.xg)[gj * p.C + c]));
-  const float val = rnd<kBF>(rnd<kBF>(go * xv) * envp);
-  p.gtf[e] = val;
-  if constexpr (kBF) p.gtf_b[e] = __float2bfloat16(val);
-}
-
-// pass 3: g_attn[pair, h] = sum over the head's channels of g_o * v[j]
-template <bool kBF, typename NT>
-__global__ void __launch_bounds__(kThreads) grad_attn_kernel(const Params p) {
-  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  const size_t n = (size_t)p.G * p.M * p.M * p.H;
-  if (e >= n) return;
-  const size_t pair = e / p.H;
-  const int h = (int)(e % p.H);
-  const size_t gi = pair / p.M, g = gi / p.M, gj = g * p.M + pair % p.M;
-  const int e_per = p.C / p.H;
-  const NT* v = static_cast<const NT*>(p.v) + gj * p.C;
-  float s = 0.f;
-  for (int c = h * e_per; c < (h + 1) * e_per; ++c) {
-    s += rnd<kBF>(grad_o<kBF>(p, gi, gj, pair, c) * rnd<kBF>(to_f(v[c])));
+// an invalid pair's g_tf row (and its bf16 copy): exact zeros, written by
+// the nt threads t0, t0 + 1, ... 16 bytes at a time where rows are 16-byte
+// runs (the workspace's parts start on 16 bytes)
+template <bool kBF>
+__device__ __forceinline__ void zero_gtf_row(const Params& p, size_t pair,
+                                             int t0, int nt) {
+  const int C = p.C;
+  if (C % 8 == 0) {
+    const float4 z = {0.f, 0.f, 0.f, 0.f};
+    float4* row = reinterpret_cast<float4*>(p.gtf + pair * C);
+    for (int q = t0; q < C / 4; q += nt) row[q] = z;
+    if constexpr (kBF) {
+      float4* rb = reinterpret_cast<float4*>(p.gtf_b + pair * C);
+      for (int q = t0; q < C / 8; q += nt) rb[q] = z;
+    }
+  } else {
+    for (int c = t0; c < C; c += nt) {
+      p.gtf[pair * C + c] = 0.f;
+      if constexpr (kBF) p.gtf_b[pair * C + c] = __float2bfloat16(0.f);
+    }
   }
-  p.ga[e] = s;
 }
 
-// pass 4, a block per destination row (g, i): g_scale, then the softmax
+// sum u of pair `pair` over its channels: g_attn (u < H), g_env, g_rl
+__device__ __forceinline__ void store_pair_sum(const Params& p, size_t pair,
+                                               int u, float s) {
+  if (u < p.H) {
+    p.ga[pair * p.H + u] = s;
+  } else if (u == p.H) {
+    p.genv[pair] = s;
+  } else {
+    p.grl[pair * p.L + u - p.H - 1] = s;
+  }
+}
+
+// A block per tile of p.tj destination columns j of graph g; the p.tc
+// threads of a column take its channels d = dt, dt + tc, ... of D, each of
+// every channel block, and walk i = 0..M-1 in order.  On a valid pair
+// (i, j) a thread forms g_o for each of its channels once, from g_dh[i],
+// g_dX[i], rl[ij] and X[j]: the scalar block g_dh[i]; a direction block
+// sum_m rl[ij,m] g_dX[i,m] (float32 sum, rounded once); a tensor block
+// sum_m X[j,m] g_dX[i,m] (each product and partial sum rounded, as the TPU
+// kernel adds them in the pair type).  From it, at once:
+//   g_tf[ij, c] = g_o x_g[j] env+ (and its bf16 copy);
+//   g_xg[j, c] += g_o tf env+, g_v[j, c] += attn g_o, and on a tensor
+//     channel g_X[j, m, d] += o g_dX[i, m] (the thread's own sums, in the
+//     order of i);
+//   g_attn[ij, h] = sum over the head's channels of g_o v[j]; with position
+//     gradients g_env[ij] = sum over every channel of g_o tf x_g[j], and
+//     g_rl[ij, m] = sum over m's direction block of g_dX[i, m] o (products
+//     of rounded factors left unrounded: the TPU kernel forms g_rl as a
+//     float32-accumulating matmul).  Each thread sums its channels, then
+//     the 32 lanes of a warp are added in order, then the column's warps.
+// An invalid pair writes exact zeros and adds nothing.  The tile's env is
+// read once, up front, so a row waits on no load to know which of its pairs
+// are valid; every thread reads it alike, so the barriers are the block's,
+// and a row with no valid pair in the tile takes none.
+template <bool kBF, typename NT, bool kPos>
+__global__ void __launch_bounds__(kThreads) pair_pass_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const PairSmem o = pair_smem(p);
+  const int M = p.M, D = p.D, C = p.C, H = p.H, L = p.L;
+  const int nd = p.nd, nb = p.nb, nq = p.nq, tc = p.tc, tj = p.tj;
+  const int e_per = C / H;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles = (M + tj - 1) / tj;
+  const size_t g = blockIdx.x / tiles;
+  const int j0 = (int)(blockIdx.x % tiles) * tj;
+  const int jl = tid / tc, dt = tid % tc, j = j0 + jl;
+  const bool col = j < M;
+  const size_t gj = g * M + j;
+  auto at = [&](int slot) -> float& { return sh[slot * kThreads + tid]; };
+  float* senv = sh + o.env;   // [M][tj]
+  float* red = sh + o.red;
+  float* red2 = sh + o.red2;
+  float* part = red + warp * nq * kLanePad + lane;   // sum u: part[u * kLanePad]
+  const NT* xg = static_cast<const NT*>(p.xg);
+  const NT* v = static_cast<const NT*>(p.v);
+  // the tile's env, once (past the graph's columns: invalid)
+  for (int e = tid; e < M * tj; e += kThreads) {
+    const int q = e % tj;
+    senv[e] = j0 + q < M ? p.env[(g * M + e / tj) * M + j0 + q] : -1.f;
+  }
+  // x_g[j], v[j] and X[j], rounded, once a tile; the sums start at zero
+  for (int e = 0; col && e < nd && dt + e * tc < D; ++e) {
+    const int d = dt + e * tc;
+    for (int b = 0; b < nb; ++b) {
+      at(o.xv + b * nd + e) = rnd<kBF>(to_f(xg[gj * C + b * D + d]));
+      at(o.vv + b * nd + e) = rnd<kBF>(to_f(v[gj * C + b * D + d]));
+      at(o.sxg + b * nd + e) = 0.f;
+      at(o.sv + b * nd + e) = 0.f;
+    }
+    for (int m = 0; m < L; ++m) {
+      at(o.xr + m * nd + e) = rnd<kBF>(p.X[(gj * L + m) * D + d]);
+      at(o.sX + m * nd + e) = 0.f;
+    }
+  }
+  __syncthreads();
+  for (int i = 0; i < M; ++i) {
+    const size_t gi = g * M + i, pair = gi * M + j;
+    const float* env_i = senv + i * tj;
+    bool any = false;
+    for (int q = 0; q < tj; ++q) any = any || env_i[q] >= 0.f;
+    const float env = col ? env_i[jl] : -1.f;
+    if (col && env < 0.f) zero_gtf_row<kBF>(p, pair, dt, tc);
+    if (any) {
+      if (col && env >= 0.f) {
+        for (int u = 0; u < nq; ++u) part[u * kLanePad] = 0.f;
+        const float envp = rnd<kBF>(fmaxf(env, 0.f));
+        const float* rl = p.rl + pair * L;
+        for (int e = 0; e < nd && dt + e * tc < D; ++e) {
+          const int d = dt + e * tc;
+          const float gh = rnd<kBF>(p.gdh[gi * D + d]);
+          for (int m = 0; m < L; ++m) {
+            at(o.gx + m) = rnd<kBF>(p.gdx[(gi * L + m) * D + d]);
+          }
+          for (int b = 0; b < nb; ++b) {
+            const Block blk = block_of(p, b);
+            const int c = b * D + d, h = c / e_per;
+            const float tf = p.tf[pair * C + c];
+            const float xv = at(o.xv + b * nd + e), vv = at(o.vv + b * nd + e);
+            float go = gh;
+            if (blk.kind == 1) {
+              float s = 0.f;
+              for (int m = blk.mlo; m < blk.mhi; ++m) {
+                s += rnd<kBF>(rl[m]) * at(o.gx + m);
+              }
+              go = rnd<kBF>(s);
+            } else if (blk.kind == 2) {
+              float s = 0.f;
+              for (int m = blk.mlo; m < blk.mhi; ++m) {
+                s = rnd<kBF>(s + rnd<kBF>(at(o.xr + m * nd + e) * at(o.gx + m)));
+              }
+              go = s;
+            }
+            const float val = rnd<kBF>(rnd<kBF>(go * xv) * envp);
+            p.gtf[pair * C + c] = val;
+            if constexpr (kBF) p.gtf_b[pair * C + c] = __float2bfloat16(val);
+            const float ac = rnd<kBF>(p.sm[pair * H + h] * scale_at(p, pair, h));
+            const float gotf = rnd<kBF>(go * tf);
+            at(o.sxg + b * nd + e) += rnd<kBF>(gotf * envp);
+            at(o.sv + b * nd + e) += rnd<kBF>(ac * go);
+            part[h * kLanePad] += rnd<kBF>(go * vv);
+            if constexpr (kPos) part[H * kLanePad] += rnd<kBF>(gotf * xv);
+            if (blk.kind == 2) {
+              const float ov = o_at<kBF>(tf, xv, vv, envp, ac);
+              for (int m = blk.mlo; m < blk.mhi; ++m) {
+                at(o.sX + m * nd + e) += rnd<kBF>(ov * at(o.gx + m));
+              }
+            } else if (kPos && blk.kind == 1) {
+              const float ov = o_at<kBF>(tf, xv, vv, envp, ac);
+              for (int m = blk.mlo; m < blk.mhi; ++m) {
+                part[(H + 1 + m) * kLanePad] += at(o.gx + m) * ov;
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < kWarps * nq; e += kThreads) {
+        red2[e] = lane_total(red, e / nq, nq, e % nq);
+      }
+      __syncthreads();
+    }
+    // the column's warps in order; zeros on invalid pairs
+    const int W = tc / 32;
+    for (int e = tid; e < tj * nq; e += kThreads) {
+      const int q = e / nq, u = e % nq;
+      if (j0 + q >= M) continue;
+      float s = 0.f;
+      if (env_i[q] >= 0.f) {
+        for (int w = q * W; w < (q + 1) * W; ++w) s += red2[w * nq + u];
+      }
+      store_pair_sum(p, gi * M + j0 + q, u, s);
+    }
+  }
+  for (int e = 0; col && e < nd && dt + e * tc < D; ++e) {
+    const int d = dt + e * tc;
+    for (int b = 0; b < nb; ++b) {
+      p.gxg[gj * C + b * D + d] = at(o.sxg + b * nd + e);
+      p.gv[gj * C + b * D + d] = at(o.sv + b * nd + e);
+    }
+    for (int m = 0; m < L; ++m) {
+      p.gX[(gj * L + m) * D + d] = at(o.sX + m * nd + e);
+    }
+  }
+}
+
+// pass 3, a block per destination row (g, i): g_scale, then the softmax
 // backward g_logits = sm * (g_sm - sum_j sm * g_sm), g_sm = g_attn * scale,
 // written over g_attn.  A scalar scale's g_scale is a thread per pair (its
 // heads in order); the softmax a warp per head, the lanes splitting the row's
@@ -220,7 +396,7 @@ __global__ void __launch_bounds__(kThreads) softmax_bwd_kernel(const Params p) {
   }
 }
 
-// pass 5: g_zre[pair, d] = g_logits[head(d)] q_i k_j silu'(z_re)
+// pass 4: g_zre[pair, d] = g_logits[head(d)] q_i k_j silu'(z_re)
 template <bool kBF, typename NT>
 __global__ void __launch_bounds__(kThreads) grad_zre_kernel(const Params p) {
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
@@ -239,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) grad_zre_kernel(const Params p) {
   if constexpr (kBF) p.gz_b[e] = __float2bfloat16(val);
 }
 
-// pass 6, one thread per (g, n, d): g_q[g,n,d] sums over j, g_k[g,n,d] over i
+// pass 5, one thread per (g, n, d): g_q[g,n,d] sums over j, g_k[g,n,d] over i
 template <bool kBF, typename NT>
 __global__ void __launch_bounds__(kThreads) grad_qk_kernel(const Params p) {
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
@@ -264,102 +440,6 @@ __global__ void __launch_bounds__(kThreads) grad_qk_kernel(const Params p) {
   }
   p.gq[e] = sq;
   p.gk[e] = sk;
-}
-
-// pass 7, one thread per (g, j, c): g_xg and g_v sum over i; a tensor-block
-// channel also owns g_X[g, j, m, c % D] for each m of its block
-template <bool kBF, typename NT>
-__global__ void __launch_bounds__(kThreads) grad_nodes_kernel(const Params p) {
-  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= (size_t)p.G * p.M * p.C) return;
-  const int M = p.M, C = p.C, D = p.D, H = p.H, L = p.L;
-  const size_t gj = e / C, g = gj / M, j = gj % M;
-  const int c = (int)(e % C), head = c / (C / H), d = c % D;
-  const Block blk = block_of(p, c / D);
-  const float xv = rnd<kBF>(to_f(static_cast<const NT*>(p.xg)[e]));
-  const float vv = rnd<kBF>(to_f(static_cast<const NT*>(p.v)[e]));
-  float sxg = 0.f, sv = 0.f;
-  for (int i = 0; i < M; ++i) {
-    const size_t gi = g * M + i, pair = gi * M + j;
-    const float envp = rnd<kBF>(fmaxf(p.env[pair], 0.f));
-    const float go = grad_o<kBF>(p, gi, gj, pair, c);
-    const float tf = p.tf[pair * C + c];
-    const float ac = rnd<kBF>(p.sm[pair * H + head] * scale_at(p, pair, head));
-    sxg += rnd<kBF>(rnd<kBF>(go * tf) * envp);
-    sv += rnd<kBF>(ac * go);
-  }
-  p.gxg[e] = sxg;
-  p.gv[e] = sv;
-  if (blk.kind != 2) return;
-  for (int m = blk.mlo; m < blk.mhi; ++m) {
-    float s = 0.f;
-    for (int i = 0; i < M; ++i) {
-      const size_t gi = g * M + i, pair = gi * M + j;
-      const float envp = rnd<kBF>(fmaxf(p.env[pair], 0.f));
-      const float tf = p.tf[pair * C + c];
-      const float ac = rnd<kBF>(p.sm[pair * H + head] * scale_at(p, pair, head));
-      const float o = o_at<kBF>(tf, xv, vv, envp, ac);
-      s += rnd<kBF>(o * rnd<kBF>(p.gdx[(gi * L + m) * D + d]));
-    }
-    p.gX[(gj * L + m) * D + d] = s;
-  }
-}
-
-// pass 10 (position gradients): one warp per pair at a time, kPairsPerBlock
-// pairs per block.  Lane l takes channels l, l + 32, ...: it sums g_env's
-// terms g_o tf x_g[j] over every channel and g_rl's terms g_dX[i,m] o over
-// the direction blocks, each product of rounded factors left unrounded (the
-// TPU kernel forms g_rl as a float32-accumulating matmul); then one thread
-// per (pair, sum) adds the 32 lanes in order.
-template <bool kBF, typename NT>
-__global__ void __launch_bounds__(kThreads) pos_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* red = reinterpret_cast<float*>(smem4);   // [pairs][nq][kLanePad]
-  const int M = p.M, C = p.C, D = p.D, H = p.H, L = p.L, nq = 1 + L;
-  const int e_per = C / H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t n = (size_t)p.G * M * M;
-  const size_t pair0 = (size_t)blockIdx.x * kPairsPerBlock;
-  const NT* xg = static_cast<const NT*>(p.xg);
-  const NT* v = static_cast<const NT*>(p.v);
-  for (int r = warp; r < kPairsPerBlock; r += kThreads / 32) {
-    const size_t pair = pair0 + r;
-    float acc[1 + kMaxL];
-    for (int u = 0; u < nq; ++u) acc[u] = 0.f;
-    if (pair < n) {
-      const size_t gi = pair / M, gj = gi / M * M + pair % M;
-      const float envp = rnd<kBF>(fmaxf(p.env[pair], 0.f));
-      for (int c = lane; c < C; c += 32) {
-        const Block blk = block_of(p, c / D);
-        const float go = grad_o<kBF>(p, gi, gj, pair, c);
-        const float tf = p.tf[pair * C + c];
-        const float xv = rnd<kBF>(to_f(xg[gj * C + c]));
-        acc[0] += rnd<kBF>(rnd<kBF>(go * tf) * xv);
-        if (blk.kind != 1) continue;
-        const int h = c / e_per;
-        const float ac = rnd<kBF>(p.sm[pair * H + h] * scale_at(p, pair, h));
-        const float vv = rnd<kBF>(to_f(v[gj * C + c]));
-        const float o = o_at<kBF>(tf, xv, vv, envp, ac);
-        const float* gx = p.gdx + gi * L * D + c % D;
-        for (int m = blk.mlo; m < blk.mhi; ++m) {
-          acc[1 + m] += rnd<kBF>(gx[m * D]) * o;
-        }
-      }
-    }
-    store_lanes(red, r, nq, lane, acc);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kPairsPerBlock * nq; e += kThreads) {
-    const int r = e / nq, u = e % nq;
-    const size_t pair = pair0 + r;
-    if (pair >= n) continue;
-    const float s = lane_total(red, r, nq, u);
-    if (u == 0) {
-      p.genv[pair] = p.env[pair] >= 0.f ? s : 0.f;
-    } else {
-      p.grl[pair * L + u - 1] = s;
-    }
-  }
 }
 
 // ---- the C entry point ----------------------------------------------------
@@ -390,35 +470,48 @@ Layout layout(int G, int M, int D, int H, int C) {
   return w;
 }
 
+// the pair pass's tile: a column's threads the least power of two from 32
+// that holds D (a warp at least, so its lanes' sums stay within a column),
+// at most kThreads (more channels a thread beyond that), and as many
+// columns a block as fill its kThreads
+void pair_tile(Params& p) {
+  p.tc = 32;
+  while (p.tc < p.D && p.tc < kThreads) p.tc *= 2;
+  p.tj = kThreads / p.tc;
+  p.nd = (p.D + p.tc - 1) / p.tc;
+  p.nb = p.C / p.D;
+  p.nq = p.H + (p.grl != nullptr ? 1 + p.L : 0);
+}
+
+template <bool kBF, typename NT, bool kPos>
+cudaError_t pair_pass(const Params& p, cudaStream_t s) {
+  auto kern = pair_pass_kernel<kBF, NT, kPos>;
+  const size_t smem = (size_t)pair_smem(p).floats * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem));
+  const unsigned tiles = (unsigned)((p.M + p.tj - 1) / p.tj);
+  return run(kern, dim3((unsigned)p.G * tiles), smem, p, s);
+}
+
 template <bool kBF, typename NT>
 cudaError_t backward(const Params& p, const MsgProducts& m, cudaStream_t s) {
-  const int P = p.G * p.M * p.M, D = p.D, C = p.C;
+  const int P = p.G * p.M * p.M, D = p.D;
   // 1. t_filter (rounded, as the forward uses it) and z_re
   CHECK(recompute<kBF>(m, s));
-  // 2-7. the elementwise passes
-  const size_t PC = (size_t)P * C, PH = (size_t)P * p.H, PD = (size_t)P * D;
-  CHECK(run(grad_tf_kernel<kBF, NT>, dim3(blocks_for(PC)), 0, p, s));
-  CHECK(run(grad_attn_kernel<kBF, NT>, dim3(blocks_for(PH)), 0, p, s));
+  // 2. the pair pass: g_tf, g_attn, g_xg, g_v, g_X (and g_env, g_rl)
+  const cudaError_t err = p.grl != nullptr ? pair_pass<kBF, NT, true>(p, s)
+                                            : pair_pass<kBF, NT, false>(p, s);
+  CHECK(err);
+  // 3.-5. the softmax backward, g_zre, g_q and g_k
   CHECK(run(softmax_bwd_kernel, dim3((unsigned)(p.G * p.M)),
-            (size_t)(kThreads / 32) * kLanePad * sizeof(float), p, s));
-  CHECK(run(grad_zre_kernel<kBF, NT>, dim3(blocks_for(PD)), 0, p, s));
+            (size_t)kWarps * kLanePad * sizeof(float), p, s));
+  CHECK(run(grad_zre_kernel<kBF, NT>, dim3(blocks_for((size_t)P * D)), 0, p,
+            s));
   CHECK(run(grad_qk_kernel<kBF, NT>, dim3(blocks_for((size_t)p.G * p.M * D)),
             0, p, s));
-  CHECK(run(grad_nodes_kernel<kBF, NT>, dim3(blocks_for((size_t)p.G * p.M * C)),
-            0, p, s));
-  // 8.-9. g_t, the weight and bias gradients
-  CHECK(grad_products<kBF>(m, s));
-  if (p.grl == nullptr) return cudaSuccess;
-  // 10. g_env and g_rl, position gradients only
-  auto pos_kern = pos_kernel<kBF, NT>;
-  const size_t pos_smem = (size_t)kPairsPerBlock * (1 + p.L) * kLanePad *
-                          sizeof(float);
-  CHECK(cudaFuncSetAttribute(pos_kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)pos_smem));
-  CHECK(run(pos_kern, dim3((unsigned)((P + kPairsPerBlock - 1) / kPairsPerBlock)),
-            pos_smem, p, s));
-  return cudaSuccess;
+  // 6.-7. g_t, the weight and bias gradients
+  return grad_products<kBF>(m, s);
 }
 
 }  // namespace
@@ -459,9 +552,9 @@ extern "C" int gotennet_fused_gata_bwd(
   p.C = D * (1 + (sep_dir ? lmax : 1) + (sep_tensor ? lmax : 1));
   p.sep_dir = sep_dir; p.sep_tensor = sep_tensor; p.scale_heads = scale_heads;
   if (G <= 0 || M <= 0) return (int)cudaSuccess;
-  if (D % H || p.C % H || (grl == nullptr) != (genv == nullptr) ||
-      (grl != nullptr && p.L > kMaxL))
+  if (D % H || p.C % H || (grl == nullptr) != (genv == nullptr))
     return (int)cudaErrorInvalidValue;
+  pair_tile(p);
   const Layout w = layout(G, M, D, H, p.C);
   p.tf = work + w.tf; p.gtf = work + w.gtf; p.zre = work + w.zre;
   p.gz = work + w.gz; p.ga = work + w.ga;

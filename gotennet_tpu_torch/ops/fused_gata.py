@@ -39,6 +39,8 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from gotennet_tpu_torch.utils import profiling
+
 __all__ = ["fused_gata", "FusedGATA", "fused_gata_forward",
            "fused_gata_forward_reference", "fused_gata_backward",
            "fused_gata_backward_reference", "MAX_PAIRS_PER_BLOCK"]
@@ -352,7 +354,8 @@ class FusedGATA(torch.autograd.Function):
     the JAX package: the forward saves the inputs and the pre-scale
     softmax, the backward hands them to ``fused_gata_backward``, with
     ``pos_grads`` exactly when autograd asks for the cotangent of ``rl`` or
-    ``env_signed`` (forces).  Cotangents come back in their inputs' types.
+    ``env_signed`` (forces), and counts its G M^2 pairs under
+    ``pairs.gata_bwd``.  Cotangents come back in their inputs' types.
     Built with ``pos_grads=False``, a position gradient raises
     ``ValueError`` (the JAX package returns zeros for it)."""
 
@@ -380,6 +383,8 @@ class FusedGATA(torch.autograd.Function):
                 "pos_grads=False: build the model with pos_grads=True (or "
                 "None with a derivative head)")
         *inputs, sm = ctx.saved_tensors
+        G, M = inputs[0].shape[:2]
+        profiling.count("pairs.gata_bwd", G * M * M)
         grads = fused_gata_backward(*inputs, sm, g_dh.float().contiguous(),
                                     g_dX.float().contiguous(), **ctx.kw,
                                     pos_grads=pos)

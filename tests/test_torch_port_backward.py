@@ -27,7 +27,8 @@ from gotennet_tpu_torch.ops.fused_gata import (FusedGATA,
                                                fused_gata_backward_reference,
                                                fused_gata_forward_reference)
 
-from test_torch_port_kernel import _assert_close, build_on_host, kernel_inputs
+from test_torch_port_kernel import (_assert_close, build_on_host,
+                                    kernel_inputs, near_neighbours)
 
 NAMES = fused_gata.ARG_NAMES
 # the one kernel-launch line of csrc/fused_gata_bwd.cu
@@ -209,12 +210,21 @@ def host_bwd(tmp_path_factory):
          pd=torch.float32, t=torch.float32, node=torch.bfloat16),
     dict(G=1, M=16, D=32, H=8, lmax=2, sep=(True, False), hs=True,
          pd=torch.bfloat16, t=torch.bfloat16, node=torch.bfloat16),
+    # two 128-thread columns a block, 32 threads of each without a channel,
+    # a last tile of one column, most pairs invalid
+    dict(G=2, M=11, D=96, H=4, lmax=1, sep=(True, True), hs=False,
+         pd=torch.bfloat16, t=torch.float32, node=torch.bfloat16, reach=1),
+    # two channels of D a thread
+    dict(G=1, M=5, D=320, H=4, lmax=1, sep=(False, False), hs=True,
+         pd=torch.float32, t=torch.float32, node=torch.float32),
 ])
 def test_cuda_backward_on_host_matches_plain(host_bwd, case):
     G, M, D, H, lmax = (case[k] for k in ("G", "M", "D", "H", "lmax"))
     sep_dir, sep_tensor = case["sep"]
     a = [torch.from_numpy(x) for x in kernel_inputs(
         1, G, M, D, H, lmax, sep_dir, sep_tensor, case["hs"])]
+    if "reach" in case:
+        a[7] = near_neighbours(a[7], case["reach"])
     a[0] = a[0].to(case["t"])
     for i in (1, 2, 3, 4):
         a[i] = a[i].to(case["node"])
@@ -234,3 +244,6 @@ def test_cuda_backward_on_host_matches_plain(host_bwd, case):
     for name, got, w in zip(NAMES, outs, want):
         if got is not None:
             _assert_close(got.numpy(), w.numpy(), tol, name)
+    # graph 0's padded atoms: exact zeros in the j-indexed cotangents
+    for o in (outs[3], outs[4], outs[6]):
+        assert torch.all(o[0, M - 3:] == 0)

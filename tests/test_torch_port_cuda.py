@@ -136,20 +136,38 @@ def test_predictor_on_card_matches_cpu(card):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+def near_neighbours(env, reach):
+    """``env`` ``[G,M,M]`` with only the pairs 0 < |i - j| <= ``reach``
+    left valid: most pairs invalid, as in a large molecule's chunk."""
+    M = env.shape[-1]
+    i = torch.arange(M, device=env.device)
+    gap = (i[:, None] - i[None, :]).abs()
+    return torch.where((gap <= reach) & (gap > 0), env,
+                       torch.full_like(env, -1.0))
+
+
 # The backward: float32 sums in another order (and without atomics, in a
 # fixed one) -> 1e-4 of each cotangent's scale in float32; a bf16 pair
-# type may move a rounded pair term by one ulp -> 1e-2.
-@pytest.mark.parametrize("M,D,H,lmax,sep,head_scale,pd", [
-    (8, 32, 4, 2, (True, True), False, torch.float32),
-    (24, 64, 8, 2, (False, False), True, torch.float32),
-    (16, 96, 8, 3, (True, False), True, torch.bfloat16),
-    (32, 256, 8, 2, (True, True), False, torch.bfloat16),
-    (112, 64, 8, 2, (True, True), True, torch.float32),
+# type may move a rounded pair term by one ulp -> 1e-2.  The benchmark's
+# QM9 step shapes (G 64, M 16/24/32, D 256, bf16 pairs) among them; graph
+# 0's last 3 atoms are padded (whole rows and columns), and with `reach`
+# only near neighbours are valid pairs.
+@pytest.mark.parametrize("M,D,H,lmax,sep,head_scale,pd,G,reach", [
+    (8, 32, 4, 2, (True, True), False, torch.float32, 3, None),
+    (24, 64, 8, 2, (False, False), True, torch.float32, 3, None),
+    (16, 96, 8, 3, (True, False), True, torch.bfloat16, 3, None),
+    (32, 256, 8, 2, (True, True), False, torch.bfloat16, 3, None),
+    (112, 64, 8, 2, (True, True), True, torch.float32, 3, None),
+    (16, 256, 8, 2, (True, True), False, torch.bfloat16, 64, None),
+    (24, 256, 8, 2, (True, True), True, torch.bfloat16, 64, None),
+    (32, 256, 8, 2, (True, True), False, torch.bfloat16, 64, None),
+    (32, 256, 8, 2, (True, True), False, torch.bfloat16, 64, 2),
 ])
 def test_backward_kernel_matches_plain(card, M, D, H, lmax, sep, head_scale,
-                                       pd):
-    G = 3
+                                       pd, G, reach):
     args = inputs(card, G, M, D, H, lmax, *sep, head_scale, pd, seed=1)
+    if reach is not None:
+        args[7] = near_neighbours(args[7], reach)
     kw = dict(lmax=lmax, num_heads=H, sep_dir=sep[0], sep_tensor=sep[1],
               pair_dtype=pd)
     _, _, sm = fused_gata_forward(*args, **kw, with_attn=True)
@@ -167,19 +185,25 @@ def test_backward_kernel_matches_plain(card, M, D, H, lmax, sep, head_scale,
         assert err <= tol * max(w.abs().max().item(), 1e-30), (i, err)
     for g in got[:5] + (got[6], got[8]):
         assert torch.all(g[0, M - 3:] == 0)
+    assert torch.all(got[0][0, :, M - 3:] == 0)
 
 
 # The backward with position cotangents (forces): tolerances as above; two
-# runs give the same bits, padded atoms and invalid pairs exact zeros.
-@pytest.mark.parametrize("M,D,H,lmax,sep,head_scale,pd", [
-    (8, 32, 4, 2, (True, True), False, torch.float32),
-    (24, 64, 8, 3, (False, False), True, torch.bfloat16),
-    (120, 256, 8, 2, (True, True), False, torch.bfloat16),
+# runs give the same bits, padded atoms and invalid pairs exact zeros.  The
+# MD22 force request's shape (G 8, M 120) among them, once with only near
+# neighbours valid.
+@pytest.mark.parametrize("M,D,H,lmax,sep,head_scale,pd,G,reach", [
+    (8, 32, 4, 2, (True, True), False, torch.float32, 2, None),
+    (24, 64, 8, 3, (False, False), True, torch.bfloat16, 2, None),
+    (120, 256, 8, 2, (True, True), False, torch.bfloat16, 2, None),
+    (120, 256, 8, 2, (True, True), False, torch.bfloat16, 8, None),
+    (120, 256, 8, 2, (True, True), True, torch.bfloat16, 8, 8),
 ])
 def test_backward_kernel_position_cotangents_match_plain(
-        card, M, D, H, lmax, sep, head_scale, pd):
-    G = 2
+        card, M, D, H, lmax, sep, head_scale, pd, G, reach):
     args = inputs(card, G, M, D, H, lmax, *sep, head_scale, pd, seed=2)
+    if reach is not None:
+        args[7] = near_neighbours(args[7], reach)
     kw = dict(lmax=lmax, num_heads=H, sep_dir=sep[0], sep_tensor=sep[1],
               pair_dtype=pd, pos_grads=True)
     _, _, sm = fused_gata_forward(*args, lmax=lmax, num_heads=H,
@@ -313,6 +337,39 @@ def test_gata_forward_at_md22_reruns_bit_identical(card, head_scale):
         assert err <= 1e-2 * w.abs().max().item(), (name, err)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert torch.all(got[2][0, M - 3:] == 0) and torch.all(got[0][0, M - 3:] == 0)
+
+
+# The GATA backward at the benchmark's shapes (the MD22 force request's G 8,
+# M 120 with position cotangents; the QM9 step's G 64, M 32), against its
+# plain version and run twice: the same bits (every sum has one owner).
+@pytest.mark.parametrize("G,M,pos_grads,head_scale", [
+    (8, 120, True, False), (8, 120, True, True), (64, 32, False, False)],
+    ids=["md22-forces", "md22-forces-head-scale", "qm9-step"])
+def test_gata_backward_at_benchmark_shapes_reruns_bit_identical(
+        card, G, M, pos_grads, head_scale):
+    args = inputs(card, G, M, 256, 8, 2, True, True, head_scale,
+                  torch.bfloat16, seed=11)
+    kw = dict(lmax=2, num_heads=8, sep_dir=True, sep_tensor=True,
+              pair_dtype=torch.bfloat16)
+    _, _, sm = fused_gata_forward(*args, **kw, with_attn=True)
+    g_dh = torch.randn(G, M, 256, device=card)
+    g_dX = torch.randn(G, M, 8, 256, device=card)
+    got = fused_gata_backward(*args, sm, g_dh, g_dX, **kw,
+                              pos_grads=pos_grads)
+    again = fused_gata_backward(*args, sm, g_dh, g_dX, **kw,
+                                pos_grads=pos_grads)
+    torch.cuda.synchronize()
+    want = fused_gata_backward_reference(*args, sm, g_dh, g_dX, **kw,
+                                         pos_grads=pos_grads)
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-2 * max(w.abs().max().item(), 1e-30), (i, err)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g in got[:5] + (got[6], got[8]):
+        assert torch.all(g[0, M - 3:] == 0)
+    if pos_grads:
+        assert torch.all(got[5][0, M - 3:] == 0)
+        assert torch.all(got[7][args[7] < 0] == 0)
 
 
 @pytest.mark.parametrize("gate,td", [("", torch.float32),

@@ -54,7 +54,8 @@ from gotennet_tpu_torch.train.trainer import (accum_grads, make_loss_fn,
 from gotennet_tpu_torch.utils.convert import state_dict_from_jax_params
 
 from test_torch_port_backward import cotangents
-from test_torch_port_kernel import _assert_close, build_on_host, kernel_inputs
+from test_torch_port_kernel import (_assert_close, build_on_host,
+                                    kernel_inputs, near_neighbours)
 
 SMALL = dict(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
              n_rbf=8)
@@ -199,6 +200,9 @@ def host_bwd(tmp_path_factory):
          pd=torch.bfloat16, node=torch.bfloat16),
     dict(G=1, M=24, D=32, H=4, lmax=3, sep=(True, False), hs=False,
          pd=torch.bfloat16, node=torch.float32),
+    # two columns a block, most pairs invalid (near neighbours only)
+    dict(G=2, M=12, D=96, H=4, lmax=2, sep=(True, True), hs=True,
+         pd=torch.bfloat16, node=torch.bfloat16, reach=2),
 ])
 def test_cuda_position_cotangents_on_host_match_plain(host_bwd, case):
     G, M, D, H, lmax = (case[k] for k in ("G", "M", "D", "H", "lmax"))
@@ -207,6 +211,8 @@ def test_cuda_position_cotangents_on_host_match_plain(host_bwd, case):
         1, G, M, D, H, lmax, sep_dir, sep_tensor, case["hs"])]
     for i in (1, 2, 3, 4):
         a[i] = a[i].to(case["node"])
+    if "reach" in case:
+        a[7] = near_neighbours(a[7], case["reach"])
     kw = dict(lmax=lmax, num_heads=H, sep_dir=sep_dir,
               sep_tensor=sep_tensor, pair_dtype=case["pd"])
     _, _, sm = fused_gata_forward_reference(*a, **kw, with_attn=True)

@@ -55,6 +55,15 @@ def kernel_inputs(seed, G, M, D, H, lmax, sep_dir, sep_tensor,
     return [t, q, k, xg, v, rl, X, env, scale, W_re, b_re, W_rs, b_rs]
 
 
+def near_neighbours(env, reach):
+    """``env`` ``[G,M,M]`` with only the pairs 0 < |i - j| <= ``reach``
+    left valid: most pairs invalid, as in a large molecule's chunk."""
+    i = torch.arange(env.shape[-1])
+    gap = (i[:, None] - i[None, :]).abs()
+    return torch.where((gap <= reach) & (gap > 0), env,
+                       torch.full_like(env, -1.0))
+
+
 def _assert_close(got, want, tol, name):
     err = np.abs(got - want).max()
     assert err <= tol * max(np.abs(want).max(), 1e-30), (name, err)

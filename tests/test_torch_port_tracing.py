@@ -32,6 +32,7 @@ from gotennet_tpu_torch.graph.dense_batch import (collate_dense,
 from gotennet_tpu_torch.graph.ell_batch import collate_ell
 from gotennet_tpu_torch.models.gotennet import GotenNetConfig
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
+from gotennet_tpu_torch.ops import fused_gata
 from gotennet_tpu_torch.serve import Predictor
 from gotennet_tpu_torch.tasks.base import Task
 from gotennet_tpu_torch.train.optim import make_optimizer
@@ -190,6 +191,36 @@ def test_plain_htr_counter_costs_nothing_when_off():
     assert not lock.__enter__.called
     assert profiling.records() == []
     assert "pairs.htr_plain" not in profiling._pending.counts
+
+
+@pytest.mark.parametrize("call", ["train_step", "predict_with_forces"])
+def test_fused_gata_backward_counts_its_pairs_each_call(call):
+    """``pairs.gata_bwd``: G M^2 for each backward through ``FusedGATA``
+    (one a layer and chunk), a step's or a force request's."""
+    cfg = dataclasses.replace(TINY, fused=True)
+    ds, mols = molecules()
+    shapes = []
+    backward = fused_gata.fused_gata_backward
+
+    def spy(*args, **kwargs):
+        shapes.append(tuple(args[0].shape[:2]))
+        return backward(*args, **kwargs)
+
+    profiling.enable()
+    with mock.patch.object(fused_gata, "fused_gata_backward", spy):
+        if call == "train_step":
+            model = GotenModel(cfg, HeadConfig(), "dense", device="cpu")
+            chunks = list(DenseLoader(ds, 3))
+            train_step(model, make_optimizer(model.parameters(), 1e-3),
+                       chunks, 5.0, loss_fn=make_loss_fn(model, Task(None)))
+            n_chunks = len(chunks)
+        else:
+            Predictor(cfg, FORCE_HEAD, chunk=2,
+                      device="cpu").predict_with_forces(mols)
+            n_chunks = -(-len(mols) // 2)
+    (r,) = profiling.records()
+    assert len(shapes) == cfg.n_interactions * n_chunks
+    assert r["counts"]["pairs.gata_bwd"] == sum(G * M * M for G, M in shapes)
 
 
 def test_ell_table_counters_by_hand():
