@@ -1573,7 +1573,7 @@ def ell_chunks(cfg, loader, what, card) -> list:
     path each chunk takes: where the JAX package would cut a table above
     ``fused_table_rows`` into halo windows (``pick_chunking``'s geometry)
     the port's kernels take the whole table."""
-    from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+    from gotennet_tpu_torch.models.gotennet import kernel_paths
     from gotennet_tpu_torch.ops.fused_ell import pick_chunking
     t0 = time.perf_counter()
     chunks = [b for _, b in loader.batches()]
@@ -1582,8 +1582,8 @@ def ell_chunks(cfg, loader, what, card) -> list:
     geometry = [None if not limit or b.num_nodes <= limit else
                 pick_chunking(b.num_nodes, b.num_nodes, b.gather_halo, limit)
                 for b in chunks]
-    paths = {fused_paths(cfg, b.num_nodes, b.num_nodes, b.gather_halo)
-             for b in chunks}
+    paths = {kernel_paths(cfg, "ell", b.num_nodes, b.num_nodes,
+                          b.gather_halo) for b in chunks}
     log(f"[{what}] chunks: N = {[b.num_nodes for b in chunks]}, K = "
         f"{[b.max_neighbors for b in chunks]}, gather windows "
         f"{[b.gather_window for b in chunks]}, halos "

@@ -17,8 +17,13 @@ axis holds a block of the edge list and the whole node state, and every
 segment reduction ends in one all-reduce over the axis.  ``GATALayer`` is
 what the edge, dense and ELL interaction layers share: their parameters
 under the reference state-dict names, the optional pre-norms
-(``layernorm``, ``steerable_norm``) and the tail of the plain HTR update
-(``gamma_t``, the ``gamma_w`` chain, the gates; ``update_tail``).
+(``layernorm``, ``steerable_norm``), the message arithmetic the layouts
+have in common (the unmerged node projections, the fused kernels'
+``env_signed`` and scale, the post-softmax scale and dropout, the split of
+the message ``o`` into its scalar and steerable parts; ``masked_softmax``
+over a dense axis) and the tail of the plain HTR update (``gamma_t``, the
+``gamma_w`` chain, the gates; ``update_tail``).  ``kernel_paths`` decides,
+for every layout, which kernels a layer runs.
 
 Attention dropout (``attn_dropout > 0``, in training only) draws one
 Bernoulli keep mask per interaction layer from an explicit
@@ -38,20 +43,25 @@ import torch
 from torch import nn
 
 from gotennet_tpu_torch.graph.batch import GraphBatch
-from gotennet_tpu_torch.graph.segment import (segment_max, segment_mean,
-                                              segment_softmax, segment_sum)
+from gotennet_tpu_torch.graph.segment import (_SOFTMAX_EPS, segment_max,
+                                              segment_mean, segment_softmax,
+                                              segment_sum)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.nn.norms import TensorLayerNorm
 from gotennet_tpu_torch.ops.activations import get_activation, is_silu_like
 from gotennet_tpu_torch.ops.cutoffs import cosine_cutoff
+from gotennet_tpu_torch.ops.fused_ell import pick_chunking
 from gotennet_tpu_torch.ops.rbf import RadialBasis
 from gotennet_tpu_torch.ops.spherical import (degree_slices, num_sh_components,
                                               spherical_harmonics)
 
-__all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates",
+__all__ = ["GotenNetConfig", "EQFF", "parse_edge_updates", "kernel_paths",
            "attention_keep_mask", "keep_masks", "run_layer", "GATALayer",
-           "htr_pair_sum", "degree_index", "NodeInit", "EdgeInit", "GATA",
-           "GotenNet"]
+           "htr_pair_sum", "degree_index", "masked_softmax", "NodeInit",
+           "EdgeInit", "GATA", "GotenNet"]
+
+_NEG = -1e30          # masked logit; exp(_NEG - max) is exactly 0 in f32
+
 
 def parse_edge_updates(edge_updates: Union[bool, str]) -> dict:
     """Parse the reference's ``edge_updates`` feature string into an
@@ -179,6 +189,41 @@ class GotenNetConfig:
         return m
 
 
+def kernel_paths(cfg: GotenNetConfig, layout: str, N: Optional[int] = None,
+                 NR: Optional[int] = None, halo: Optional[int] = None
+                 ) -> Tuple[bool, bool]:
+    """Whether a layer of ``layout`` runs its message and its HTR update
+    through the fused kernels, ``(message, update)``, as the JAX package
+    chooses.  The edge layout runs no kernel.  The dense message is fused
+    with ``fused``.  The ELL message (JAX gotennet_ell.py:306-321,
+    :448-487) of an ``N``-row node table with ``NR`` destination rows is
+    fused with ``fused`` unless the table is above ``fused_table_rows`` (0:
+    no limit) and no halo-windowed chunking exists for it (no ``halo``, or
+    ``pick_chunking`` finds no geometry); where the JAX package chunks, the
+    port's kernels take the whole table.  The update is fused with the
+    fused message and ``fused_htr``, for the grammar the kernel computes
+    (rejection on or off, the gates; no MLP or linear ``gamma_w`` part, no
+    ``edge_ln``, ``evec_dim`` at ``n_atom_basis``; JAX
+    gotennet_dense.py:318-321); the ELL layer asks besides for an
+    activation spelt "silu" or "swish" (gotennet_ell.py:512-516), where the
+    dense one takes any the config normalises to silu."""
+    if layout == "edge":
+        return False, False
+    info = parse_edge_updates(cfg.edge_updates)
+    update = (cfg.fused_htr and not info["mlp"] and not info["mlpa"]
+              and info["lin_w"] == 0 and info["lin_ln"] == 0
+              and cfg.edge_ln == ""
+              and (cfg.evec_dim or cfg.n_atom_basis) == cfg.n_atom_basis)
+    if layout == "dense":
+        return cfg.fused, cfg.fused and update
+    fits = (not cfg.fused_table_rows or N <= cfg.fused_table_rows
+            or (halo is not None and pick_chunking(
+                NR, N, halo, cfg.fused_table_rows) is not None))
+    message = cfg.fused and fits
+    return message, (message and update
+                     and cfg.activation in ("swish", "silu"))
+
+
 def attention_keep_mask(shape: Sequence[int], rate: float,
                         generator: torch.Generator,
                         device: torch.device) -> torch.Tensor:
@@ -249,6 +294,18 @@ def degree_index(lmax: int, device) -> torch.Tensor:
                          for _ in range(2 * l + 1)], device=device)
 
 
+def masked_softmax(logit: torch.Tensor, real: torch.Tensor, dim: int
+                   ) -> torch.Tensor:
+    """Softmax of ``logit`` over its axis ``dim`` (the sources of a dense
+    pair tensor, the slots of an ELL row) among the ``real`` entries:
+    masked entries come out exactly zero, the maximum shift is detached and
+    the sum guarded as the reference's."""
+    logit = torch.where(real, logit, torch.full_like(logit, _NEG))
+    top = torch.amax(logit, dim=dim, keepdim=True).detach()
+    expd = torch.exp(logit - top) * real
+    return expd / (torch.sum(expd, dim=dim, keepdim=True) + _SOFTMAX_EPS)
+
+
 def htr_pair_sum(EQ_i: torch.Tensor, EK_j: torch.Tensor, rl: torch.Tensor,
                  lmax: int, sep_htr: bool, rej: bool) -> torch.Tensor:
     """The HTR update's per-pair inner products ``w_ij``, the m axis being
@@ -282,7 +339,8 @@ class GATALayer(nn.Module):
     ``W_rs``, ``layernorm``; except in the last layer and with
     ``edge_updates``, ``gamma_t``, ``W_vq``, ``W_vk``, ``gamma_w`` and
     ``W_edp``), the optional pre-norms, and the tail of the plain HTR
-    update, which the edge, dense and ELL layers share.
+    update, which the edge, dense and ELL layers share, and the message
+    arithmetic they have in common.
 
     ``node_dtype`` is the compute type of the node projections (q, k, x_g,
     v, EQ, EK) and ``pair_dtype`` that of ``W_re``, ``W_rs``, ``gamma_t``
@@ -351,6 +409,74 @@ class GATALayer(nn.Module):
         if self.tensor_layernorm is not None:
             X = self.tensor_layernorm(X)
         return h, X
+
+    def node_projections(self, h: torch.Tensor
+                         ) -> Tuple[torch.Tensor, ...]:
+        """q, k, x_g, v from ``h`` through the unmerged projections."""
+        return (self.W_q(h), self.W_k(h),
+                self.gamma_s[1](self.gamma_s[0](h)),
+                self.gamma_v[1](self.gamma_v[0](h)))
+
+    def fused_inputs(self, dist: torch.Tensor, mask: torch.Tensor,
+                     n_edges: torch.Tensor, keep: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused message kernels' ``env_signed`` (the cutoff on the
+        ``mask``ed pairs, -1 elsewhere: its sign carries the mask) and
+        post-softmax ``scale`` (``sqrt(n_edges)`` with ``scale_edge``, over
+        sqrt(D)), with dropout's ``keep`` folded in per head."""
+        cfg = self.cfg
+        D = cfg.n_atom_basis
+        env_signed = torch.where(mask, cosine_cutoff(dist, cfg.cutoff),
+                                 torch.full_like(dist, -1.0))
+        if cfg.scale_edge:
+            scale = torch.sqrt(n_edges) / math.sqrt(D)
+        else:
+            scale = torch.full_like(dist, 1.0 / math.sqrt(D))
+        if keep is not None:
+            scale = (scale[..., None] * keep.to(scale.dtype)
+                     / (1.0 - cfg.attn_dropout))
+        return env_signed, scale
+
+    def scale_attention(self, attn: torch.Tensor, n_edges: torch.Tensor,
+                        keep: Optional[torch.Tensor]) -> torch.Tensor:
+        """The plain messages' post-softmax scale of ``attn [..., H]``
+        (``n_edges`` over its leading axes; ``sqrt(n_edges)`` with
+        ``scale_edge``, over sqrt(D)), then flax's Dropout with ``keep``:
+        kept entries divided by the keep rate."""
+        cfg = self.cfg
+        D = cfg.n_atom_basis
+        if cfg.scale_edge:
+            attn = attn * (torch.sqrt(n_edges)[..., None] / math.sqrt(D))
+        else:
+            attn = attn / math.sqrt(D)
+        if keep is not None:
+            attn = torch.where(keep, attn / (1.0 - cfg.attn_dropout),
+                               torch.zeros_like(attn))
+        return attn
+
+    def split_message(self, o: torch.Tensor, rl_ij: torch.Tensor,
+                      X_j: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(o_s, dX_R + dX_X)`` of a plain message ``o [..., C]``: its
+        scalar block, and the direction blocks times ``rl_ij [..., L]``
+        plus the tensor blocks times the sources' ``X_j [..., L, D]``, one
+        block per degree with ``sep_dir`` / ``sep_tensor``, else one
+        shared."""
+        cfg, lmax = self.cfg, self.cfg.lmax
+        chunks = list(torch.split(o, cfg.n_atom_basis, dim=-1))
+        o_s, rest = chunks[0], chunks[1:]
+        deg = degree_index(lmax, o.device)
+        if cfg.sep_dir:
+            o_d, rest = torch.stack(rest[:lmax], dim=-2), rest[lmax:]
+            dX_R = rl_ij[..., None] * o_d[..., deg, :]
+        else:
+            o_d, rest = rest[0], rest[1:]
+            dX_R = rl_ij[..., None] * o_d[..., None, :]
+        if cfg.sep_tensor:
+            dX_X = X_j * torch.stack(rest[:lmax], dim=-2)[..., deg, :]
+        else:
+            dX_X = X_j * rest[0][..., None, :]
+        return o_s, dX_R + dX_X
 
     def htr_tables(self, X: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -475,58 +601,36 @@ class GATA(GATALayer):
         """``keep``: the layer's ``[E, H]`` attention keep mask, or None (no
         dropout)."""
         cfg = self.cfg
-        D, H, lmax = cfg.n_atom_basis, cfg.num_heads, cfg.lmax
+        D, H = cfg.n_atom_basis, cfg.num_heads
         Dh, C = D // H, cfg.multiplier * D
         N, E = h.shape[0], edge_src.shape[0]
         src, dst = edge_src.long(), edge_dst.long()
         h, X = self.pre_norm(h, X)
-        q = self.W_q(h).reshape(N, H, Dh)
-        k = self.W_k(h).reshape(N, H, Dh)
-        x_g = self.gamma_s[1](self.gamma_s[0](h))
-        v = self.gamma_v[1](self.gamma_v[0](h))
+        q, k, x_g, v = self.node_projections(h)
         t_attn = self.W_re(t_ij)
         if self.act is not None:
             t_attn = self.act(t_attn)
         t_filter = self.W_rs(t_ij)
 
-        logit = torch.sum(take(q, dst) * take(k, src)
-                          * t_attn.reshape(E, H, Dh), dim=-1,
-                          keepdim=True)                          # [E, H, 1]
-        attn = segment_softmax(logit, edge_dst, N, edge_mask, cfg.edge_axis)
-        if cfg.scale_edge:
-            attn = attn * (torch.sqrt(n_edges)[:, None, None] / math.sqrt(D))
-        else:
-            attn = attn * (1.0 / math.sqrt(D))
-        if keep is not None:
-            # flax's Dropout: kept entries divided by the keep rate
-            attn = torch.where(keep[..., None],
-                               attn / (1.0 - cfg.attn_dropout),
-                               torch.zeros_like(attn))
-        sea = (attn * take(v, src).reshape(E, H, C // H)).reshape(E, C)
+        logit = torch.sum(take(q.reshape(N, H, Dh), dst)
+                          * take(k.reshape(N, H, Dh), src)
+                          * t_attn.reshape(E, H, Dh), dim=-1)      # [E, H]
+        attn = self.scale_attention(
+            segment_softmax(logit, edge_dst, N, edge_mask, cfg.edge_axis),
+            n_edges, keep)
+        sea = (attn[..., None] * take(v, src).reshape(E, H, C // H)
+               ).reshape(E, C)
         spatial = t_filter * take(x_g, src) * cosine_cutoff(
             edge_dist, cfg.cutoff)[:, None]
-        chunks = list(torch.split(spatial + sea, D, dim=-1))
-        o_s, rest = chunks[0], chunks[1:]
-        deg = degree_index(lmax, h.device)
-        if cfg.sep_dir:
-            o_d, rest = torch.stack(rest[:lmax], dim=1), rest[lmax:]
-            dX_R = rl_ij[:, :, None] * o_d[:, deg]
-        else:
-            o_d, rest = rest[0], rest[1:]
-            dX_R = rl_ij[:, :, None] * o_d[:, None, :]
-        X_j = take(X, src)                                        # [E, L, D]
-        if cfg.sep_tensor:
-            dX_X = X_j * torch.stack(rest[:lmax], dim=1)[:, deg]
-        else:
-            dX_X = X_j * rest[0][:, None, :]
+        o_s, dX = self.split_message(spatial + sea, rl_ij, take(X, src))
         h = h + _segment_aggregate(cfg.aggr, o_s, edge_dst, N, edge_mask,
                                    cfg.edge_axis)
-        X = X + _segment_aggregate(cfg.aggr, dX_R + dX_X, edge_dst, N,
-                                   edge_mask, cfg.edge_axis)
+        X = X + _segment_aggregate(cfg.aggr, dX, edge_dst, N, edge_mask,
+                                   cfg.edge_axis)
         if not self.updates:
             return h, X, t_ij
         EQ, EK = self.htr_tables(X)
-        w_ij = htr_pair_sum(take(EQ, dst), take(EK, src), rl_ij, lmax,
+        w_ij = htr_pair_sum(take(EQ, dst), take(EK, src), rl_ij, cfg.lmax,
                             cfg.sep_htr, self.info["rej"])
         return h, X, self.update_tail(t_ij, w_ij)
 

@@ -52,8 +52,9 @@ from torch import nn
 
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.models.gotennet import (EQFF, GATALayer,
-                                               GotenNetConfig, keep_masks,
-                                               parse_edge_updates, run_layer)
+                                               GotenNetConfig, kernel_paths,
+                                               keep_masks, masked_softmax,
+                                               run_layer)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.ops import fused_gata, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
@@ -63,9 +64,6 @@ from gotennet_tpu_torch.ops.spherical import degree_slices, spherical_harmonics
 from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["GotenNetDense", "PairGeometry", "htr_terms", "pair_geometry"]
-
-_NEG = -1e30          # masked logit; exp(_NEG - max) is exactly 0 in f32
-_SOFTMAX_EPS = 1e-16  # the reference softmax's denominator guard
 
 
 class PairGeometry(NamedTuple):
@@ -150,19 +148,6 @@ def _node_dtype(cfg: GotenNetConfig) -> Optional[torch.dtype]:
     return None if cfg.node_dtype == torch.float32 else cfg.node_dtype
 
 
-def _fused_update(cfg: GotenNetConfig) -> bool:
-    """Whether the HTR update runs through the fused kernel, as the JAX
-    package chooses (gotennet_dense.py:318-321): with ``fused`` and
-    ``fused_htr``, for the grammar the kernel computes (rejection on or
-    off, the gates; no MLP or linear ``gamma_w`` part, no ``edge_ln``,
-    ``evec_dim`` at ``n_atom_basis``)."""
-    info = parse_edge_updates(cfg.edge_updates)
-    return (cfg.fused and cfg.fused_htr and not info["mlp"]
-            and not info["mlpa"] and info["lin_w"] == 0
-            and info["lin_ln"] == 0 and cfg.edge_ln == ""
-            and (cfg.evec_dim or cfg.n_atom_basis) == cfg.n_atom_basis)
-
-
 class NodeInitDense(nn.Module):
     """Neighbour embeddings gated by a radial filter under the cosine
     cutoff, summed over non-loop pairs, fused with the centre
@@ -223,9 +208,7 @@ class GATADense(GATALayer):
         """q, k, x_g, v in the node compute type."""
         cfg, D = self.cfg, self.cfg.n_atom_basis
         if not cfg.merge_proj:
-            return (self.W_q(h), self.W_k(h),
-                    self.gamma_s[1](self.gamma_s[0](h)),
-                    self.gamma_v[1](self.gamma_v[0](h)))
+            return self.node_projections(h)
         # one product per projection group; same parameters
         cd = cfg.node_dtype
         w1 = torch.cat([self.W_q.weight, self.W_k.weight,
@@ -262,18 +245,7 @@ class GATADense(GATALayer):
     def _fused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist, pair_mask,
                        n_edges, keep):
         cfg = self.cfg
-        D = cfg.n_atom_basis
-        # the sign of env_signed carries the pair mask
-        env_signed = torch.where(pair_mask, cosine_cutoff(dist, cfg.cutoff),
-                                 torch.full_like(dist, -1.0))
-        if cfg.scale_edge:
-            scale = torch.sqrt(n_edges) / math.sqrt(D)
-        else:
-            scale = torch.full_like(dist, 1.0 / math.sqrt(D))
-        if keep is not None:
-            # dropout folds into the per-head post-softmax scale
-            scale = (scale[..., None] * keep.to(scale.dtype)
-                     / (1.0 - cfg.attn_dropout))
+        env_signed, scale = self.fused_inputs(dist, pair_mask, n_edges, keep)
         # through FusedGATA (kernel backward) when a gradient is wanted
         return fused_gata.fused_gata(
             t_ij.contiguous(), q.contiguous(), k.contiguous(),
@@ -303,18 +275,8 @@ class GATADense(GATALayer):
         p_qk = (t_attn * q.to(pd)[:, :, None, :]) * k.to(pd)[:, None, :, :]
         logit = torch.sum(p_qk.float().reshape(G, M, M, H, D // H), dim=-1)
         real = pair_mask[..., None]
-        logit = torch.where(real, logit, torch.full_like(logit, _NEG))
-        top = torch.amax(logit, dim=2, keepdim=True).detach()
-        expd = torch.exp(logit - top) * real
-        attn = expd / (torch.sum(expd, dim=2, keepdim=True) + _SOFTMAX_EPS)
-        if cfg.scale_edge:
-            attn = attn * (torch.sqrt(n_edges)[..., None] / math.sqrt(D))
-        else:
-            attn = attn / math.sqrt(D)
-        if keep is not None:
-            # flax's Dropout: kept entries divided by the keep rate
-            attn = torch.where(keep, attn / (1.0 - cfg.attn_dropout),
-                               torch.zeros_like(attn))
+        attn = self.scale_attention(masked_softmax(logit, real, 2), n_edges,
+                                    keep)
         # o[g, i, j] = spatial + sea; channel c takes head c // (C / H)
         env = (cosine_cutoff(dist, cfg.cutoff) * pair_mask).to(pd)
         attn_full = attn.to(pd).repeat_interleave(C // H, dim=-1)
@@ -364,9 +326,10 @@ class GATADense(GATALayer):
         None (no dropout)."""
         cfg = self.cfg
         pd = cfg.pair_dtype
+        fused_message, fused_update = kernel_paths(cfg, "dense")
         h, X = self.pre_norm(h, X)
         q, k, x_g, v = self._node_projections(h)
-        if cfg.fused:
+        if fused_message:
             d_h, dX = self._fused_message(t_ij, q, k, x_g, v, rl_ij, X, dist,
                                           pair_mask, n_edges, keep)
         else:
@@ -380,7 +343,7 @@ class GATADense(GATALayer):
         # ---- HTR edge update (expanded rejection), in pair_dtype --------
         EQ, EK = self._htr_projections(X)
         info = self.info
-        if _fused_update(cfg):
+        if fused_update:
             # one kernel over the pairs: z, gt, S, pq, pk and w stay on
             # chip (ops/fused_htr.py); gamma_t's single layer in [in, out]
             layer = self.gamma_t.dense_layers[0]

@@ -1,7 +1,8 @@
 """GotenNet on the ELL layout: a row of ``K`` neighbour slots per node.
 
-Counterpart of ``gotennet_tpu/models/gotennet_ell.py``.  Each GATA layer takes the path the JAX package takes for the same configuration
-and batch (``fused_paths``):
+Counterpart of ``gotennet_tpu/models/gotennet_ell.py``.  Each GATA layer
+takes the path the JAX package takes for the same configuration and batch
+(``models.gotennet.kernel_paths``):
 - with ``fused`` the message + aggregation runs through
   ``ops.fused_ell.fused_ell`` and, with ``fused_htr`` too, the HTR update
   through ``ops.fused_htr.fused_htr_ell`` (the CUDA kernels on the card,
@@ -46,7 +47,6 @@ serves both layouts and every path.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -54,10 +54,10 @@ from torch import nn
 
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
 from gotennet_tpu_torch.graph.segment import segment_sum
-from gotennet_tpu_torch.models.gotennet import (EQFF, GATALayer,
-                                               GotenNetConfig, degree_index,
-                                               htr_pair_sum, keep_masks,
-                                               parse_edge_updates, run_layer)
+from gotennet_tpu_torch.models.gotennet import (_NEG, EQFF, GATALayer,
+                                               GotenNetConfig, htr_pair_sum,
+                                               keep_masks, kernel_paths,
+                                               masked_softmax, run_layer)
 from gotennet_tpu_torch.nn.dense import MLP, Dense
 from gotennet_tpu_torch.ops import fused_ell, fused_htr
 from gotennet_tpu_torch.ops.activations import get_activation
@@ -67,12 +67,9 @@ from gotennet_tpu_torch.ops.spherical import spherical_harmonics
 from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["GotenNetELL", "NodeInitELL", "EdgeInitELL", "GATAELL",
-           "fused_paths", "RowShard"]
+           "RowShard"]
 
 Gather = Callable[[torch.Tensor], torch.Tensor]
-
-_NEG = -1e30
-_SOFTMAX_EPS = 1e-16  # the reference softmax's denominator guard
 
 
 def _gather_fn(nbr: torch.Tensor, rounded: bool,
@@ -188,33 +185,9 @@ def _aggr_k(aggr: str, data: torch.Tensor, mask: torch.Tensor
     raise ValueError(f"Unknown aggr {aggr!r}")
 
 
-def fused_paths(cfg: GotenNetConfig, N: int, NR: int,
-                halo: Optional[int]) -> Tuple[bool, bool]:
-    """Whether the message and the HTR update run fused for an ``N``-row
-    node table of ``NR`` destination rows, as the JAX package chooses
-    (gotennet_ell.py:306-321, :448-487, :512-516): with ``fused`` (and
-    ``fused_htr``, a silu or swish activation and an update grammar the
-    kernel computes for the update), unless the table is above
-    ``fused_table_rows`` (0: no limit) and no halo-windowed chunking exists
-    for it (no ``halo``, or ``pick_chunking`` finds no geometry).  Where the
-    JAX package chunks, the port's kernels take the whole table."""
-    fits = (not cfg.fused_table_rows or N <= cfg.fused_table_rows
-            or (halo is not None and fused_ell.pick_chunking(
-                NR, N, halo, cfg.fused_table_rows) is not None))
-    message = cfg.fused and fits
-    info = parse_edge_updates(cfg.edge_updates)
-    update = (message and cfg.fused_htr
-              and cfg.activation in ("swish", "silu")
-              and not info["mlp"] and not info["mlpa"]
-              and info["lin_w"] == 0 and info["lin_ln"] == 0
-              and cfg.edge_ln == ""
-              and (cfg.evec_dim or cfg.n_atom_basis) == cfg.n_atom_basis)
-    return message, update
-
-
 class GATAELL(GATALayer):
     """One interaction: the message + aggregation, then (except in the last
-    layer) the HTR update, each fused or unfused as ``fused_paths``
+    layer) the HTR update, each fused or unfused as ``kernel_paths``
     chose."""
 
     def __init__(self, cfg: GotenNetConfig, last_layer: bool = False):
@@ -236,10 +209,8 @@ class GATAELL(GATALayer):
         h, X = self.pre_norm(h, X)
         # the node projections run on this rank's rows; the source tables
         # are rebuilt whole for the gathers
-        hn = rows(h)
-        q, k = self.W_q(hn), unshard(self.W_k(hn))
-        x_g = unshard(self.gamma_s[1](self.gamma_s[0](hn)))
-        v = unshard(self.gamma_v[1](self.gamma_v[0](hn)))
+        q, k, x_g, v = self.node_projections(rows(h))
+        k, x_g, v = unshard(k), unshard(x_g), unshard(v)
         if paths[0]:
             d_h, dX = self._fused_message(t_ij, q, k, x_g, v, rl_ij, X, dist,
                                           nbr, nbr_mask, n_edges, slots, keep)
@@ -269,18 +240,7 @@ class GATAELL(GATALayer):
     def _fused_message(self, t_ij, q, k, x_g, v, rl_ij, X, dist, nbr,
                        nbr_mask, n_edges, slots, keep):
         cfg = self.cfg
-        D = cfg.n_atom_basis
-        # the sign of env_signed carries the slot mask
-        env_signed = torch.where(nbr_mask, cosine_cutoff(dist, cfg.cutoff),
-                                 torch.full_like(dist, -1.0))
-        if cfg.scale_edge:
-            scale = torch.sqrt(n_edges) / math.sqrt(D)
-        else:
-            scale = torch.full_like(dist, 1.0 / math.sqrt(D))
-        if keep is not None:
-            # dropout folds into the per-head post-softmax scale
-            scale = (scale[..., None] * keep.to(scale.dtype)
-                     / (1.0 - cfg.attn_dropout))
+        env_signed, scale = self.fused_inputs(dist, nbr_mask, n_edges, keep)
         return fused_ell.fused_ell(
             t_ij, q, k, x_g, v, rl_ij, X, env_signed, scale, nbr,
             self.W_re.weight.t().contiguous(), self.W_re.bias,
@@ -293,7 +253,7 @@ class GATAELL(GATALayer):
         """The message as plain tensor ops (JAX gotennet_ell.py:375-434):
         any activation and aggregation.  Returns ``(d_h, dX)``."""
         cfg = self.cfg
-        D, H, lmax = cfg.n_atom_basis, cfg.num_heads, cfg.lmax
+        D, H = cfg.n_atom_basis, cfg.num_heads
         N, K = nbr_mask.shape
         Dh, C = D // H, cfg.multiplier * D
         t_attn = self.W_re(t_ij)
@@ -304,39 +264,16 @@ class GATAELL(GATALayer):
         logit = torch.sum(q.reshape(N, 1, H, Dh)
                           * gather(k).reshape(N, K, H, Dh)
                           * t_attn.reshape(N, K, H, Dh), dim=-1)
-        real = nbr_mask[..., None]
-        logit = torch.where(real, logit, torch.full_like(logit, _NEG))
-        top = torch.amax(logit, dim=1, keepdim=True).detach()
-        expd = torch.exp(logit - top) * real
-        attn = expd / (torch.sum(expd, dim=1, keepdim=True) + _SOFTMAX_EPS)
-        if cfg.scale_edge:
-            attn = attn * (torch.sqrt(n_edges)[..., None] / math.sqrt(D))
-        else:
-            attn = attn / math.sqrt(D)
-        if keep is not None:
-            # flax's Dropout: kept entries divided by the keep rate
-            attn = torch.where(keep, attn / (1.0 - cfg.attn_dropout),
-                               torch.zeros_like(attn))
+        attn = self.scale_attention(
+            masked_softmax(logit, nbr_mask[..., None], 1), n_edges, keep)
         sea = (attn[..., None] * gather(v).reshape(N, K, H, C // H)
                ).reshape(N, K, C)
         spatial = (t_filter * gather(x_g)
                    * cosine_cutoff(dist, cfg.cutoff)[..., None])
-        chunks = list(torch.split(spatial + sea, D, dim=-1))
-        o_s, rest = chunks[0], chunks[1:]
-        deg = degree_index(lmax, t_ij.device)
-        if cfg.sep_dir:
-            o_d, rest = torch.stack(rest[:lmax], dim=2), rest[lmax:]
-            dX_R = rl_ij[..., None] * o_d[:, :, deg]
-        else:
-            o_d, rest = rest[0], rest[1:]
-            dX_R = rl_ij[..., None] * o_d[:, :, None, :]
-        X_j = gather(X)                                       # [N, K, L, D]
-        if cfg.sep_tensor:
-            dX_X = X_j * torch.stack(rest[:lmax], dim=2)[:, :, deg]
-        else:
-            dX_X = X_j * rest[0][:, :, None, :]
-        return (_aggr_k(cfg.aggr, o_s, nbr_mask),
-                _aggr_k(cfg.aggr, dX_R + dX_X, nbr_mask))
+        o_s, dX = self.split_message(spatial + sea, rl_ij, gather(X))
+        return _aggr_k(cfg.aggr, o_s, nbr_mask), _aggr_k(cfg.aggr, dX,
+                                                          nbr_mask)
+
 
 class GotenNetELL(nn.Module):
     """The ELL-layout representation stack: ``(h [N, D], X [N, L, D])``
@@ -368,7 +305,7 @@ class GotenNetELL(nn.Module):
             # rows
             shard = RowShard(cfg.edge_axis, N)
             rows, NR = shard.rows, shard.n_rows
-            paths = fused_paths(cfg, N, NR, batch.gather_halo)
+            paths = kernel_paths(cfg, "ell", N, NR, batch.gather_halo)
             nbr, nm, pos = rows(batch.nbr), rows(batch.nbr_mask), batch.pos
             idx = nbr.long()
             gather = _gather_fn(

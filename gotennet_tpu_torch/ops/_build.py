@@ -6,6 +6,11 @@ build goes to ``build/`` at the repository root at first use and is
 reused while the source, the headers of ``csrc/`` and the flags are
 unchanged (the file name carries their hash).  Nothing here runs at
 import time.
+
+Every entry point ``gotennet_<name>`` takes its tensors' pointers, a
+workspace of the size ``gotennet_<name>_workspace`` asks for, its integers
+and the stream, and returns a CUDA error code: ``call_entry`` makes that
+call, ``launch`` makes it on the current stream of the tensors' device.
 """
 
 from __future__ import annotations
@@ -17,9 +22,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Sequence
 
-__all__ = ["build_all", "load_library", "build_log", "SOURCES"]
+import torch
+
+__all__ = ["build_all", "load_library", "build_log", "SOURCES", "aligned",
+           "call_entry", "launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -160,3 +168,43 @@ def load_library(source: str = SOURCES[0]) -> ctypes.CDLL:
             _declare(lib, source)
             _libs[source] = lib
         return _libs[source]
+
+
+def aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a``, or a copy of it when its data do not start on a 16-byte
+    boundary (a view with an offset): the kernels load 16 bytes at a time."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {err} "
+            f"({lib.gotennet_cuda_error_string(err).decode()})")
+
+
+def call_entry(lib, name: str, stream, sizes: Sequence[int],
+               tensors: Sequence[Optional[torch.Tensor]],
+               ints: Sequence[int]) -> None:
+    """``gotennet_<name>`` of ``lib`` on ``stream``: asks
+    ``gotennet_<name>_workspace(*sizes)`` for its bytes, allocates them on
+    the first tensor's device, passes the tensors' pointers (None for a
+    None), the workspace's, ``ints`` and the stream, and raises on the CUDA
+    error it returns.  Arguments are validated by the caller."""
+    n_bytes = getattr(lib, f"gotennet_{name}_workspace")(*sizes)
+    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
+                       device=tensors[0].device)
+    err = getattr(lib, f"gotennet_{name}")(
+        *(a.data_ptr() if a is not None else None for a in tensors),
+        work.data_ptr(), *ints, stream)
+    _raise_on(lib, err, name)
+
+
+def launch(source: str, call: Callable, *args, **kw) -> None:
+    """``call(lib, stream, *args, **kw)`` with the library of ``source`` on
+    the current stream of the first argument's device, that device
+    current."""
+    device = args[0].device
+    with torch.cuda.device(device):
+        call(load_library(source),
+             torch.cuda.current_stream(device).cuda_stream, *args, **kw)

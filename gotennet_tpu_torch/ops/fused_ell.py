@@ -46,9 +46,9 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from gotennet_tpu_torch.ops._build import aligned, call_entry, launch
 from gotennet_tpu_torch.ops.fused_gata import (_block_layout, _check,
-                                               _check_common, _check_shapes,
-                                               _raise_on, aligned)
+                                               _check_common, _check_shapes)
 
 __all__ = ["fused_ell", "FusedELL", "fused_ell_forward",
            "fused_ell_forward_reference", "fused_ell_backward",
@@ -400,8 +400,6 @@ def fused_ell(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
 def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
             W_rs, b_rs, *, lmax, num_heads, sep_dir, sep_tensor, pair_dtype,
             with_attn) -> Out:
-    from gotennet_tpu_torch.ops._build import load_library
-
     f32 = torch.float32
     args = dict(zip(ARG_NAMES, (t, q, k, x_g, v, rl, X, env_signed, scale,
                                 nbr, W_re, b_re, W_rs, b_rs)))
@@ -412,12 +410,9 @@ def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
     dX = torch.empty(NR, L, D, dtype=f32, device=t.device)
     sm = (torch.empty(NR, K, H, dtype=f32, device=t.device) if with_attn
           else None)
-    with torch.cuda.device(t.device):
-        _call_kernel(load_library("fused_ell_fwd.cu"),
-                     torch.cuda.current_stream(t.device).cuda_stream,
-                     *args.values(), d_h, dX, sm, lmax=lmax, num_heads=H,
-                     sep_dir=sep_dir, sep_tensor=sep_tensor,
-                     pair_dtype=pair_dtype)
+    launch("fused_ell_fwd.cu", _call_kernel, *args.values(), d_h, dX, sm,
+           lmax=lmax, num_heads=H, sep_dir=sep_dir, sep_tensor=sep_tensor,
+           pair_dtype=pair_dtype)
     _counted.launches += 1
     return d_h, dX, sm
 
@@ -425,27 +420,20 @@ def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
 def _call_kernel(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale, nbr,
                  W_re, b_re, W_rs, b_rs, d_h, dX, sm, *, lmax, num_heads,
                  sep_dir, sep_tensor, pair_dtype) -> None:
-    """One launch through the C interface on ``stream``, with a workspace
-    of the size the library asks for (the bf16 weights and node tables);
-    raises on the launch's CUDA error.  Arguments are validated by the
-    caller."""
+    """One launch through the C interface on ``stream`` (``call_entry``;
+    the workspace holds the bf16 weights and node tables).  Arguments are
+    validated by the caller."""
     bf16 = torch.bfloat16
     NR, K, D = t.shape
     N = k.shape[0]
     t, q, k, x_g, v, X, b_re, b_rs = (aligned(a) for a in (
         t, q, k, x_g, v, X, b_re, b_rs))
-    n_bytes = lib.gotennet_fused_ell_fwd_workspace(
-        NR, N, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    ptrs = [a.data_ptr() for a in (t, q, k, x_g, v, rl, X, env_signed, scale,
-                                   nbr, W_re, b_re, W_rs, b_rs, d_h, dX)]
-    err = lib.gotennet_fused_ell_fwd(
-        *ptrs, sm.data_ptr() if sm is not None else None, work.data_ptr(),
-        NR, N, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
-        int(scale.dim() == 3), int(pair_dtype == bf16), int(t.dtype == bf16),
-        int(q.dtype == bf16), stream)
-    _raise_on(lib, err, "fused_ell_fwd")
+    sizes = (NR, N, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
+    call_entry(lib, "fused_ell_fwd", stream, sizes,
+               (t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
+                W_rs, b_rs, d_h, dX, sm),
+               sizes + (int(scale.dim() == 3), int(pair_dtype == bf16),
+                        int(t.dtype == bf16), int(q.dtype == bf16)))
 
 
 def backward_outputs(t, k, scale, C: int, L: int):
@@ -467,8 +455,6 @@ def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re,
                      b_re, W_rs, b_rs, sm, g_dh, g_dX, *, lmax, num_heads,
                      sep_dir, sep_tensor, pair_dtype, slots
                      ) -> Tuple[torch.Tensor, ...]:
-    from gotennet_tpu_torch.ops._build import load_library
-
     who = "fused_ell_backward"
     inputs = (t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
               W_rs, b_rs)
@@ -485,12 +471,9 @@ def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re,
                f"on {t.device}", who)
     slots = _checked_slots(who, slots, nbr, N)
     outs = backward_outputs(t, k, scale, C, L)
-    with torch.cuda.device(t.device):
-        _call_backward(load_library("fused_ell_bwd.cu"),
-                       torch.cuda.current_stream(t.device).cuda_stream,
-                       *inputs, sm, g_dh, g_dX, slots, outs, lmax=lmax,
-                       num_heads=H, sep_dir=sep_dir, sep_tensor=sep_tensor,
-                       pair_dtype=pair_dtype)
+    launch("fused_ell_bwd.cu", _call_backward, *inputs, sm, g_dh, g_dX,
+           slots, outs, lmax=lmax, num_heads=H, sep_dir=sep_dir,
+           sep_tensor=sep_tensor, pair_dtype=pair_dtype)
     _counted_bwd.launches += 1
     return tuple(outs)
 
@@ -513,20 +496,15 @@ def _call_backward(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
                    nbr, W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX, slots, outs,
                    *, lmax, num_heads, sep_dir, sep_tensor, pair_dtype) -> None:
     """One backward through the C interface on ``stream`` into ``outs``
-    (as ``backward_outputs`` makes them), with a workspace of the size the
-    library asks for; raises on a CUDA error.  Arguments are validated by
-    the caller."""
+    (as ``backward_outputs`` makes them; ``call_entry``).  Arguments are
+    validated by the caller."""
     bf16 = torch.bfloat16
     NR, K, D = t.shape
-    n_bytes = lib.gotennet_fused_ell_bwd_workspace(
-        NR, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    ptrs = [a.data_ptr() for a in (t, q, k, x_g, v, rl, X, env_signed, scale,
-                                   nbr, W_re, b_re, W_rs, b_rs, sm, g_dh,
-                                   g_dX, *slots, *outs, work)]
-    err = lib.gotennet_fused_ell_bwd(
-        *ptrs, NR, k.shape[0], K, D, num_heads, lmax, int(sep_dir),
-        int(sep_tensor), int(scale.dim() == 3), int(pair_dtype == bf16),
-        int(t.dtype == bf16), int(q.dtype == bf16), stream)
-    _raise_on(lib, err, "fused_ell_bwd")
+    call_entry(lib, "fused_ell_bwd", stream,
+               (NR, K, D, num_heads, lmax, int(sep_dir), int(sep_tensor)),
+               (t, q, k, x_g, v, rl, X, env_signed, scale, nbr, W_re, b_re,
+                W_rs, b_rs, sm, g_dh, g_dX, *slots, *outs),
+               (NR, k.shape[0], K, D, num_heads, lmax, int(sep_dir),
+                int(sep_tensor), int(scale.dim() == 3),
+                int(pair_dtype == bf16), int(t.dtype == bf16),
+                int(q.dtype == bf16)))

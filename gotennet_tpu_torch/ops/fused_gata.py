@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from gotennet_tpu_torch.ops._build import aligned, call_entry, launch
 from gotennet_tpu_torch.utils import profiling
 
 __all__ = ["fused_gata", "FusedGATA", "fused_gata_forward",
@@ -415,8 +416,6 @@ def fused_gata(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
 def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
             b_rs, *, lmax, num_heads, sep_dir, sep_tensor, pair_dtype,
             with_attn) -> Out:
-    from gotennet_tpu_torch.ops._build import load_library
-
     f32 = torch.float32
     args = dict(zip(ARG_NAMES, (t, q, k, x_g, v, rl, X, env_signed, scale,
                                 W_re, b_re, W_rs, b_rs)))
@@ -427,13 +426,10 @@ def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
     dX = torch.empty(G, M, L, D, dtype=f32, device=t.device)
     sm = (torch.empty(G, M, M, H, dtype=f32, device=t.device) if with_attn
           else None)
-    with torch.cuda.device(t.device):
-        _call_kernel(load_library("fused_gata_fwd.cu"),
-                     torch.cuda.current_stream(t.device).cuda_stream,
-                     t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
-                     W_rs, b_rs, d_h, dX, sm, lmax=lmax, num_heads=H,
-                     sep_dir=sep_dir, sep_tensor=sep_tensor,
-                     pair_dtype=pair_dtype)
+    launch("fused_gata_fwd.cu", _call_kernel, t, q, k, x_g, v, rl, X,
+           env_signed, scale, W_re, b_re, W_rs, b_rs, d_h, dX, sm, lmax=lmax,
+           num_heads=H, sep_dir=sep_dir, sep_tensor=sep_tensor,
+           pair_dtype=pair_dtype)
     _counted.launches += 1
     return d_h, dX, sm
 
@@ -441,48 +437,25 @@ def _launch(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
 def _call_kernel(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
                  W_re, b_re, W_rs, b_rs, d_h, dX, sm, *, lmax, num_heads,
                  sep_dir, sep_tensor, pair_dtype) -> None:
-    """One forward through the C interface on ``stream``, with a workspace
-    of the size the library asks for (the bf16 weights); raises on a CUDA
-    error.  Arguments are validated by the caller."""
+    """One forward through the C interface on ``stream`` (``call_entry``;
+    the workspace holds the bf16 weights).  Arguments are validated by the
+    caller."""
     bf16 = torch.bfloat16
     G, M, _, D = t.shape
     t, q, k, x_g, v, X, b_re, b_rs = (aligned(a) for a in (
         t, q, k, x_g, v, X, b_re, b_rs))
-    n_bytes = lib.gotennet_fused_gata_fwd_workspace(
-        G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    err = lib.gotennet_fused_gata_fwd(
-        t.data_ptr(), q.data_ptr(), k.data_ptr(), x_g.data_ptr(),
-        v.data_ptr(), rl.data_ptr(), X.data_ptr(), env_signed.data_ptr(),
-        scale.data_ptr(), W_re.data_ptr(), b_re.data_ptr(), W_rs.data_ptr(),
-        b_rs.data_ptr(), d_h.data_ptr(), dX.data_ptr(),
-        sm.data_ptr() if sm is not None else None, work.data_ptr(),
-        G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
-        int(scale.dim() == 4), int(pair_dtype == bf16), int(t.dtype == bf16),
-        int(q.dtype == bf16), stream)
-    _raise_on(lib, err, "fused_gata_fwd")
-
-
-def aligned(a: torch.Tensor) -> torch.Tensor:
-    """``a``, or a copy of it when its data do not start on a 16-byte
-    boundary (a view with an offset): the kernels load 16 bytes at a time."""
-    return a if a.data_ptr() % 16 == 0 else a.clone()
-
-
-def _raise_on(lib, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: CUDA error {err} "
-            f"({lib.gotennet_cuda_error_string(err).decode()})")
+    sizes = (G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
+    call_entry(lib, "fused_gata_fwd", stream, sizes,
+               (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
+                b_rs, d_h, dX, sm),
+               sizes + (int(scale.dim() == 4), int(pair_dtype == bf16),
+                        int(t.dtype == bf16), int(q.dtype == bf16)))
 
 
 def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
                      W_rs, b_rs, sm, g_dh, g_dX, *, lmax, num_heads, sep_dir,
                      sep_tensor, pair_dtype, pos_grads
                      ) -> Tuple[torch.Tensor, ...]:
-    from gotennet_tpu_torch.ops._build import load_library
-
     who = "fused_gata_backward"
     inputs = (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
               b_rs)
@@ -496,12 +469,9 @@ def _launch_backward(t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re,
                f"{name} must be a contiguous float32 tensor of shape {shp} "
                f"on {t.device}", who)
     outs = backward_outputs(t, scale, C, L, pos_grads)
-    with torch.cuda.device(t.device):
-        _call_backward(load_library("fused_gata_bwd.cu"),
-                       torch.cuda.current_stream(t.device).cuda_stream,
-                       *inputs, sm, g_dh, g_dX, outs, lmax=lmax,
-                       num_heads=H, sep_dir=sep_dir, sep_tensor=sep_tensor,
-                       pair_dtype=pair_dtype)
+    launch("fused_gata_bwd.cu", _call_backward, *inputs, sm, g_dh, g_dX,
+           outs, lmax=lmax, num_heads=H, sep_dir=sep_dir,
+           sep_tensor=sep_tensor, pair_dtype=pair_dtype)
     _counted_bwd.launches += 1
     if not pos_grads:
         outs[5], outs[7] = torch.zeros_like(rl), torch.zeros_like(env_signed)
@@ -528,20 +498,13 @@ def _call_backward(lib, stream, t, q, k, x_g, v, rl, X, env_signed, scale,
                    num_heads, sep_dir, sep_tensor, pair_dtype) -> None:
     """One backward through the C interface on ``stream`` into ``outs``
     (as ``backward_outputs`` makes them; a None output, g_rl or g_env, is
-    not computed), with a workspace of the size the library asks for;
-    raises on a CUDA error.  Arguments are validated by the caller."""
+    not computed; ``call_entry``).  Arguments are validated by the
+    caller."""
     bf16 = torch.bfloat16
     G, M, _, D = t.shape
-    n_bytes = lib.gotennet_fused_gata_bwd_workspace(
-        G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    ptrs = [a.data_ptr() for a in (t, q, k, x_g, v, rl, X, env_signed, scale,
-                                   W_re, b_re, W_rs, b_rs, sm, g_dh, g_dX)]
-    err = lib.gotennet_fused_gata_bwd(
-        *ptrs, *(o.data_ptr() if o is not None else None for o in outs),
-        work.data_ptr(),
-        G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor),
-        int(scale.dim() == 4), int(pair_dtype == bf16), int(t.dtype == bf16),
-        int(q.dtype == bf16), stream)
-    _raise_on(lib, err, "fused_gata_bwd")
+    sizes = (G, M, D, num_heads, lmax, int(sep_dir), int(sep_tensor))
+    call_entry(lib, "fused_gata_bwd", stream, sizes,
+               (t, q, k, x_g, v, rl, X, env_signed, scale, W_re, b_re, W_rs,
+                b_rs, sm, g_dh, g_dX, *outs),
+               sizes + (int(scale.dim() == 4), int(pair_dtype == bf16),
+                        int(t.dtype == bf16), int(q.dtype == bf16)))

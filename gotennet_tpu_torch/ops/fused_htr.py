@@ -48,9 +48,9 @@ from typing import List, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from gotennet_tpu_torch.ops._build import aligned, call_entry, launch
 from gotennet_tpu_torch.ops.fused_ell import Slots, _checked_slots
-from gotennet_tpu_torch.ops.fused_gata import (_check, _check_shapes, _raise_on,
-                                              aligned)
+from gotennet_tpu_torch.ops.fused_gata import _check, _check_shapes
 from gotennet_tpu_torch.ops.spherical import degree_slices
 
 __all__ = ["fused_htr", "FusedHTR", "fused_htr_forward",
@@ -328,47 +328,38 @@ def fused_htr(t, EQ, EK, rl, W_g, b_g, *, lmax: int, sep_htr: bool,
                              gate=gate, pair_dtype=pair_dtype)
 
 
-def _flags(t, EQ, *, lmax, sep_htr, rej, gate, pair_dtype) -> Tuple[int, ...]:
-    """The integer arguments both C entry points end with: G, M, D, lmax,
-    sep_htr, rej, gate code, pair/t/node bf16 flags."""
+def _flags(sizes, t, EQ, *, lmax, sep_htr, rej, gate,
+           pair_dtype) -> Tuple[int, ...]:
+    """The integer arguments the four C entry points end with: ``sizes``
+    (G, M, D; on the ELL layout NR, N, K, D), lmax, sep_htr, rej, gate
+    code, pair/t/node bf16 flags."""
     bf16 = torch.bfloat16
-    G, M, _, D = t.shape
-    return (G, M, D, lmax, int(sep_htr), int(rej), GATES.index(gate),
+    return (*sizes, lmax, int(sep_htr), int(rej), GATES.index(gate),
             int(pair_dtype == bf16), int(t.dtype == bf16),
             int(EQ.dtype == bf16))
 
 
 def _launch(t, EQ, EK, rl, W_g, b_g, *, lmax, sep_htr, rej, gate,
             pair_dtype) -> torch.Tensor:
-    from gotennet_tpu_torch.ops._build import load_library
-
     _check_inputs("fused_htr_forward", t, EQ, EK, rl, W_g, b_g, lmax=lmax,
                   gate=gate, pair_dtype=pair_dtype)
     out = torch.empty(t.shape, dtype=torch.float32, device=t.device)
-    with torch.cuda.device(t.device):
-        _call_kernel(load_library("fused_htr_fwd.cu"),
-                     torch.cuda.current_stream(t.device).cuda_stream,
-                     t, EQ, EK, rl, W_g, b_g, out, lmax=lmax,
-                     sep_htr=sep_htr, rej=rej, gate=gate,
-                     pair_dtype=pair_dtype)
+    launch("fused_htr_fwd.cu", _call_kernel, t, EQ, EK, rl, W_g, b_g, out,
+           lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+           pair_dtype=pair_dtype)
     _counted.launches += 1
     return out
 
 
 def _call_kernel(lib, stream, t, EQ, EK, rl, W_g, b_g, out, **kw) -> None:
-    """One forward through the C interface on ``stream`` into ``out``, with
-    a workspace of the size the library asks for (the bf16 W_g and node
-    tables); raises on the launch's CUDA error.  Arguments are validated by
-    the caller."""
+    """One forward through the C interface on ``stream`` into ``out``
+    (``call_entry``; the workspace holds the bf16 W_g and node tables).
+    Arguments are validated by the caller."""
     G, M, _, D = t.shape
     t, EQ, EK, W_g, b_g = (aligned(a) for a in (t, EQ, EK, W_g, b_g))
-    n_bytes = lib.gotennet_fused_htr_fwd_workspace(G, M, D, kw["lmax"])
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    err = lib.gotennet_fused_htr_fwd(
-        *(a.data_ptr() for a in (t, EQ, EK, rl, W_g, b_g, out, work)),
-        *_flags(t, EQ, **kw), stream)
-    _raise_on(lib, err, "fused_htr_fwd")
+    call_entry(lib, "fused_htr_fwd", stream, (G, M, D, kw["lmax"]),
+               (t, EQ, EK, rl, W_g, b_g, out),
+               _flags((G, M, D), t, EQ, **kw))
 
 
 def backward_outputs(t, L: int) -> List[torch.Tensor]:
@@ -385,8 +376,6 @@ def backward_outputs(t, L: int) -> List[torch.Tensor]:
 
 def _launch_backward(t, EQ, EK, rl, W_g, b_g, g, *, lmax, sep_htr, rej,
                      gate, pair_dtype) -> Grads:
-    from gotennet_tpu_torch.ops._build import load_library
-
     who = "fused_htr_backward"
     G, M, D, L = _check_inputs(who, t, EQ, EK, rl, W_g, b_g, lmax=lmax,
                                gate=gate, pair_dtype=pair_dtype)
@@ -395,12 +384,9 @@ def _launch_backward(t, EQ, EK, rl, W_g, b_g, g, *, lmax, sep_htr, rej,
            f"g must be a contiguous float32 tensor of shape "
            f"{tuple(t.shape)} on {t.device}", who)
     outs = backward_outputs(t, L)
-    with torch.cuda.device(t.device):
-        _call_backward(load_library("fused_htr_bwd.cu"),
-                       torch.cuda.current_stream(t.device).cuda_stream,
-                       t, EQ, EK, rl, W_g, b_g, g, outs, lmax=lmax,
-                       sep_htr=sep_htr, rej=rej, gate=gate,
-                       pair_dtype=pair_dtype)
+    launch("fused_htr_bwd.cu", _call_backward, t, EQ, EK, rl, W_g, b_g, g,
+           outs, lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+           pair_dtype=pair_dtype)
     _counted_bwd.launches += 1
     return tuple(outs)
 
@@ -408,18 +394,13 @@ def _launch_backward(t, EQ, EK, rl, W_g, b_g, g, *, lmax, sep_htr, rej,
 def _call_backward(lib, stream, t, EQ, EK, rl, W_g, b_g, g, outs,
                    **kw) -> None:
     """One backward through the C interface on ``stream`` into ``outs``
-    (as ``backward_outputs`` makes them), with a workspace of the size the
-    library asks for; raises on a CUDA error.  Arguments are validated by
-    the caller."""
+    (as ``backward_outputs`` makes them; ``call_entry``).  Arguments are
+    validated by the caller."""
     G, M, _, D = t.shape
     t, EQ, EK, b_g, g = (aligned(a) for a in (t, EQ, EK, b_g, g))
-    n_bytes = lib.gotennet_fused_htr_bwd_workspace(G, M, D)
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    err = lib.gotennet_fused_htr_bwd(
-        *(a.data_ptr() for a in (t, EQ, EK, rl, W_g, b_g, g, *outs, work)),
-        *_flags(t, EQ, **kw), stream)
-    _raise_on(lib, err, "fused_htr_bwd")
+    call_entry(lib, "fused_htr_bwd", stream, (G, M, D),
+               (t, EQ, EK, rl, W_g, b_g, g, *outs),
+               _flags((G, M, D), t, EQ, **kw))
 
 
 # ---- the ELL layout ----------------------------------------------------------
@@ -575,46 +556,32 @@ def fused_htr_ell(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax: int, sep_htr: bool,
 
 def _launch_ell(t, EQ, EK, rl, nbr, W_g, b_g, *, lmax, sep_htr, rej, gate,
                 pair_dtype) -> torch.Tensor:
-    from gotennet_tpu_torch.ops._build import load_library
-
     _check_ell_inputs("fused_htr_ell_forward", t, EQ, EK, rl, nbr, W_g, b_g,
                       lmax=lmax, gate=gate, pair_dtype=pair_dtype)
     out = torch.empty(t.shape, dtype=torch.float32, device=t.device)
-    with torch.cuda.device(t.device):
-        _call_ell_kernel(load_library("fused_htr_ell_fwd.cu"),
-                         torch.cuda.current_stream(t.device).cuda_stream,
-                         t, EQ, EK, rl, nbr, W_g, b_g, out, lmax=lmax,
-                         sep_htr=sep_htr, rej=rej, gate=gate,
-                         pair_dtype=pair_dtype)
+    launch("fused_htr_ell_fwd.cu", _call_ell_kernel, t, EQ, EK, rl, nbr, W_g,
+           b_g, out, lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
+           pair_dtype=pair_dtype)
     _counted_ell.launches += 1
     return out
 
 
 def _call_ell_kernel(lib, stream, t, EQ, EK, rl, nbr, W_g, b_g, out, *,
                      lmax, sep_htr, rej, gate, pair_dtype) -> None:
-    """One ELL forward through the C interface on ``stream`` into ``out``,
-    with a workspace of the size the library asks for (the bf16 W_g and
-    node tables); raises on the launch's CUDA error.  Arguments are
-    validated by the caller."""
-    bf16 = torch.bfloat16
+    """One ELL forward through the C interface on ``stream`` into ``out``
+    (``call_entry``; the workspace holds the bf16 W_g and node tables).
+    Arguments are validated by the caller."""
     NR, K, D = t.shape
     t, EQ, EK, W_g, b_g = (aligned(a) for a in (t, EQ, EK, W_g, b_g))
-    n_bytes = lib.gotennet_fused_htr_ell_fwd_workspace(NR, EK.shape[0], D,
-                                                        lmax)
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    err = lib.gotennet_fused_htr_ell_fwd(
-        *(a.data_ptr() for a in (t, EQ, EK, rl, nbr, W_g, b_g, out, work)),
-        NR, EK.shape[0], K, D, lmax, int(sep_htr), int(rej),
-        GATES.index(gate), int(pair_dtype == bf16), int(t.dtype == bf16),
-        int(EQ.dtype == bf16), stream)
-    _raise_on(lib, err, "fused_htr_ell_fwd")
+    call_entry(lib, "fused_htr_ell_fwd", stream, (NR, EK.shape[0], D, lmax),
+               (t, EQ, EK, rl, nbr, W_g, b_g, out),
+               _flags((NR, EK.shape[0], K, D), t, EQ, lmax=lmax,
+                      sep_htr=sep_htr, rej=rej, gate=gate,
+                      pair_dtype=pair_dtype))
 
 
 def _launch_ell_backward(t, EQ, EK, rl, nbr, W_g, b_g, g, *, lmax, sep_htr,
                          rej, gate, pair_dtype, slots) -> Grads:
-    from gotennet_tpu_torch.ops._build import load_library
-
     who = "fused_htr_ell_backward"
     _check_ell_inputs(who, t, EQ, EK, rl, nbr, W_g, b_g, lmax=lmax,
                       gate=gate, pair_dtype=pair_dtype)
@@ -624,12 +591,9 @@ def _launch_ell_backward(t, EQ, EK, rl, nbr, W_g, b_g, g, *, lmax, sep_htr,
            f"{tuple(t.shape)} on {t.device}", who)
     slots = _checked_slots(who, slots, nbr, EK.shape[0])
     outs = ell_backward_outputs(t, EK)
-    with torch.cuda.device(t.device):
-        _call_ell_backward(load_library("fused_htr_ell_bwd.cu"),
-                           torch.cuda.current_stream(t.device).cuda_stream,
-                           t, EQ, EK, rl, nbr, W_g, b_g, g, slots, outs,
-                           lmax=lmax, sep_htr=sep_htr, rej=rej, gate=gate,
-                           pair_dtype=pair_dtype)
+    launch("fused_htr_ell_bwd.cu", _call_ell_backward, t, EQ, EK, rl, nbr,
+           W_g, b_g, g, slots, outs, lmax=lmax, sep_htr=sep_htr, rej=rej,
+           gate=gate, pair_dtype=pair_dtype)
     _counted_ell_bwd.launches += 1
     return tuple(outs)
 
@@ -650,18 +614,11 @@ def ell_backward_outputs(t, EK) -> List[torch.Tensor]:
 def _call_ell_backward(lib, stream, t, EQ, EK, rl, nbr, W_g, b_g, g, slots,
                        outs, *, lmax, sep_htr, rej, gate, pair_dtype) -> None:
     """One ELL backward through the C interface on ``stream`` into ``outs``
-    (as ``ell_backward_outputs`` makes them), with a workspace of the size
-    the library asks for; raises on a CUDA error.  Arguments are validated
-    by the caller."""
-    bf16 = torch.bfloat16
+    (as ``ell_backward_outputs`` makes them; ``call_entry``).  Arguments
+    are validated by the caller."""
     NR, K, D = t.shape
-    n_bytes = lib.gotennet_fused_htr_ell_bwd_workspace(NR, K, D)
-    work = torch.empty((n_bytes + 3) // 4, dtype=torch.float32,
-                       device=t.device)
-    err = lib.gotennet_fused_htr_ell_bwd(
-        *(a.data_ptr() for a in (t, EQ, EK, rl, nbr, W_g, b_g, g, *slots,
-                                 *outs, work)),
-        NR, EK.shape[0], K, D, lmax, int(sep_htr), int(rej),
-        GATES.index(gate), int(pair_dtype == bf16), int(t.dtype == bf16),
-        int(EQ.dtype == bf16), stream)
-    _raise_on(lib, err, "fused_htr_ell_bwd")
+    call_entry(lib, "fused_htr_ell_bwd", stream, (NR, K, D),
+               (t, EQ, EK, rl, nbr, W_g, b_g, g, *slots, *outs),
+               _flags((NR, EK.shape[0], K, D), t, EQ, lmax=lmax,
+                      sep_htr=sep_htr, rej=rej, gate=gate,
+                      pair_dtype=pair_dtype))

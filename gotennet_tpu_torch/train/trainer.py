@@ -57,8 +57,7 @@ from gotennet_tpu_torch.data.dataset import (BatchLoader, DenseLoader,
 from gotennet_tpu_torch.graph.batch import GraphBatch
 from gotennet_tpu_torch.graph.dense_batch import DenseBatch
 from gotennet_tpu_torch.graph.ell_batch import ELLBatch
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig, kernel_paths
 from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
                                              apply_with_forces, set_edge_axis)
 from gotennet_tpu_torch.tasks.base import Task
@@ -101,21 +100,20 @@ def make_loss_fn(model: GotenModel, task: Task) -> Callable:
 def check_force_training(cfg: GotenNetConfig, head: HeadConfig,
                          layout: str, chunks: Sequence = ()) -> None:
     """Raise ``ValueError`` where a force loss (``head.derivative``) would
-    train through a fused kernel: the dense layout with ``fused``, or an ELL
-    chunk for which ``fused_paths`` picks the fused message or update (the
-    edge layout runs no kernel).  The
+    train through a fused kernel: for any chunk (on the ELL layout; the
+    layout alone on the others) for which ``kernel_paths`` picks one.  The
     kernels' backward is differentiable once only (``once_differentiable``),
     as the JAX package's Pallas VJP is: its ``jax.value_and_grad`` of a force
     loss fails there too, which is why its force experiments leave ``fused``
     at False."""
-    if not head.derivative or layout == "edge":
+    if not head.derivative:
         return
-    if layout == "dense":
-        fused = cfg.fused
+    if layout == "ell":
+        paths = [kernel_paths(cfg, layout, b.nbr.shape[0], b.nbr.shape[0],
+                              b.gather_halo) for b in chunks]
     else:
-        fused = any(any(fused_paths(cfg, b.nbr.shape[0], b.nbr.shape[0],
-                                    b.gather_halo)) for b in chunks)
-    if fused:
+        paths = [kernel_paths(cfg, layout)]
+    if any(any(p) for p in paths):
         raise ValueError(
             f"training on forces (a head with derivative=True) through the "
             f"fused kernels on the {layout} layout: their backward is "

@@ -33,8 +33,7 @@ from gotennet_tpu.ops.pallas.fused_htr import make_fused_htr_ell
 from gotennet_tpu_torch.data.dataset import ELLLoader, synthetic_molecules
 from gotennet_tpu_torch.graph.ell_batch import collate_ell
 from gotennet_tpu_torch.graph.neighborlist import build_edges_np, spatial_order
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig, kernel_paths
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.ops import fused_ell, fused_htr
 from gotennet_tpu_torch.ops.fused_ell import (fused_ell_forward,
@@ -342,8 +341,8 @@ def test_ell_training_raises():
     cfg = _port_cfg(False, fused_table_rows=64)
     chunk, = make_chunks(mols, 2, "cpu", layout="ell")
     assert chunk.num_nodes > 64
-    assert fused_paths(cfg, chunk.num_nodes, chunk.num_nodes,
-                       chunk.gather_halo) == (False, False)
+    assert kernel_paths(cfg, "ell", chunk.num_nodes, chunk.num_nodes,
+                        chunk.gather_halo) == (False, False)
     losses = train_steps(cfg, HeadConfig(), mols, 2, chunk=2, device="cpu",
                          layout="ell")
     assert len(losses) == 2 and np.isfinite(losses).all()
@@ -367,7 +366,8 @@ def test_table_above_fused_table_rows_raises():
     outs = []
     for rows in (limit, 0):
         cfg = _port_cfg(False, fused_table_rows=rows)
-        assert fused_paths(cfg, N, N, batch.gather_halo) == (True, True)
+        assert kernel_paths(cfg, "ell", N, N,
+                            batch.gather_halo) == (True, True)
         model = GotenModel(cfg, HeadConfig(), layout="ell", device="cpu")
         with torch.inference_mode():
             outs.append(model(batch)["property"])

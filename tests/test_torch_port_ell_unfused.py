@@ -4,7 +4,8 @@ The ELL model takes the unfused message with ``fused=False`` (any
 activation, ``aggr`` add, mean or max) and the unfused HTR update without
 ``fused_htr`` (the ``large_molecule`` experiment's model: the fused message
 with the unfused update), with every update grammar the fused update takes
-(rejection on or off, per degree or joint, the three gates).  Each
+(rejection on or off, per degree or joint, the three gates), and the
+message's ``scale_edge`` and shared direction and tensor blocks.  Each
 configuration, from a converted JAX init, is held against JAX's model with
 and without gather windows; the training step against JAX's ``one_step``;
 forces against JAX's ``apply_with_forces``.  Sizes are small: D = 32, 2
@@ -32,8 +33,7 @@ from gotennet_tpu.train import optim as joptim
 from gotennet_tpu.train.trainer import make_loss_fn as j_make_loss_fn
 
 from gotennet_tpu_torch.data.dataset import ELLLoader, synthetic_molecules
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig, kernel_paths
 from gotennet_tpu_torch.models.model import (GotenModel, HeadConfig,
                                              apply_with_forces)
 from gotennet_tpu_torch.ops import fused_ell, fused_htr
@@ -51,7 +51,9 @@ SMALL = dict(n_atom_basis=32, n_interactions=2, lmax=2, num_heads=4,
 FRAMES = dict(min_atoms=40, max_atoms=60, box=6.3)
 META = {"mean": 0.0, "std": 1.0}
 # name -> (options of both configs); every branch of the unfused update's
-# pair sum (per degree or joint, with or without rejection) and each gate
+# pair sum (per degree or joint, with or without rejection) and each gate;
+# the message's post-softmax scale by the source's edge count, and one
+# direction and one tensor block shared by every degree
 CONFIGS = {
     "unfused": dict(fused=False),
     "unfused_mean": dict(fused=False, aggr="mean"),
@@ -61,6 +63,8 @@ CONFIGS = {
     "gatedt_joint": dict(fused=False, edge_updates="gatedt", sep_htr=False),
     "act_norej": dict(fused=True, fused_htr=False, edge_updates="act_norej"),
     "norej_joint": dict(fused=False, edge_updates="norej", sep_htr=False),
+    "scale_edge": dict(fused=False, scale_edge=True),
+    "shared_blocks": dict(fused=False, sep_dir=False, sep_tensor=False),
 }
 
 
@@ -80,16 +84,19 @@ def _configs(name, bf16=False):
 _PARAMS = {}
 
 
-def jax_params(sep_htr=True):
-    """One JAX init per parameter tree (``sep_htr`` changes W_vk); the dense
-    XLA model makes it, its tree is the ELL one."""
-    if sep_htr not in _PARAMS:
+def jax_params(sep_htr=True, sep_dir=True, sep_tensor=True):
+    """One JAX init per parameter tree (``sep_htr`` changes W_vk,
+    ``sep_dir`` and ``sep_tensor`` the message's widths); the dense XLA
+    model makes it, its tree is the ELL one."""
+    key = (sep_htr, sep_dir, sep_tensor)
+    if key not in _PARAMS:
         jds = j_synthetic(2, seed=0, min_atoms=5, max_atoms=9)
         jbatch = next(iter(JDenseLoader(jds, batch_size=2)))
-        model = JModel(JConfig(**SMALL, sep_htr=sep_htr), JHead(),
+        model = JModel(JConfig(**SMALL, sep_htr=sep_htr, sep_dir=sep_dir,
+                               sep_tensor=sep_tensor), JHead(),
                        layout="dense")
-        _PARAMS[sep_htr] = jax.jit(model.init)(jax.random.PRNGKey(0), jbatch)
-    return _PARAMS[sep_htr]
+        _PARAMS[key] = jax.jit(model.init)(jax.random.PRNGKey(0), jbatch)
+    return _PARAMS[key]
 
 
 def _batches(windows, seed=4, batch_size=2):
@@ -123,7 +130,7 @@ def test_unfused_model_matches_jax(name, dtype, windows, monkeypatch):
     bf16 = dtype == "bf16"
     jcfg, cfg = _configs(name, bf16)
     batch, jbatch = _batches(windows)
-    params = jax_params(cfg.sep_htr)
+    params = jax_params(cfg.sep_htr, cfg.sep_dir, cfg.sep_tensor)
     jout = jax.jit(JModel(jcfg, JHead(), layout="ell").apply)(params, jbatch)
     model = _port_model(cfg, params)
     calls = {"msg": 0, "htr": 0}
@@ -153,8 +160,8 @@ def test_unfused_paths_are_chosen_as_jax_does():
                      (dict(fused_htr=False), (True, False)),
                      (dict(fused_htr=True), (True, True))):
         cfg = GotenNetConfig(**SMALL, **kw)
-        assert fused_paths(cfg, 128, 128, None) == want
-        assert fused_paths(cfg, 4096, 4096, None) == (False, False)
+        assert kernel_paths(cfg, "ell", 128, 128, None) == want
+        assert kernel_paths(cfg, "ell", 4096, 4096, None) == (False, False)
 
 
 def test_update_variants_the_ell_layout_does_not_take_raise():
@@ -170,9 +177,9 @@ def test_update_variants_the_ell_layout_does_not_take_raise():
         jmodel = JModel(jcfg, JHead(), layout="ell")
         params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jbatch)
         cfg = GotenNetConfig(**SMALL, fused=False, **variant)
-        assert fused_paths(dataclasses.replace(cfg, fused=True,
-                                               fused_htr=True),
-                           64, 64, None) == (True, False)
+        assert kernel_paths(dataclasses.replace(cfg, fused=True,
+                                                fused_htr=True),
+                            "ell", 64, 64, None) == (True, False)
         with torch.inference_mode():
             pout = _port_model(cfg, params)(batch)
         _compare(jax.jit(jmodel.apply)(params, jbatch), pout, 1e-5)

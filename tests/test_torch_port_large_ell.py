@@ -96,13 +96,13 @@ ENERGY_TOL = {"f32": 1e-5, "bf16": 2e-2}
 @pytest.mark.parametrize("pair_dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("fused", [True, False])
 def test_energies_agree(fused, pair_dtype):
-    from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+    from gotennet_tpu_torch.models.gotennet import kernel_paths
     cfg = small_config(fused, pair_dtype)
     model, weights, loader = program(cfg, len(SIZES))
     (idx, batch), = loader.batches()
     assert batch.gather_window and batch.nbr.shape[1] == 12
-    assert fused_paths(model.cfg, batch.num_nodes, batch.num_nodes,
-                       batch.gather_halo) == (fused, fused)
+    assert kernel_paths(model.cfg, "ell", batch.num_nodes, batch.num_nodes,
+                        batch.gather_halo) == (fused, fused)
     with torch.no_grad():
         e = model(batch)["property"][:, 0]
     mols = [frames()[i] for i in idx]

@@ -17,6 +17,8 @@ Tolerance: float32, the same arithmetic with sums in another order ->
 1e-5 of each output's scale (gradients through one backward pass: 1e-4).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,13 +37,13 @@ from gotennet_tpu.nn.norms import TensorLayerNorm as JTensorLayerNorm
 
 from gotennet_tpu_torch.data.dataset import (BatchLoader, DenseLoader,
                                              ELLLoader, synthetic_molecules)
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-from gotennet_tpu_torch.models.gotennet_dense import _fused_update
-from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig, kernel_paths
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.nn.dense import init_weight_
 from gotennet_tpu_torch.nn.norms import TensorLayerNorm
+from gotennet_tpu_torch.ops.fused_ell import pick_chunking
 from gotennet_tpu_torch.ops.rbf import RadialBasis
+from gotennet_tpu_torch.train.trainer import check_force_training
 from gotennet_tpu_torch.utils.convert import (jax_params_from_state_dict,
                                               state_dict_from_jax_params)
 
@@ -219,8 +221,8 @@ def test_option_matches_jax(name, layout):
     htr = GotenNetConfig(**SMALL, **kw, fused_htr=True)
     if name in ("mlp_edge_ln", "gatedt_mlpa_linw_ln",
                 "gated_linwa_postln_evec"):
-        assert not _fused_update(htr)
-        assert fused_paths(htr, 64, 64, None) == (True, False)
+        assert kernel_paths(htr, "dense") == (True, False)
+        assert kernel_paths(htr, "ell", 64, 64, None) == (True, False)
     # the state dict maps back onto JAX's tree, array for array
     back = jax_params_from_state_dict(state, cfg)["params"]["representation"]
     want = jax.tree_util.tree_leaves_with_path(
@@ -250,3 +252,71 @@ def test_trainable_rbf_gradients_match_jax():
         want = jgrads["params"]["representation"]["radial_basis"][f]
         assert np.abs(got).max() > 0
         _scaled(got, want, 1e-4, f)
+
+
+# ---- which kernels a layer runs ------------------------------------------------
+# name -> (options, whether the fused HTR kernel computes the update's
+# grammar); every configuration asks for fused and fused_htr unless it says
+# otherwise
+PATH_CONFIGS = {
+    "unfused": (dict(fused=False), True),
+    "fused": (dict(fused_htr=False), True),
+    "fused_htr": ({}, True),
+    "gated": (dict(edge_updates="gated"), True),
+    "gatedt": (dict(edge_updates="gatedt"), True),
+    "act_norej": (dict(edge_updates="act_norej"), True),
+    "norej": (dict(edge_updates="norej"), True),
+    "mlp_edge_ln": (dict(edge_updates="mlp", edge_ln="layer"), False),
+    "mlpa": (dict(edge_updates="mlpa"), False),
+    "linw": (dict(edge_updates="linw"), False),
+    "linw_evec": (dict(edge_updates="linw", evec_dim=16), False),
+    "gated_postln": (dict(edge_updates="gated_postln"), False),
+    "gatedt_mlpa_linw_ln": (dict(edge_updates="gatedt_mlpa_linw_ln"), False),
+    "gated_linwa_postln_evec": (dict(edge_updates="gated_linwa_postln",
+                                     evec_dim=16), False),
+    "evec": (dict(evec_dim=16), False),
+    # normalises to silu, so the config takes it with fused; the dense
+    # layer's update takes it, the ELL one asks for the spelling "silu" or
+    # "swish", as in the JAX package
+    "SiLU": (dict(activation="SiLU"), True),
+}
+HALO = 64        # a 4,096-row table has a halo-windowed chunking with it
+ROWS = [(64, None), (64, HALO), (4096, None), (4096, HALO)]
+
+
+@pytest.mark.parametrize("layout", ["edge", "dense", "ell"])
+@pytest.mark.parametrize("name", list(PATH_CONFIGS))
+def test_kernel_paths_follow_the_rule_table(name, layout):
+    """``kernel_paths`` for each layout, configuration and table (64 and
+    4,096 rows, with and without a halo; fused_table_rows 2,048): the edge
+    layout runs no kernel; the dense message is fused with ``fused``, the
+    ELL one where its table is within fused_table_rows or has a chunking;
+    the update with the fused message, ``fused_htr`` and a grammar the
+    kernel computes, on the ELL layout with an activation spelt silu or
+    swish.  A force head refuses training exactly where a kernel runs."""
+    kw, grammar = PATH_CONFIGS[name]
+    cfg = GotenNetConfig(**SMALL, **dict(dict(fused=True, fused_htr=True),
+                                         **kw))
+    assert cfg.fused_table_rows == 2048
+    assert pick_chunking(4096, 4096, HALO, 2048) is not None
+    force = HeadConfig(derivative=True)
+    for N, halo in ROWS:
+        if layout == "edge":
+            want = (False, False)
+        elif layout == "dense":
+            want = (cfg.fused, cfg.fused and cfg.fused_htr and grammar)
+        else:
+            message = cfg.fused and (N <= 2048 or halo is not None)
+            want = (message, message and cfg.fused_htr and grammar
+                    and name != "SiLU")
+        assert kernel_paths(cfg, layout, N, N, halo) == want, (N, halo)
+        if layout != "ell":
+            assert kernel_paths(cfg, layout) == want
+        chunk = types.SimpleNamespace(nbr=torch.zeros(N, 4, dtype=torch.int32),
+                                      gather_halo=halo)
+        check_force_training(cfg, HeadConfig(), layout, [chunk])
+        if any(want):
+            with pytest.raises(ValueError, match="fused=False"):
+                check_force_training(cfg, force, layout, [chunk])
+        else:
+            check_force_training(cfg, force, layout, [chunk])

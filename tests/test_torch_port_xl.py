@@ -30,8 +30,7 @@ from gotennet_tpu.ops.pallas.fused_ell import pick_chunking as j_pick_chunking
 
 from gotennet_tpu_torch.data.dataset import ELLLoader, synthetic_molecules
 from gotennet_tpu_torch.graph.ell_batch import collate_ell
-from gotennet_tpu_torch.models.gotennet import GotenNetConfig
-from gotennet_tpu_torch.models.gotennet_ell import fused_paths
+from gotennet_tpu_torch.models.gotennet import GotenNetConfig, kernel_paths
 from gotennet_tpu_torch.models.model import GotenModel, HeadConfig
 from gotennet_tpu_torch.ops import fused_ell, fused_htr
 from gotennet_tpu_torch.utils.convert import state_dict_from_jax_params
@@ -107,7 +106,7 @@ def test_whole_table_matches_jax_chunked(pair, params, fused_htr_on,
     assert (cr, W, C) == j_pick_chunking(N, N, halo, LIMIT)
     assert C > 1 and W < N            # JAX really chunks here
     jmodel, model, cfg = _models(params, fused_htr_on, LIMIT)
-    assert fused_paths(cfg, N, N, halo) == (True, fused_htr_on)
+    assert kernel_paths(cfg, "ell", N, N, halo) == (True, fused_htr_on)
 
     def j_loss(p, pos):
         out = jmodel.apply(p, dataclasses.replace(jbatch, pos=pos))
@@ -166,7 +165,7 @@ def test_unchunkable_table_takes_the_unfused_paths(pair, params, case,
     jmodel, model, cfg = _models(params, False, rows)
     _, model_htr, cfg_htr = _models(params, True, rows)
     for c in (cfg, cfg_htr):
-        assert fused_paths(c, N, N, batch.gather_halo) == (False, False)
+        assert kernel_paths(c, "ell", N, N, batch.gather_halo) == (False, False)
     calls = _count_launches(monkeypatch)
     jout = jax.jit(jmodel.apply)(params, jbatch)
     with torch.inference_mode():
